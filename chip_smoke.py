@@ -1,24 +1,38 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one CUDA card: ``python3 chip_smoke.py``.
 
-The quickest proof that ``tpudist_torch`` builds and serves on the GPU.
-It imports the port, torch and numpy only, needs one card and no network,
-and builds every kernel from the sources in this checkout. Phases, each
-printing one JSON line and raising on failure:
+The quickest proof that ``tpudist_torch`` builds, serves and trains on the
+GPU. It imports the port, torch and numpy only, needs one card and no
+network, and builds every kernel from the sources in this checkout (one
+``nvcc`` per source, all started together). Phases, each printing one JSON
+line and raising on failure:
 
 1. card and build: the card (``nvidia-smi`` name and power limit, torch's
-   device name and CUDA version), then ``nvcc`` builds every kernel;
+   device name and CUDA version), then ``nvcc`` builds every kernel and
+   its ``-Xptxas -v`` report (registers, spills) is printed;
 2. kernel vs plain: each kernel against its plain-PyTorch version on the
-   card at the serving shapes and at a few odd ones, with its time, the
-   plain version's, one PyTorch library call's and the card's bound;
-3. the slice end to end: ``python -m tpudist_torch.serve`` serves
-   ViT-B/16 at 224 px in bf16 under a short open-loop load; every bucket
-   call must have gone through the flash kernel, and the logits of a
-   ``--flash on`` and a ``--flash off`` engine with the same weights must
-   agree; then one forward at batch 1 and 8 is broken down by kernel
-   (torch.profiler) beside its synchronised host wall;
-4. one ``{"kernels": [...]}`` line;
-5. last, ``{"ok": true, "device": {...}}``.
+   card, with its time, the plain version's, one PyTorch library call's
+   (where one computes the same function) and the card's bound:
+   a. the flash-attention forward at the serving shapes and odd ones;
+   b. the four fused BatchNorm epilogues (forward, forward+residual,
+      backward, backward+residual) at the five resnet18 shapes of batch
+      256 at 224 px in bf16 and three odd shapes in f32;
+3. serving end to end: ``python -m tpudist_torch.serve`` serves ViT-B/16
+   at 224 px in bf16 under a short open-loop load; every bucket call must
+   have gone through the flash kernel, and the logits of a ``--flash on``
+   and a ``--flash off`` engine with the same weights must agree; then one
+   forward at batch 1 and 8 is broken down by kernel (torch.profiler)
+   beside its synchronised host wall;
+4. training end to end: ``python -m tpudist_torch`` trains resnet18 at
+   224 px, batch 256, bf16, ``--fused-bn on`` for two short epochs; every
+   train step must launch the fused-norm kernels exactly 17 times in each
+   direction and validation none, every telemetry event must validate and
+   the losses must be finite; the first three steps' losses under
+   ``--fused-bn on`` and ``off`` (same seed, same batches) must agree;
+   then one train step on a device-resident batch is broken down by
+   kernel category beside its synchronised wall;
+5. one ``{"kernels": [...]}`` line;
+6. last, ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, without a CUDA card or without the
 rest of the repository.
@@ -40,9 +54,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tpudist_torch import __main__ as train_cli
+from tpudist_torch import config as config_lib
 from tpudist_torch import telemetry as telemetry_lib
+from tpudist_torch import train as train_lib
+from tpudist_torch.models import create_model
 from tpudist_torch.ops import _build
 from tpudist_torch.ops import flash_attention as fa
+from tpudist_torch.ops import fused_norm as fn
 from tpudist_torch.serve import __main__ as serve_cli
 from tpudist_torch.serve.engine import ServeEngine
 from tpudist_torch.serve.export import load_serve_state
@@ -64,6 +83,28 @@ BF16_TOL = 1e-2
 # rounds P before normalising and the plain path after, and the two
 # roundings of 2^-8 relative differ per layer across 12 layers.
 LOGITS_TOL = 5e-2
+
+# resnet18 at batch 256 and 224 px: the (rows, channels) of its BN
+# epilogues, stem then stages 1-4. Each stage has two blocks, each with a
+# BN+ReLU (bn1) and a BN+add+ReLU (bn2) at the stage's shape.
+TRAIN_B, TRAIN_PX = 256, 224
+RESNET18_SHAPES = [("stem", 256 * 112 * 112, 64), ("layer1", 256 * 56 * 56, 64),
+                   ("layer2", 256 * 28 * 28, 128),
+                   ("layer3", 256 * 14 * 14, 256),
+                   ("layer4", 256 * 7 * 7, 512)]
+ODD_SHAPES = [("f32_24x130", 24, 130), ("f32_40x8", 40, 8),
+              ("f32_2x5x5x64", 2 * 5 * 5, 64)]
+SITES_PER_STEP = 17
+# Elementwise operations per element, each counted once: fwd mul, add,
+# max; fwd_res also the rounding add; bwd mul, add, compare, dx mul, the
+# two accumulations; bwd_res also the rounding add.
+NORM_OPS = {"bn_act_fwd": 3, "bn_act_fwd_res": 4, "bn_act_bwd": 7,
+            "bn_act_bwd_res": 8}
+# --fused-bn on vs off, losses of the first 3 bf16 train steps: the two
+# epilogues fold the statistics in different f32 orders, so about 1e-4 of
+# the bf16 activations round one ulp (2^-8) apart, 17 layers deep, and two
+# SGD updates at lr 0.1 carry that into the weights.
+TRAIN_LOSS_TOL = 1e-2      # relative to max(1, |loss|)
 
 
 def emit(obj: dict) -> None:
@@ -351,6 +392,330 @@ def phase_forward_breakdown(model) -> dict:
     return out
 
 
+# -- phase 2b: the fused BatchNorm epilogues ----------------------------------
+
+def _norm_case(label, m, c, dtype, peaks, seed):
+    """All four epilogue kernels at one (M, C): each against its plain
+    version (y and dr must be equal; dx, and the partials and their sums,
+    within 20·tol·(1 + max|ref|)), timed beside the plain version, with
+    the card's bound for the function's bytes and operations."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*shape, dt=dtype):
+        return torch.randn(*shape, generator=g, device="cuda",
+                           dtype=torch.float32).to(dt)
+
+    x, r, dy = rand(m, c), rand(m, c), rand(m, c)
+    a, b = rand(c, dt=torch.float32), rand(c, dt=torch.float32)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    elt = x.element_size()
+    large = m * c > 10_000_000
+    rows = {}
+    for res in (False, True):
+        rr = r if res else None
+        y = fn.bn_act_fwd(x, rr, a, b)
+        dx, dr, da_p, db_p = fn.bn_act_bwd(x, rr, dy, a, b)
+        torch.cuda.synchronize()
+        y_ref = fn.bn_act_fwd_plain(x, rr, a, b, dtype)
+        dx_ref, dr_ref, da_ref, db_ref = fn.bn_act_bwd_plain(x, rr, dy, a, b)
+        y_err = (y.float() - y_ref.float()).abs().max().item()
+        if y_err > tol:
+            raise RuntimeError(f"{label} fwd res={res}: |y - plain| {y_err}")
+        errs = {"dx": (dx, dx_ref)}
+        if res:
+            errs["dr"] = (dr, dr_ref)
+        errs.update(da_partials=(da_p, da_ref), db_partials=(db_p, db_ref),
+                    da=(da_p.sum(0), da_ref.sum(0)),
+                    db=(db_p.sum(0), db_ref.sum(0)))
+        bwd_err = {}
+        for k, (got, want) in errs.items():
+            err = (got.float() - want.float()).abs().max().item()
+            bound = 20 * tol * (1 + want.float().abs().max().item())
+            if err > bound or (k == "dr" and not torch.equal(got, want)):
+                raise RuntimeError(f"{label} bwd res={res}: {k} differs by "
+                                   f"{err} (bound {bound})")
+            bwd_err[k] = err
+        n_io = 3 if res else 2     # forward: x (and r) read, y written
+        for name, fwd in (("bn_act_fwd_res" if res else "bn_act_fwd", True),
+                          ("bn_act_bwd_res" if res else "bn_act_bwd", False)):
+            if fwd:
+                nbytes = n_io * m * c * elt + 2 * c * 4
+                kern = lambda: fn.bn_act_fwd(x, rr, a, b)  # noqa: E731
+                plain = lambda: fn.bn_act_fwd_plain(  # noqa: E731
+                    x, rr, a, b, dtype)
+                err = y_err
+            else:
+                # x, dy (and r) read; dx (and dr) written; a, b read and
+                # da, db written as (C,) f32.
+                nbytes = (n_io + 1 + res) * m * c * elt + 4 * c * 4
+                kern = lambda: fn.bn_act_bwd(x, rr, dy, a, b)  # noqa: E731
+                plain = lambda: fn.bn_act_bwd_plain(  # noqa: E731
+                    x, rr, dy, a, b)
+                err = max(bwd_err.values())
+            ops = NORM_OPS[name] * m * c
+            t_bytes = nbytes / peaks["hbm"] * 1e3
+            t_ops = ops / peaks["f32"] * 1e3
+            rows[name] = {
+                "case": label, "shape": [m, c],
+                "dtype": str(dtype).replace("torch.", ""), "tol": tol,
+                "max_abs_err": err, "errors": bwd_err if not fwd else
+                {"y": y_err}, "bytes": nbytes, "ops": ops,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "kernel_ms": time_ms(kern),
+                "plain_ms": time_ms(plain, reps=5 if large else 25,
+                                    inner=2 if large else 10),
+                # No one PyTorch call computes relu(x·a + b) with this
+                # rounding (or its backward with per-block partials).
+                "library_ms": None}
+    return rows
+
+
+def phase_fused_norm_vs_plain(peaks: dict) -> dict:
+    cases = [(label, m, c, torch.bfloat16) for label, m, c in RESNET18_SHAPES]
+    cases += [(label, m, c, torch.float32) for label, m, c in ODD_SHAPES]
+    rows = []
+    for i, (label, m, c, dtype) in enumerate(cases):
+        for name, row in _norm_case(label, m, c, dtype, peaks, i).items():
+            rows.append(dict(row, kernel=name))
+    out = {"phase": "fused_norm_vs_plain", "cases": rows,
+           "library_ms": "null: no single PyTorch call computes the "
+                         "epilogue with its rounding, or its backward "
+                         "with per-block partials"}
+    emit(out)
+    return out
+
+
+# -- phase 4: training end to end ---------------------------------------------
+
+def _epoch_losses(text: str, kind: str) -> list[float]:
+    return [float(ln.split("Loss ")[1].split()[0]) for ln in text.splitlines()
+            if ln.startswith(f"||==> {kind}: Epoch[")]
+
+
+def phase_train() -> dict:
+    outdir = os.path.join(tempfile.mkdtemp(prefix="tpudist_torch_train_"),
+                          "run")
+    argv = ["--synthetic", "-a", "resnet18", "--image-size", str(TRAIN_PX),
+            "--num-classes", "1000", "-b", str(TRAIN_B), "--epochs", "2",
+            "--use_amp", "--fused-bn", "on", "--telemetry", "--seed", "0",
+            "--outpath", outdir, "--synthetic-size", "2048", "--step", "1",
+            "-p", "4"]
+    buf = io.StringIO()
+    fn.reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = train_cli.main(argv)
+    wall_s = time.perf_counter() - t0
+    launches, relayouts = dict(fn.LAUNCHES), fn.RELAYOUTS
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    if rc != 0 or not text.splitlines()[-1].startswith("best_acc1="):
+        raise RuntimeError(f"python -m tpudist_torch exited {rc}")
+    with open(telemetry_lib.events_path(outdir, 0)) as f:
+        events = [json.loads(ln) for ln in f]
+    for ev in events:
+        telemetry_lib.validate_event(ev)
+    steps = [e for e in events if e["type"] == "step"]
+    n = len(steps)
+    want = {"bn_act_fwd": 9 * n, "bn_act_fwd_res": 8 * n,
+            "bn_act_bwd": 9 * n, "bn_act_bwd_res": 8 * n}
+    if n != 16 or launches != want:
+        raise RuntimeError(f"fused-norm launches {launches} for {n} train "
+                           f"steps; want {want} (17 a step each way, none "
+                           f"in validation)")
+    train_l, val_l = _epoch_losses(text, "Train"), _epoch_losses(text, "Val")
+    if len(train_l) != 2 or len(val_l) != 2 or not all(
+            np.isfinite(train_l + val_l)):
+        raise RuntimeError(f"train losses {train_l}, val losses {val_l}")
+    steady = [e["step_s"] for e in steps[1:]]
+    end = events[-1]
+    out = {"phase": "train", "arch": "resnet18", "image_size": TRAIN_PX,
+           "batch": TRAIN_B, "dtype": "bfloat16", "wall_s": wall_s,
+           "train_steps": n, "fused_norm_launches": launches,
+           "launches_per_step": {k: v / n for k, v in launches.items()},
+           "relayouts": relayouts, "train_loss": train_l,
+           "val_loss": val_l,
+           "best_acc1": float(text.splitlines()[-1].split("=")[1]),
+           "host_step_s_p50": statistics.median(steady),
+           "host_data_s_p50": statistics.median(
+               e["data_s"] for e in steps[1:]),
+           "host_compute_s_p50": statistics.median(
+               e["compute_s"] for e in steps[1:]),
+           "run_end": {k: end[k] for k in ("wall_s", "productive_s",
+                                           "goodput", "compile_s",
+                                           "data_wait_s", "eval_s")}}
+    emit(out)
+    return out
+
+
+def _train_setup(fused: bool, seed: int = 0):
+    cfg = config_lib.Config(batch_size=TRAIN_B, image_size=TRAIN_PX,
+                            fused_bn="on" if fused else "off")
+    model = create_model("resnet18", dtype=torch.bfloat16, fused_bn=fused)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    model.cuda()
+    step = train_lib.make_train_step(
+        model, train_lib.make_optimizer(model, cfg), cfg)
+    return model, step
+
+
+def _device_batch(seed: int):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    images = torch.randn(TRAIN_B, TRAIN_PX, TRAIN_PX, 3, generator=g,
+                         device="cuda")
+    labels = torch.randint(0, 1000, (TRAIN_B,), generator=g, device="cuda")
+    return images, labels
+
+
+def phase_fused_vs_plain_losses() -> dict:
+    batches = [_device_batch(100 + i) for i in range(3)]
+    losses = {}
+    for mode in ("on", "off"):
+        _, step = _train_setup(mode == "on")
+        losses[mode] = [float(step(x, y, 0.1)["loss"]) for x, y in batches]
+    diffs = [abs(a - b) for a, b in zip(losses["on"], losses["off"])]
+    for d, ref in zip(diffs, losses["off"]):
+        if not np.isfinite(d) or d > TRAIN_LOSS_TOL * max(1.0, abs(ref)):
+            raise RuntimeError(f"--fused-bn on vs off losses {losses}")
+    out = {"phase": "fused_vs_plain_losses", "losses_on": losses["on"],
+           "losses_off": losses["off"], "abs_diff": diffs,
+           "tol_relative": TRAIN_LOSS_TOL}
+    emit(out)
+    return out
+
+
+def _train_category(kernel: str) -> str:
+    n = kernel.lower()
+    if "bn_act_fwd" in n:
+        return "fused_norm_fwd"
+    if "bn_act_bwd" in n:
+        return "fused_norm_bwd"
+    if "pool" in n:
+        return "pool"
+    if any(s in n for s in ("dgrad", "wgrad", "bprop", "backward_data",
+                            "backward_filter")):
+        return "conv_bwd"
+    if any(s in n for s in ("conv", "cudnn", "xmma", "fprop",
+                            "implicit_gemm", "nhwc", "nchw")):
+        return "conv_fwd"
+    if any(s in n for s in ("gemm", "cutlass", "nvjet", "cublas")):
+        return "matmul"
+    if "reduce" in n:
+        return "bn_statistics"
+    if "multi_tensor" in n or "sgd" in n:
+        return "optimizer"
+    if any(s in n for s in ("copy", "cast", "convert", "memcpy")):
+        return "casts_copies"
+    if "elementwise" in n:
+        return "elementwise"
+    return "other"
+
+
+def phase_train_breakdown() -> dict:
+    """One resnet18 train step (batch 256, 224 px, bf16, --fused-bn on)
+    on a device-resident batch: synchronised wall (median of 15),
+    images/s, device busy time by category (torch.profiler over 3 steps),
+    the idle share, kernels a step and the fused backward's re-layouts."""
+    _, step = _train_setup(True)
+    x, y = _device_batch(7)
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        step(x, y, 0.1)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(15):
+        t0 = time.perf_counter()
+        step(x, y, 0.1)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(walls)
+    n = 3
+    fn.reset_counts()
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        for _ in range(n):
+            step(x, y, 0.1)
+        torch.cuda.synchronize()
+    relayouts = fn.RELAYOUTS / n
+    by_cat: dict[str, float] = {}
+    kernels = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us <= 0:
+            continue
+        ms = us / 1e3 / n
+        cat = _train_category(e.key)
+        by_cat[cat] = by_cat.get(cat, 0.0) + ms
+        kernels.append({"kernel": e.key[:90], "category": cat, "ms": ms,
+                        "calls": e.count / n})
+    busy = sum(by_cat.values())
+    kernels.sort(key=lambda k: -k["ms"])
+    out = {"phase": "train_step_breakdown", "arch": "resnet18",
+           "batch": TRAIN_B, "image_size": TRAIN_PX, "dtype": "bfloat16",
+           "fused_bn": "on", "wall_ms_p50": wall,
+           "wall_ms_min": min(walls), "images_per_s": TRAIN_B / wall * 1e3,
+           "device_busy_ms": busy if busy else "not measured",
+           "idle_share": 1.0 - busy / wall if busy else "not measured",
+           "by_category_ms": by_cat or "not measured",
+           "kernel_launches_per_step": sum(k["calls"] for k in kernels),
+           "relayouts_per_step": relayouts,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "top_kernels": kernels[:20]}
+    emit(out)
+    return out
+
+
+def _norm_kernel_entries(norm: dict, train: dict, card: dict) -> list:
+    """The four fused-norm entries of the kernels line: the main row is
+    the largest main-path shape of each kernel (the stem for the plain
+    epilogue, stage 1 for the residual one); ``step_ms`` sums the kernel's
+    measured time over one step's launches at their shapes."""
+    replaces = {
+        "bn_act_fwd": "tpudist/ops/pallas/fused_norm.py:83 (_fwd_kernel, "
+                      "via _fwd_call)",
+        "bn_act_fwd_res": "tpudist/ops/pallas/fused_norm.py:89 "
+                          "(_fwd_res_kernel, via _fwd_call)",
+        "bn_act_bwd": "tpudist/ops/pallas/fused_norm.py:100 (_bwd_kernel, "
+                      "via _bwd_call)",
+        "bn_act_bwd_res": "tpudist/ops/pallas/fused_norm.py:110 "
+                          "(_bwd_res_kernel, via _bwd_call)"}
+    # Launches a step at each shape: the stem once (plain only), each
+    # stage twice.
+    per_step = {"stem": 1, "layer1": 2, "layer2": 2, "layer3": 2,
+                "layer4": 2}
+    out = []
+    for name in fn.KERNELS:
+        rows = [r for r in norm["cases"] if r["kernel"] == name]
+        res = name.endswith("_res")
+        main = [r for r in rows if r["case"] == ("layer1" if res
+                                                 else "stem")][0]
+        step_rows = [(r, per_step[r["case"]]) for r in rows
+                     if r["case"] in per_step
+                     and not (res and r["case"] == "stem")]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "tpudist_torch/ops/csrc/fused_norm.cu",
+            "replaces": replaces[name],
+            "launches": train["fused_norm_launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": main["kernel_ms"], "kernel_ms": main["kernel_ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "shape": main["shape"], "dtype": main["dtype"],
+            "step_ms": sum(r["kernel_ms"] * k for r, k in step_rows),
+            "step_bound_ms": sum(r["bound_ms"] * k for r, k in step_rows),
+            "by_shape": [{k: r[k] for k in ("case", "shape", "kernel_ms",
+                                            "plain_ms", "bound_ms")}
+                         for r in rows],
+            "card": card["nvidia_smi"]})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -361,8 +726,13 @@ def main() -> int:
     card = phase_card_and_build()
     _, peaks = peaks_for(card["device_name"])
     kern = phase_kernel_vs_plain(peaks)
+    norm = phase_fused_norm_vs_plain(peaks)
     serve, model = phase_serve()
     phase_forward_breakdown(model)
+    del model
+    train = phase_train()
+    phase_fused_vs_plain_losses()
+    phase_train_breakdown()
 
     serve_rows = [r for r in kern["cases"] if r["case"].startswith("serve_")]
     main_row = serve_rows[-1]              # bucket 8, the largest call
@@ -381,7 +751,8 @@ def main() -> int:
         "by_batch": [{k: r[k] for k in ("shape", "kernel_ms", "plain_ms",
                                          "library_ms", "bound_ms")}
                      for r in serve_rows],
-        "card": card["nvidia_smi"]}]})
+        "card": card["nvidia_smi"]}] + _norm_kernel_entries(norm, train,
+                                                            card)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -75,10 +75,13 @@ def test_vit_b_16_param_count_on_meta():
 
 
 def test_unknown_arch_lists_the_available():
-    with pytest.raises(ValueError, match="vit_b_16"):
-        create_model("resnet18")
-    assert model_names() == ["vit_b_16", "vit_b_32", "vit_h_14", "vit_l_16",
-                             "vit_l_32"]
+    with pytest.raises(ValueError, match="resnet18, .*vit_b_16"):
+        create_model("alexnet")
+    assert model_names() == [
+        "resnet101", "resnet152", "resnet18", "resnet34", "resnet50",
+        "resnext101_32x8d", "resnext50_32x4d", "vit_b_16", "vit_b_32",
+        "vit_h_14", "vit_l_16", "vit_l_32", "wide_resnet101_2",
+        "wide_resnet50_2"]
 
 
 def test_fresh_init_follows_the_flax_distributions():
