@@ -121,7 +121,7 @@ def test_plain_bodies_match_the_pallas_kernels(dtype, shape, residual):
     x2, dy2, r2 = _t(d["x"], tdt), _t(d["dy"], tdt), _t(d["r"], tdt)
     jx, jdy, jr = _j(d["x"], jdt), _j(d["dy"], jdt), _j(d["r"], jdt)
 
-    y = fn.bn_act_fwd_plain(x2, r2, _t(a), _t(b), tdt)
+    y = fn.bn_act_fwd_plain(x2, r2, _t(a), _t(b))
     jy = jfn._fwd_call(jx, jr, _j(a)[None], _j(b)[None], jdt, True)
     assert y.dtype == tdt
     _close(y, jy, tol, "y")
@@ -231,3 +231,15 @@ def test_batchnorm_train_mode_takes_the_functions():
         fn.reset_counts()
         y = bn(x, act="relu")
     assert torch.all(y >= 0) and not calls[1:]
+
+
+def test_fused_batchnorm_refuses_an_output_dtype_other_than_xs():
+    """The fused epilogue writes x's dtype; a BatchNorm whose dtype differs
+    refuses in train mode rather than write another dtype than its plain
+    epilogue would."""
+    x = torch.randn(2, 8, 3, 3).to(memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="writes x's dtype"):
+        BatchNorm(8, dtype=torch.bfloat16)(x, act="relu")
+    assert BatchNorm(8, dtype=torch.bfloat16, fused=False)(
+        x, act="relu").dtype == torch.bfloat16
+    assert BatchNorm(8)(x.bfloat16(), act="relu").dtype == torch.bfloat16

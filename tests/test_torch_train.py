@@ -7,14 +7,17 @@ one-device mesh with its plain BN epilogue, the port's eager step with its
 fused ``Function``s (the kernels' plain bodies on the CPU) and with
 ``--fused-bn off``. At f32 the per-step loss agrees within 1e-5 after one
 step and 1e-4 over five, and every parameter and running statistic lies
-within 1e-3 of its largest update (or 1e-6 absolute). The batch and lr
-(16, 0.005) are ones at which tpudist's jitted step agrees with
-``jax.grad`` of its own loss: on some batches (32 images, or 8 at 64 px)
-it does not, by up to 11 % of one update in ``layer4_0`` while the port
-agrees with ``jax.grad`` to 1e-5, and the gap compounds over five steps
-(ROADMAP, Queue 3). A bf16 step is finite and within 2e-2 of tpudist's
-loss. ``lr_for_epoch``
-equals tpudist's on every epoch of the default schedule and of others.
+within 1e-3 of its largest update (or 1e-6 absolute). A bf16 step is
+finite and within 2e-2 of tpudist's loss. ``lr_for_epoch`` equals
+tpudist's on every epoch of the default schedule and of others.
+
+The port's first SGD update, read back as a gradient, is also held against
+``jax.jit(jax.value_and_grad(tpudist.train._loss_fn))`` at batches 16, 24
+and 32. At 24 and 32 the two f32 gradients differ by about a tenth of a
+leaf's largest entry: a pre-activation lies within f32 rounding of a ReLU
+kink, and the two forwards land on either side of it. There the float64
+central difference of the loss sides with tpudist at 24 and with the port
+at 32, and the port's float64 backward equals that difference.
 """
 
 import functools
@@ -37,6 +40,7 @@ from tpudist_torch import train as port_train  # noqa: E402
 from tpudist_torch.compat.jax_params import (  # noqa: E402
     resnet_state_dict_from_jax)
 from tpudist_torch.models import create_model  # noqa: E402
+from tpudist_torch.ops.mixup import mixed_ce  # noqa: E402
 
 pytestmark = pytest.mark.torch_port
 
@@ -63,10 +67,10 @@ def _plain_jax_epilogue():
     norm_dispatch.set_mode(None)
 
 
-def _batches(k, seed=0):
+def _batches(k, seed=0, batch=BATCH):
     rng = np.random.default_rng(seed)
-    return [(rng.standard_normal((BATCH, 32, 32, 3)).astype(np.float32),
-             rng.integers(0, 10, BATCH).astype(np.int32)) for _ in range(k)]
+    return [(rng.standard_normal((batch, 32, 32, 3)).astype(np.float32),
+             rng.integers(0, 10, batch).astype(np.int32)) for _ in range(k)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -126,6 +130,66 @@ def test_sgd_steps_match_tpudist(n_steps, tol, fused):
         update = float((want[k] - init[k]).abs().max())
         err = float((got[k] - want[k]).abs().max())
         assert err <= max(1e-3 * update, 1e-6), (k, err, update)
+
+
+def _port_model(host_state, dtype):
+    pm = create_model("resnet18", dtype=dtype, fused_bn=True, **TINY)
+    pm.load_state_dict(resnet_state_dict_from_jax(
+        host_state.params, host_state.batch_stats), strict=True)
+    return pm.to(dtype)
+
+
+@pytest.mark.parametrize("batch", [16, 24, 32])
+def test_first_sgd_update_against_jax_grad_and_float64(batch, monkeypatch):
+    host_state, _ = _jax_side(False)
+    (x, y), = _batches(1, batch=batch)
+    jm = jax_resnet.resnet18(dtype=jnp.float32, **TINY)
+    (jloss, _), jgrad = jax.jit(jax.value_and_grad(
+        lambda p: jax_train._loss_fn(jm, jax.random.PRNGKey(0), p,
+                                     host_state.batch_stats, jnp.asarray(x),
+                                     jnp.asarray(y)), has_aux=True))(
+        host_state.params)
+    want = resnet_state_dict_from_jax(jax.device_get(jgrad),
+                                      host_state.batch_stats)
+
+    pcfg = port_config.Config(**dict(FIELDS, batch_size=batch))
+    lr = FIELDS["lr"]
+    pm = _port_model(host_state, torch.float32)
+    p0 = {k: v.detach().clone() for k, v in pm.named_parameters()}
+    pstep = port_train.make_train_step(
+        pm, port_train.make_optimizer(pm, pcfg), pcfg)
+    loss = pstep(torch.from_numpy(x), torch.from_numpy(y), lr)["loss"]
+    assert abs(float(loss) - float(jloss)) <= 1e-5
+    got = {k: (p0[k] - v.detach()) / lr - pcfg.weight_decay * p0[k]
+           for k, v in pm.named_parameters()}
+    gap, k = max((float((got[k] - want[k]).abs().max()
+                        / want[k].abs().max()), k) for k in got)
+    e = np.unravel_index(int((got[k] - want[k]).abs().argmax()),
+                         tuple(got[k].shape))
+    scale = float(want[k].abs().max())
+
+    # The same loss in float64 at the widest gap: the port's backward and a
+    # central difference (h = 1e-8, well inside the kink's distance).
+    monkeypatch.setattr(torch.Tensor, "float", lambda t: t.double())
+    pm64 = _port_model(host_state, torch.float64)
+    x64, y64 = torch.from_numpy(x).double(), torch.from_numpy(y).long()
+    f64_loss = lambda: mixed_ce(pm64.train()(x64), y64, None,  # noqa: E731
+                                None, 0.0)
+    f64_loss().backward()
+    w = dict(pm64.named_parameters())[k]
+    ends = []
+    with torch.no_grad():
+        for h in (1e-8, -1e-8):
+            w[e] += h
+            ends.append(float(f64_loss()))
+            w[e] -= h
+    fd = (ends[0] - ends[1]) / 2e-8
+    assert abs(float(w.grad[e]) - fd) <= 1e-5 * scale, (k, e)
+    sides = {"port": abs(float(got[k][e]) - fd),
+             "tpudist": abs(float(want[k][e]) - fd)}
+    assert min(sides.values()) <= 1e-3 * scale, (k, e, gap, sides)
+    if batch == 16:
+        assert gap <= 1e-3, (k, gap)
 
 
 def test_bf16_step_is_finite_and_near_tpudist():

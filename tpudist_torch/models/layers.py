@@ -91,9 +91,11 @@ class BatchNorm(nn.Module):
             mean, var = self.mean, self.var
         out_dt = self.dtype or x.dtype
         if act == "relu" and self.training and self.fused:
+            if x.dtype != out_dt:
+                raise ValueError(f"the fused epilogue writes x's dtype "
+                                 f"{x.dtype}; this BatchNorm's is {out_dt}")
             yh = fused_bn_act(xh, self.scale, self.bias, mean, var,
-                              eps=self.epsilon, residual=rh,
-                              out_dtype=out_dt)
+                              eps=self.epsilon, residual=rh)
         else:
             yh = reference_bn_act(xh, self.scale, self.bias, mean, var,
                                   eps=self.epsilon, residual=rh,

@@ -16,8 +16,7 @@ source note says what bounds them on the card and how they are laid out.
   CUDA tensor, or raises: there is no fallback. On a CPU tensor it takes
   the plain-PyTorch version of the same kernel body (``bn_act_fwd_plain``,
   ``bn_act_bwd_plain``, with the same ``(ceil(M/rows), C)`` partials), so
-  the CPU tests exercise the ``Function``s' own backward. A ``meta`` tensor
-  (shape inference, no data) takes the plain version too.
+  the CPU tests exercise the ``Function``s' own backward.
 - ``LAUNCHES`` counts kernel launches per kernel, and nothing else;
   ``RELAYOUTS`` counts the backward's copies of an incoming gradient that
   was not laid out as rows of channels.
@@ -25,14 +24,12 @@ source note says what bounds them on the card and how they are laid out.
 Shapes: ``x`` is ``(..., C)`` channels-last (an NHWC activation; a
 channels_last NCHW tensor permuted to NHWC is such a view). On the card the
 flattened ``(M, C)`` view must be contiguous: the wrapper raises rather
-than copy.
+than copy. The output has x's dtype (the storage dtype of x and r).
 """
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
-import math
 
 import torch
 import torch.nn.functional as F
@@ -53,7 +50,6 @@ BWD_BLOCK_ROWS = 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _fns: dict = {}
-_record: list | None = None
 
 
 def reset_counts() -> None:
@@ -61,19 +57,6 @@ def reset_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     RELAYOUTS = 0
-
-
-@contextlib.contextmanager
-def record_requests():
-    """Collect the ``(rows, channels, dtype, residual)`` workload of every
-    ``fused_bn_act`` call made inside the block (the trainer's dispatch
-    line counts them)."""
-    global _record
-    prev, _record = _record, []
-    try:
-        yield _record
-    finally:
-        _record = prev
 
 
 def _kernel(name: str):
@@ -114,12 +97,10 @@ def _pre_act(x2, r2, a, b):
     return pre
 
 
-def bn_act_fwd_plain(x2, r2, a, b, out_dtype):
-    """``relu(x·a + b)`` (B1) or ``relu(T(T(x·a + b) + r))`` (B2)."""
-    if r2 is not None:
-        pre = (x2.float() * a + b).to(out_dtype) + r2.to(out_dtype)
-        return torch.relu(pre).to(out_dtype)
-    return torch.relu(x2.float() * a + b).to(out_dtype)
+def bn_act_fwd_plain(x2, r2, a, b):
+    """``relu(x·a + b)`` (B1) or ``relu(T(T(x·a + b) + r))`` (B2), in x's
+    dtype ``T``."""
+    return torch.relu(_pre_act(x2, r2, a, b)).to(x2.dtype)
 
 
 def bn_act_bwd_plain(x2, r2, dy2, a, b, block_rows: int = BWD_BLOCK_ROWS):
@@ -159,7 +140,15 @@ def _check(x2, r2, a, b, others=()):
         raise ValueError(f"fused_norm operands on several devices: {devs}")
 
 
-def _kernel_ready(x2, r2, a, b, others=(), out_dtype=None) -> None:
+def _require_rows(t: torch.Tensor) -> None:
+    if not t.is_contiguous():
+        raise ValueError(
+            "fused_norm kernel needs contiguous (M, C) rows: pass a "
+            "channels_last activation (NHWC view); got strides "
+            f"{t.stride()} for shape {tuple(t.shape)}")
+
+
+def _kernel_ready(x2, r2, a, b, others=()) -> None:
     """Raise unless the CUDA kernel takes these operands as they are."""
     if x2.device.type != "cuda":
         raise ValueError(f"fused_norm runs on cuda or cpu tensors, got "
@@ -171,26 +160,18 @@ def _kernel_ready(x2, r2, a, b, others=(), out_dtype=None) -> None:
         if t.dtype != x2.dtype:
             raise ValueError(f"fused_norm kernel needs one storage dtype, got "
                              f"{x2.dtype} and {t.dtype}")
-    if out_dtype is not None and out_dtype != x2.dtype:
-        raise ValueError(f"fused_norm kernel writes x's dtype {x2.dtype}, "
-                         f"asked for {out_dtype}")
     if a.dtype != torch.float32 or b.dtype != torch.float32:
         raise ValueError("fused_norm kernel takes f32 a and b")
     for t in [t for t in (x2, r2, a, b, *others) if t is not None]:
-        if not t.is_contiguous():
-            raise ValueError(
-                "fused_norm kernel needs contiguous (M, C) rows: pass a "
-                "channels_last activation (NHWC view); got strides "
-                f"{t.stride()} for shape {tuple(t.shape)}")
+        _require_rows(t)
 
 
-def bn_act_fwd(x2, r2, a, b, out_dtype=None):
+def bn_act_fwd(x2, r2, a, b):
     """B1 (``r2`` None) or B2: the epilogue forward on ``(M, C)`` rows."""
-    out_dtype = out_dtype or x2.dtype
     _check(x2, r2, a, b)
-    if x2.device.type in ("cpu", "meta"):
-        return bn_act_fwd_plain(x2, r2, a, b, out_dtype)
-    _kernel_ready(x2, r2, a, b, out_dtype=out_dtype)
+    if x2.device.type == "cpu":
+        return bn_act_fwd_plain(x2, r2, a, b)
+    _kernel_ready(x2, r2, a, b)
     m, c = x2.shape
     y = torch.empty_like(x2)
     dt = DTYPES[x2.dtype]
@@ -206,7 +187,7 @@ def bn_act_fwd(x2, r2, a, b, out_dtype=None):
 def bn_act_bwd(x2, r2, dy2, a, b):
     """B3 (``r2`` None) or B4: ``(dx, dr, da_partials, db_partials)``."""
     _check(x2, r2, a, b, others=(dy2,))
-    if x2.device.type in ("cpu", "meta"):
+    if x2.device.type == "cpu":
         return bn_act_bwd_plain(x2, r2, dy2, a, b)
     _kernel_ready(x2, r2, a, b, others=(dy2,))
     m, c = x2.shape
@@ -231,8 +212,10 @@ def bn_act_bwd(x2, r2, dy2, a, b):
 # -- autograd ----------------------------------------------------------------
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
-    """``(..., C)`` → ``(M, C)``: a view where the layout allows, else (on
-    the CPU only; the wrapper refuses on the card) a copy."""
+    """``(..., C)`` → ``(M, C)``: on the card a view of contiguous rows, or
+    it raises; on the CPU a copy where no view exists."""
+    if t.device.type == "cuda":
+        _require_rows(t)
     return t.reshape(-1, t.shape[-1])
 
 
@@ -251,33 +234,32 @@ class _FusedPlain(torch.autograd.Function):
     """``relu(x·a + b)``: the counterpart of ``_fused_plain``."""
 
     @staticmethod
-    def forward(ctx, x, a, b, out_dtype):
+    def forward(ctx, x, a, b):
         ctx.save_for_backward(x, a, b)
-        return bn_act_fwd(_rows(x), None, a, b, out_dtype).view(x.shape)
+        return bn_act_fwd(_rows(x), None, a, b).view(x.shape)
 
     @staticmethod
     def backward(ctx, dy):
         x, a, b = ctx.saved_tensors
         dx, _, da_p, db_p = bn_act_bwd(_rows(x), None, _rows(_dense_grad(dy)),
                                        a, b)
-        return dx.view(x.shape), da_p.sum(0), db_p.sum(0), None
+        return dx.view(x.shape), da_p.sum(0), db_p.sum(0)
 
 
 class _FusedRes(torch.autograd.Function):
     """``relu(T(x·a + b) + r)``: the counterpart of ``_fused_res``."""
 
     @staticmethod
-    def forward(ctx, x, r, a, b, out_dtype):
+    def forward(ctx, x, r, a, b):
         ctx.save_for_backward(x, r, a, b)
-        return bn_act_fwd(_rows(x), _rows(r), a, b, out_dtype).view(x.shape)
+        return bn_act_fwd(_rows(x), _rows(r), a, b).view(x.shape)
 
     @staticmethod
     def backward(ctx, dy):
         x, r, a, b = ctx.saved_tensors
         dx, dr, da_p, db_p = bn_act_bwd(_rows(x), _rows(r),
                                         _rows(_dense_grad(dy)), a, b)
-        return (dx.view(x.shape), dr.view(r.shape), da_p.sum(0),
-                db_p.sum(0), None)
+        return dx.view(x.shape), dr.view(r.shape), da_p.sum(0), db_p.sum(0)
 
 
 def fold(scale, bias, mean, var, eps: float):
@@ -288,33 +270,21 @@ def fold(scale, bias, mean, var, eps: float):
 
 
 def fused_bn_act(x: torch.Tensor, scale, bias, mean, var, *,
-                 eps: float = 1e-5, residual: torch.Tensor | None = None,
-                 out_dtype=None) -> torch.Tensor:
+                 eps: float = 1e-5,
+                 residual: torch.Tensor | None = None) -> torch.Tensor:
     """Fused BN epilogue ``relu(normalize(x)·scale + bias [+ residual])``.
 
     ``x``/``residual``: ``(..., C)`` channels-last; ``scale``/``bias``/
     ``mean``/``var``: per-channel vectors, the statistics computed by the
-    caller. Returns ``out_dtype`` (default x's). Differentiable in every
-    argument through the backward kernel and the fold."""
+    caller. Returns x's dtype. Differentiable in every argument through the
+    backward kernel and the fold."""
     if residual is not None and residual.shape != x.shape:
         raise ValueError(f"fused residual shape {tuple(residual.shape)} != "
                          f"x {tuple(x.shape)}")
-    if x.device.type == "cuda":
-        for t in (x, residual):
-            if t is not None and not t.is_contiguous():
-                raise ValueError(
-                    f"fused_bn_act on the card needs a channels_last "
-                    f"activation ((..., C) rows, contiguous); got shape "
-                    f"{tuple(t.shape)} with strides {t.stride()}")
-    out_dtype = out_dtype or x.dtype
-    if _record is not None:
-        _record.append((math.prod(x.shape[:-1]), x.shape[-1],
-                        str(out_dtype).replace("torch.", ""),
-                        residual is not None))
     a, b = fold(scale, bias, mean, var, eps)
     if residual is None:
-        return _FusedPlain.apply(x, a, b, out_dtype)
-    return _FusedRes.apply(x, residual, a, b, out_dtype)
+        return _FusedPlain.apply(x, a, b)
+    return _FusedRes.apply(x, residual, a, b)
 
 
 def reference_bn_act(x: torch.Tensor, scale, bias, mean, var, *,

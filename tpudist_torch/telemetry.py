@@ -30,8 +30,7 @@ SCHEMA: dict[str, tuple[str, ...]] = {
     "compile": ("seconds", "phase"),
     "epoch": ("epoch", "seconds"),
     "eval": ("epoch", "seconds"),
-    # Which BN epilogue --fused-bn resolved to across the model's BN
-    # workloads, with n_sites/n_fused counts. One per trainer.
+    # Which BN epilogue --fused-bn resolved to. One per trainer.
     "fused_norm_dispatch": ("kernel", "mode", "source"),
     # One per replica startup: the warm-up wall of the bucket set.
     "serve_start": ("n_buckets", "aot_s", "cache"),

@@ -14,8 +14,9 @@ The hot loop keeps tpudist's two overlaps:
 - ``--device_prefetch``: the next batch's pinned, ``non_blocking``
   host-to-device copy is staged while the current step runs.
 
-It logs which BN workloads take the fused epilogue kernels, as
-``_resolve_fused_norm_dispatch`` does. Checkpoints, the data-parallel
+It logs which epilogue the BN workloads take, as
+``_resolve_fused_norm_dispatch`` does, and on the card the fused-norm
+kernel launches its first train step made. Checkpoints, the data-parallel
 plane, the doctor, fault injection and the profiler window come later;
 ``fit`` says once that it writes no checkpoint.
 """
@@ -113,7 +114,6 @@ class Trainer:
         self.model = create_model(cfg.arch, **kw)
         self.model.reset_parameters(torch.Generator().manual_seed(seed))
         self.model.to(self.device)
-        self._model_kwargs = kw
         self.log(f"=> creating model '{cfg.arch}'")
         if on_gpu and cfg.fused_bn == "on" and not cfg.evaluate:
             from tpudist_torch.ops import _build
@@ -132,44 +132,37 @@ class Trainer:
         self._train_dispatched = False
 
     def _resolve_fused_norm_dispatch(self) -> dict:
-        """Which BN epilogues take the fused kernels, from a shape-only
-        forward of the model on the ``meta`` device (no data, no kernel
-        launch). Logged as one line and emitted as a
-        ``fused_norm_dispatch`` event."""
+        """Which epilogue the train-mode BN+ReLU sites take: the fused
+        ``Function``s under ``--fused-bn on`` (the CUDA kernels on the
+        card, their plain bodies on the CPU), the plain epilogue under
+        ``off`` and in eval mode. Logged as one line and emitted as a
+        ``fused_norm_dispatch`` event; ``_log_first_step_launches`` then
+        reports what the card ran."""
         cfg = self.cfg
-        agg = {"kernel": "plain", "mode": cfg.fused_bn, "source": "forced",
-               "n_sites": 0, "n_fused": 0}
+        agg = {"kernel": "plain", "mode": cfg.fused_bn, "source": "forced"}
         if cfg.evaluate:
             agg.update(source="ineligible",
                        reason="eval mode runs the plain epilogue")
         elif cfg.fused_bn == "on":
-            meta = create_model(cfg.arch, device="meta", **self._model_kwargs)
-            images = torch.empty(cfg.per_device_batch_size, cfg.image_size,
-                                 cfg.image_size, 3, device="meta")
-            with torch.no_grad(), fused_norm.record_requests() as reqs:
-                meta.train()(images)
-            kinds = sorted(set(reqs), key=lambda r: (-r[0], r[1], r[3]))
-            agg.update(n_sites=len(kinds), n_fused=len(kinds),
-                       launches_per_step=len(reqs))
             if self.device.type == "cuda":
                 agg["kernel"] = "cuda"
             else:
                 agg["reason"] = "the CPU runs each kernel's plain body"
-            agg["workloads"] = ", ".join(
-                f"{m}x{c}{'+res' if res else ''}" for m, c, _, res in kinds)
         msg = (f"=> fused-norm dispatch: {agg['kernel']} epilogue (mode "
                f"{agg['mode']}, {agg['source']}")
-        if agg["n_sites"]:
-            msg += (f"; {agg['n_fused']}/{agg['n_sites']} BN workloads "
-                    f"fused, {agg['launches_per_step']} sites a step: "
-                    f"{agg['workloads']}")
         if agg.get("reason"):
             msg += f"; {agg['reason']}"
         self.log(msg + ")")
         if self.telemetry is not None:
-            self.telemetry.emit("fused_norm_dispatch", **{
-                k: v for k, v in agg.items() if k != "workloads"})
+            self.telemetry.emit("fused_norm_dispatch", **agg)
         return agg
+
+    def _log_first_step_launches(self, before: dict) -> None:
+        launched = {k: fused_norm.LAUNCHES[k] - before[k]
+                    for k in fused_norm.KERNELS}
+        self.log(f"=> fused-norm kernels launched by the first train step: "
+                 f"{sum(launched.values())} ("
+                 + ", ".join(f"{k} {v}" for k, v in launched.items()) + ")")
 
     def log(self, msg: str) -> None:
         self.logger.info(msg)
@@ -198,13 +191,16 @@ class Trainer:
             t_h = time.time()
             if pf is None:
                 images, labels = to_device(images, labels, self.device)
+            first_dispatch = not self._train_dispatched
+            self._train_dispatched = True
+            launches = dict(fused_norm.LAUNCHES) if first_dispatch else None
             t_c = time.time()
             metrics = self.train_step(images, labels, lr)
             t_done = time.time()
             h2d_s, compute_s = t_c - t_h, t_done - t_c
+            if first_dispatch and self.fused_norm_decision["kernel"] == "cuda":
+                self._log_first_step_launches(launches)
             prefetch_s = pf.poke() if pf is not None else None
-            first_dispatch = not self._train_dispatched
-            self._train_dispatched = True
             drain.push(metrics, n=int(images.shape[0]))
             drain_ovl_s = None
             if async_drain:
