@@ -13,8 +13,13 @@ line and raising on failure:
 2. kernel vs plain: each kernel against its plain-PyTorch version on the
    card, with its time, the plain version's, one PyTorch library call's
    (where one computes the same function) and the card's bound:
-   a. the flash-attention forward at the serving shapes and odd ones;
-   b. the four fused BatchNorm epilogues (forward, forward+residual,
+   a. the flash-attention forward at the serving shapes, ViT-B/16's
+      training shape (batch 128) and odd ones;
+   b. the flash-attention backward, its dQ and dKV passes, at ViT-B/16's
+      training shape in bf16 and at odd f32 shapes (head dims 32 and 80,
+      causal cross lengths with fully masked rows), beside SDPA's
+      backward;
+   c. the four fused BatchNorm epilogues (forward, forward+residual,
       backward, backward+residual) at the five resnet18 shapes of batch
       256 at 224 px in bf16 and three odd shapes in f32;
 3. serving end to end: ``python -m tpudist_torch.serve`` serves ViT-B/16
@@ -31,11 +36,21 @@ line and raising on failure:
    ``--fused-bn on`` and ``off`` (same seed, same batches) must agree;
    then one train step on a device-resident batch is broken down by
    kernel category beside its synchronised wall;
-5. one ``{"kernels": [...]}`` line;
-6. last, ``{"ok": true, "device": {...}}``.
+5. ViT training end to end: ``python -m tpudist_torch`` trains ViT-B/16
+   at 224 px, batch 128, bf16, ``--flash on``, AdamW for two short
+   epochs; every train step must launch each flash kernel exactly 12
+   times and every validation batch the forward alone 12 times; the first
+   three SGD steps under ``--flash on`` and ``off`` (same seed, same
+   batches, bf16 and f32) must agree; then one train step is broken down
+   by kernel category;
+6. one ``{"kernels": [...]}`` line;
+7. last, ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, without a CUDA card or without the
-rest of the repository.
+rest of the repository. ``python3 chip_smoke.py --mutations`` runs only
+the ``--flash on``/``off`` comparison under in-memory faults of the
+backward (dq 10 % off; one key tile's dk and dv dropped) and exits 0 only
+if every fault breaks its bounds.
 """
 
 from __future__ import annotations
@@ -43,6 +58,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -120,8 +136,29 @@ NORM_OPS = {"bn_act_fwd": 3, "bn_act_fwd_res": 4, "bn_act_bwd": 7,
 # three quarters (bf16) of a leaf's change, too far to tell a wrong
 # backward.
 TRAIN_CMP_STEPS = 3
-TRAIN_LOSS_TOL = 2e-3
+TRAIN_LOSS_TOL = {"bfloat16": 2e-3, "float32": 2e-3}
 TRAIN_STATE_TOL = {"bfloat16": 1.0, "float32": 0.1}
+
+# ViT-B/16 training at 224 px: batch 128, 197 tokens, 12 heads of 64.
+VIT_B = 128
+VIT_SYNTHETIC = 1024            # train images an epoch; validation half
+# The backward kernels against their plain version: rtol and atol·max|ref|
+# (the bound tests/test_flash_attention.py holds the Pallas backward to).
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# --flash on vs off over 3 SGD steps (lr VIT_CMP_LR) from one seed on the
+# same batches of VIT_CMP_B images: the plain attention rounds P after
+# normalising and the kernel before, so bf16 activations round apart, 12
+# layers deep; in f32 the two forwards differ in the last bits. Losses
+# relative to max(1, |loss|): read at 4.2e-4 (bf16) and 6.7e-8 (f32, one
+# ulp) on an H100 80GB HBM3 at 700 W. Every parameter after step one
+# against that leaf's change in the step: read at 0.021 (bf16) and 0.0095
+# (f32) there. The bounds sit about 3x above. A backward with dq 10 % off
+# reads 0.11 in both dtypes, one with a key tile's dk and dv dropped 0.79
+# (python3 chip_smoke.py --mutations).
+VIT_CMP_B = 32
+VIT_CMP_LR = 1e-3
+VIT_LOSS_TOL = {"bfloat16": 1.5e-3, "float32": 2e-7}
+VIT_STATE_TOL = {"bfloat16": 0.06, "float32": 0.03}
 
 
 def emit(obj: dict) -> None:
@@ -166,7 +203,8 @@ def phase_card_and_build() -> dict:
     paths, logs = _build.build_all()
     build_s = time.perf_counter() - t0
     ptxas = {k: [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if any(w in ln for w in ("Compiling entry", "registers",
+                                          "spill"))]
              for k, log in logs.items()}
     peak_kind, _ = peaks_for(name)
     card = {"phase": "card_and_build", "nvidia_smi": smi_line,
@@ -218,6 +256,8 @@ def phase_kernel_vs_plain(peaks: dict) -> dict:
         # 257 tokens of 16 heads) and head dim 32 with fully masked rows.
         *[(f"serve_b{b}", b, SERVE_T, SERVE_T, SERVE_H, SERVE_D,
            torch.bfloat16, False) for b in BUCKETS],
+        (f"train_b{VIT_B}", VIT_B, SERVE_T, SERVE_T, SERVE_H, SERVE_D,
+         torch.bfloat16, False),
         ("f32_causal_cross", 2, 150, 197, 4, 64, torch.float32, True),
         ("f32_d80", 2, 257, 257, 16, 80, torch.float32, False),
         ("f32_d32_masked_rows", 2, 100, 60, 3, 32, torch.float32, True),
@@ -244,8 +284,10 @@ def phase_kernel_vs_plain(peaks: dict) -> dict:
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
         row["kernel_ms"] = time_ms(
             lambda: fa.flash_attention_fwd(q, k, v, causal=causal))
+        large = b >= VIT_B
         row["plain_ms"] = time_ms(
-            lambda: fa.flash_attention_reference(q, k, v, causal=causal))
+            lambda: fa.flash_attention_reference(q, k, v, causal=causal),
+            reps=5 if large else 25, inner=2 if large else 10)
         if not causal:
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             row["library_ms"] = time_ms(
@@ -269,12 +311,12 @@ def phase_serve() -> dict:
             "--load-rate", "20", "--load-duration", "5", "--load-batch", "1",
             "--seed", "0", "--telemetry", "--outpath", outdir]
     buf = io.StringIO()
-    fa.LAUNCHES = 0
+    fa.reset_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = serve_cli.main(argv)
     wall_s = time.perf_counter() - t0
-    launches = fa.LAUNCHES
+    launches = fa.LAUNCHES["flash_fwd"]
     text = buf.getvalue()
     print(text, end="", flush=True)
     if rc != 0:
@@ -347,6 +389,32 @@ def _category(kernel: str) -> str:
     return "other"
 
 
+def _device_kernels(prof, n: int, category) -> tuple[dict, list]:
+    """Device ms a call by category, and each kernel's ms and calls,
+    from a torch.profiler window over ``n`` calls, largest first. User
+    annotations (``record_function`` ranges such as ``Optimizer.step``,
+    drawn on the device timeline over the kernels they enclose) are left
+    out: their time is those kernels' time counted again."""
+    by_cat: dict[str, float] = {}
+    kernels = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA \
+                or getattr(e, "is_user_annotation", False) \
+                or e.key.startswith("Optimizer."):
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us <= 0:
+            continue
+        ms = us / 1e3 / n
+        cat = category(e.key)
+        by_cat[cat] = by_cat.get(cat, 0.0) + ms
+        kernels.append({"kernel": e.key[:90], "category": cat, "ms": ms,
+                        "calls": e.count / n})
+    kernels.sort(key=lambda k: -k["ms"])
+    return by_cat, kernels
+
+
 def phase_forward_breakdown(model) -> dict:
     """One ViT-B/16 forward at buckets 1 and 8: host wall (synchronised),
     the device's busy time by kernel category from torch.profiler, and
@@ -377,23 +445,8 @@ def phase_forward_breakdown(model) -> dict:
             for _ in range(n):
                 fwd()
             torch.cuda.synchronize()
-        by_cat: dict[str, float] = {}
-        kernels = []
-        for e in prof.key_averages():
-            if getattr(e, "device_type", None) != \
-                    torch.autograd.DeviceType.CUDA:
-                continue
-            us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-            if us <= 0:
-                continue
-            ms = us / 1e3 / n
-            cat = _category(e.key)
-            by_cat[cat] = by_cat.get(cat, 0.0) + ms
-            kernels.append({"kernel": e.key[:80], "category": cat,
-                            "ms": ms, "calls": e.count / n})
+        by_cat, kernels = _device_kernels(prof, n, _category)
         busy = sum(by_cat.values())
-        kernels.sort(key=lambda k: -k["ms"])
         rows.append({
             "batch": b, "wall_ms_p50": wall,
             "device_busy_ms": busy if busy else "not measured",
@@ -592,7 +645,7 @@ def phase_train() -> dict:
     return out
 
 
-def _train_setup(fused: bool, seed: int = 0, dtype=torch.bfloat16):
+def _train_setup(fused: bool, dtype=torch.bfloat16, seed: int = 0):
     cfg = config_lib.Config(batch_size=TRAIN_B, image_size=TRAIN_PX,
                             fused_bn="on" if fused else "off")
     model = create_model("resnet18", dtype=dtype, fused_bn=fused)
@@ -608,27 +661,28 @@ def _leaves(model) -> dict:
             for k, v in model.state_dict().items()}
 
 
-def _device_batch(seed: int):
+def _device_batch(seed: int, batch: int = TRAIN_B):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    images = torch.randn(TRAIN_B, TRAIN_PX, TRAIN_PX, 3, generator=g,
+    images = torch.randn(batch, TRAIN_PX, TRAIN_PX, 3, generator=g,
                          device="cuda")
-    labels = torch.randint(0, 1000, (TRAIN_B,), generator=g, device="cuda")
+    labels = torch.randint(0, 1000, (batch,), generator=g, device="cuda")
     return images, labels
 
 
-def compare_fused_and_plain(dtype) -> dict:
-    """TRAIN_CMP_STEPS train steps under --fused-bn on and off from one
-    seed on the same device batches: the losses, and per parameter and
-    running statistic max|on − off| over the off run's largest change,
-    after the first step and (reported only) after the last."""
-    batches = [_device_batch(100 + i) for i in range(TRAIN_CMP_STEPS)]
+def compare_on_off(setup, dtype, batch: int, lr: float) -> dict:
+    """TRAIN_CMP_STEPS train steps with the kernels on (``setup(True,
+    dtype)``) and off from one seed on the same device batches: the
+    losses, and per parameter and running statistic max|on − off| over the
+    off run's largest change, after the first step and (reported only)
+    after the last."""
+    batches = [_device_batch(100 + i, batch) for i in range(TRAIN_CMP_STEPS)]
     losses, first, last = {}, {}, {}
     for mode in ("on", "off"):
-        model, step = _train_setup(mode == "on", dtype=dtype)
+        model, step = setup(mode == "on", dtype)
         init = _leaves(model)
         losses[mode] = []
         for i, (x, y) in enumerate(batches):
-            losses[mode].append(float(step(x, y, 0.1)["loss"]))
+            losses[mode].append(float(step(x, y, lr)["loss"]))
             if i == 0:
                 first[mode] = _leaves(model)
         last[mode] = _leaves(model)
@@ -653,21 +707,32 @@ def compare_fused_and_plain(dtype) -> dict:
             "state_ratio_max_after_last_step": max(drift.values())}
 
 
+def _held_on_off(row: dict, loss_tol: dict, state_tol: dict,
+                 what: str) -> list[str]:
+    """What breaks the on/off bounds in one comparison row (none: []);
+    both bounds are per dtype."""
+    tol, ltol = state_tol[row["dtype"]], loss_tol[row["dtype"]]
+    bad = [f"{what} losses {row['losses_on']} vs {row['losses_off']}"
+           for d, ref in zip(row["loss_abs_diff"], row["losses_off"])
+           if not np.isfinite(d) or d > ltol * max(1.0, abs(ref))][:1]
+    if not row["state_ratio_max"] <= tol:
+        bad.append(f"{what} weights differ by {row['state_ratio_max']} of "
+                   f"their change in {row['state_ratio_worst_leaf']} (bound "
+                   f"{tol})")
+    return bad
+
+
 def phase_fused_vs_plain() -> dict:
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
-        row = compare_fused_and_plain(dtype)
-        tol = TRAIN_STATE_TOL[row["dtype"]]
-        for d, ref in zip(row["loss_abs_diff"], row["losses_off"]):
-            if not np.isfinite(d) or d > TRAIN_LOSS_TOL * max(1.0, abs(ref)):
-                raise RuntimeError(f"--fused-bn on vs off losses {row}")
-        if not row["state_ratio_max"] <= tol:
-            raise RuntimeError(f"--fused-bn on vs off weights differ by "
-                               f"{row['state_ratio_max']} of their change "
-                               f"in {row['state_ratio_worst_leaf']} (bound "
-                               f"{tol}): {row}")
-        rows.append(dict(row, loss_tol_relative=TRAIN_LOSS_TOL,
-                         state_tol=tol))
+        row = compare_on_off(_train_setup, dtype, TRAIN_B, 0.1)
+        bad = _held_on_off(row, TRAIN_LOSS_TOL, TRAIN_STATE_TOL,
+                           "--fused-bn on vs off")
+        if bad:
+            raise RuntimeError(f"{'; '.join(bad)}: {row}")
+        rows.append(dict(row,
+                         loss_tol_relative=TRAIN_LOSS_TOL[row["dtype"]],
+                         state_tol=TRAIN_STATE_TOL[row["dtype"]]))
     out = {"phase": "fused_vs_plain_train", "steps": TRAIN_CMP_STEPS,
            "rows": rows}
     emit(out)
@@ -728,22 +793,8 @@ def phase_train_breakdown() -> dict:
             step(x, y, 0.1)
         torch.cuda.synchronize()
     relayouts = fn.RELAYOUTS / n
-    by_cat: dict[str, float] = {}
-    kernels = []
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-        if us <= 0:
-            continue
-        ms = us / 1e3 / n
-        cat = _train_category(e.key)
-        by_cat[cat] = by_cat.get(cat, 0.0) + ms
-        kernels.append({"kernel": e.key[:90], "category": cat, "ms": ms,
-                        "calls": e.count / n})
+    by_cat, kernels = _device_kernels(prof, n, _train_category)
     busy = sum(by_cat.values())
-    kernels.sort(key=lambda k: -k["ms"])
     out = {"phase": "train_step_breakdown", "arch": "resnet18",
            "batch": TRAIN_B, "image_size": TRAIN_PX, "dtype": "bfloat16",
            "fused_bn": "on", "wall_ms_p50": wall,
@@ -756,6 +807,355 @@ def phase_train_breakdown() -> dict:
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
            "top_kernels": kernels[:20]}
     emit(out)
+    return out
+
+
+# -- phase 2b: the flash-attention backward -----------------------------------
+
+def _bwd_work(q, k, causal):
+    """Bytes each backward pass must move (q, k, v, dO, lse, delta read
+    once; dq, or dk and dv, written once) and the FLOPs of its products
+    over the visible (row, key) pairs: S, dP and dS·K for the dQ pass; S,
+    dP, Pᵀ·dO and dSᵀ·Qs for the dKV pass."""
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    elt = q.element_size()
+    if causal:
+        pairs = sum(max(0, min(tk, i + tk - tq + 1)) for i in range(tq))
+    else:
+        pairs = tq * tk
+    reads = (2 * q.numel() + 2 * k.numel()) * elt + 2 * b * h * tq * 4
+    product = 2.0 * b * h * pairs * d
+    return {"flash_bwd_dq": (reads + q.numel() * elt, 3 * product),
+            "flash_bwd_dkv": (reads + 2 * k.numel() * elt, 4 * product)}
+
+
+def _grad_errors(got, want, tol):
+    """max|got − ref| of dq, dk and dv; raises unless each is within rtol
+    ``tol`` and atol ``tol``·max|ref|."""
+    errs = {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        a, b = a.float(), b.float()
+        errs[name] = (a - b).abs().max().item()
+        torch.testing.assert_close(
+            a, b, rtol=tol, atol=tol * max(1e-6, b.abs().max().item()),
+            msg=lambda m, name=name: f"{name}: {m}")
+    return errs
+
+
+def phase_flash_bwd_vs_plain(peaks: dict) -> dict:
+    cases = [
+        # (label, B, Tq, Tk, H, D, dtype, causal): ViT-B/16's training
+        # shape first, then head dim 80 at 197 tokens, a ragged causal
+        # cross length, and head dim 32 with fully masked rows.
+        (f"train_b{VIT_B}", VIT_B, SERVE_T, SERVE_T, SERVE_H, SERVE_D,
+         torch.bfloat16, False),
+        ("f32_d80", 2, SERVE_T, SERVE_T, 4, 80, torch.float32, False),
+        ("f32_causal_cross", 2, 150, 197, 4, 64, torch.float32, True),
+        ("f32_d32_masked_rows", 2, 100, 60, 3, 32, torch.float32, True),
+    ]
+    rows = []
+    for i, (label, b, tq, tk, h, d, dtype, causal) in enumerate(cases):
+        q, k, v = _qkv_views(b, tq, tk, h, d, dtype, seed=50 + i)
+        g = torch.Generator(device="cuda").manual_seed(150 + i)
+        do = torch.randn(b, tq, h, d, generator=g, device="cuda").to(dtype)
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        delta, lse = fa.backward_rows(o, lse, do)
+        args = (q, k, v, do, lse, delta, causal)
+        dq = fa.flash_bwd_dq(*args)
+        dk, dv = fa.flash_bwd_dkv(*args)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_bwd_reference(*args)
+        tol = BWD_TOL[dtype]
+        errs = _grad_errors((dq, dk, dv), want, tol)
+        if causal and tq > tk and not torch.all(dq[:, :tq - tk] == 0):
+            raise RuntimeError(f"{label}: rows that see no key got a dq")
+        large = b >= VIT_B
+        row = {"case": label, "shape": [b, tq, tk, h, d],
+               "dtype": str(dtype).replace("torch.", ""), "causal": causal,
+               "tol": tol, "errors": errs,
+               "plain_ms": time_ms(
+                   lambda: fa.flash_attention_bwd_reference(*args),
+                   reps=5 if large else 25, inner=2 if large else 10)}
+        rate = peaks["bf16" if dtype == torch.bfloat16 else "f32"]
+        for name, (nbytes, flops) in _bwd_work(q, k, causal).items():
+            t_bytes, t_ops = nbytes / peaks["hbm"] * 1e3, flops / rate * 1e3
+            fn_ = fa.flash_bwd_dq if name == "flash_bwd_dq" \
+                else fa.flash_bwd_dkv
+            row[name] = {
+                "bytes": nbytes, "flops": flops,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "kernel_ms": time_ms(lambda fn_=fn_: fn_(*args)),
+                "max_abs_err": max(errs[n] for n in (
+                    ("dq",) if name == "flash_bwd_dq" else ("dk", "dv")))}
+        if not causal:
+            # SDPA's backward alone, from a retained graph; SDPA's causal
+            # mask aligns top-left, not at the k_len − q_len offset.
+            qt, kt, vt = (t.detach().transpose(1, 2).contiguous()
+                          .requires_grad_() for t in (q, k, v))
+            o_l = F.scaled_dot_product_attention(qt, kt, vt)
+            do_t = do.transpose(1, 2)
+            row["library_ms"] = time_ms(lambda: torch.autograd.grad(
+                o_l, (qt, kt, vt), do_t, retain_graph=True))
+            del o_l
+        else:
+            row["library_ms"] = None
+        rows.append(row)
+    out = {"phase": "flash_bwd_vs_plain", "cases": rows,
+           "library": "torch.nn.functional.scaled_dot_product_attention "
+                      "backward (torch.autograd.grad from a retained "
+                      "graph)"}
+    emit(out)
+    return out
+
+
+# -- phase 5: ViT-B/16 training end to end ------------------------------------
+
+def phase_train_vit() -> dict:
+    outdir = os.path.join(tempfile.mkdtemp(prefix="tpudist_torch_vit_"),
+                          "run")
+    argv = ["--synthetic", "-a", "vit_b_16", "--image-size", "224",
+            "--num-classes", "1000", "-b", str(VIT_B), "--epochs", "2",
+            "--use_amp", "--flash", "on", "--optimizer", "adamw", "--lr",
+            "1e-3", "--weight-decay", "0.05", "--telemetry", "--seed", "0",
+            "--synthetic-size", str(VIT_SYNTHETIC), "--step", "1", "-p", "4",
+            "--outpath", outdir]
+    buf = io.StringIO()
+    fa.reset_counts()
+    fn.reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = train_cli.main(argv)
+    wall_s = time.perf_counter() - t0
+    launches, relayouts = dict(fa.LAUNCHES), fa.RELAYOUTS
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    if rc != 0 or not text.splitlines()[-1].startswith("best_acc1="):
+        raise RuntimeError(f"python -m tpudist_torch -a vit_b_16 exited {rc}")
+    with open(telemetry_lib.events_path(outdir, 0)) as f:
+        events = [json.loads(ln) for ln in f]
+    for ev in events:
+        telemetry_lib.validate_event(ev)
+    steps = [e for e in events if e["type"] == "step"]
+    n = len(steps)
+    val_batches = 2 * math.ceil(VIT_SYNTHETIC // 2 / VIT_B)
+    want = {"flash_fwd": LAYERS * (n + val_batches),
+            "flash_bwd_dq": LAYERS * n, "flash_bwd_dkv": LAYERS * n}
+    if n != 2 * VIT_SYNTHETIC // VIT_B or launches != want \
+            or any(fn.LAUNCHES.values()):
+        raise RuntimeError(
+            f"flash launches {launches} (fused-norm {fn.LAUNCHES}) for {n} "
+            f"train steps and {val_batches} validation batches; want {want} "
+            f"(12 of each kernel a train step, 12 forwards a validation "
+            f"batch)")
+    first = ("=> flash kernels launched by the first train step: 36 "
+             "(flash_fwd 12, flash_bwd_dq 12, flash_bwd_dkv 12)")
+    if first not in text.splitlines():
+        raise RuntimeError(f"the trainer did not log {first!r}")
+    disp = [e for e in events if e["type"] == "attention_dispatch"]
+    if [(e["kernel"], e["mode"]) for e in disp] != [("flash", "on")]:
+        raise RuntimeError(f"attention_dispatch events {disp}")
+    train_l, val_l = _epoch_losses(text, "Train"), _epoch_losses(text, "Val")
+    if len(train_l) != 2 or len(val_l) != 2 or not all(
+            np.isfinite(train_l + val_l)):
+        raise RuntimeError(f"train losses {train_l}, val losses {val_l}")
+    end = events[-1]
+    out = {"phase": "train_vit", "arch": "vit_b_16", "image_size": 224,
+           "batch": VIT_B, "dtype": "bfloat16", "optimizer": "adamw",
+           "wall_s": wall_s, "train_steps": n, "val_batches": val_batches,
+           "flash_launches": launches,
+           "launches_per_train_step": {k: LAYERS for k in launches},
+           "relayouts": relayouts, "train_loss": train_l,
+           "val_loss": val_l,
+           "best_acc1": float(text.splitlines()[-1].split("=")[1]),
+           "host_step_s_p50": statistics.median(
+               e["step_s"] for e in steps[1:]),
+           "host_data_s_p50": statistics.median(
+               e["data_s"] for e in steps[1:]),
+           "host_compute_s_p50": statistics.median(
+               e["compute_s"] for e in steps[1:]),
+           "run_end": {k: end[k] for k in ("wall_s", "productive_s",
+                                           "goodput", "compile_s",
+                                           "data_wait_s", "eval_s")}}
+    emit(out)
+    return out
+
+
+def _vit_setup(flash: bool, dtype=torch.bfloat16, seed: int = 0,
+               optimizer: str = "sgd"):
+    cfg = config_lib.Config(arch="vit_b_16", batch_size=VIT_B,
+                            image_size=TRAIN_PX, optimizer=optimizer,
+                            flash="on" if flash else "off")
+    model = create_model("vit_b_16", dtype=dtype, flash=flash,
+                         image_size=TRAIN_PX)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    model.cuda()
+    step = train_lib.make_train_step(
+        model, train_lib.make_optimizer(model, cfg), cfg)
+    return model, step
+
+
+def compare_flash_and_plain() -> list[dict]:
+    """SGD, not AdamW: AdamW's first step is lr·sign(g) almost everywhere,
+    so it would hide a gradient that is off by a factor."""
+    return [compare_on_off(_vit_setup, dtype, VIT_CMP_B, VIT_CMP_LR)
+            for dtype in (torch.bfloat16, torch.float32)]
+
+
+def phase_flash_vs_plain_train() -> dict:
+    rows = []
+    for row in compare_flash_and_plain():
+        bad = _held_on_off(row, VIT_LOSS_TOL, VIT_STATE_TOL,
+                           "--flash on vs off")
+        if bad:
+            raise RuntimeError(f"{'; '.join(bad)}: {row}")
+        rows.append(dict(row, loss_tol_relative=VIT_LOSS_TOL[row["dtype"]],
+                         state_tol=VIT_STATE_TOL[row["dtype"]]))
+    out = {"phase": "flash_vs_plain_train", "arch": "vit_b_16",
+           "batch": VIT_CMP_B, "optimizer": "sgd", "lr": VIT_CMP_LR,
+           "steps": TRAIN_CMP_STEPS, "rows": rows}
+    emit(out)
+    return out
+
+
+def _dq_off(dq):
+    return dq * 1.1
+
+
+def _key_tile_dropped(out):
+    dk, dv = out
+    dk, dv = dk.clone(), dv.clone()
+    dk[:, 64:128] = 0
+    dv[:, 64:128] = 0
+    return dk, dv
+
+
+MUTATIONS = {"dq_10pct_off": ("flash_bwd_dq", _dq_off),
+             "key_tile_1_dropped": ("flash_bwd_dkv", _key_tile_dropped)}
+
+
+def run_mutations() -> int:
+    """The --flash on/off comparison with a fault in the backward's
+    result, each fault in turn: 0 if every fault breaks the bounds."""
+    caught = {}
+    for name, (kernel, fault) in MUTATIONS.items():
+        real = getattr(fa, kernel)
+        setattr(fa, kernel, lambda *a, real=real, fault=fault, **k:
+                fault(real(*a, **k)))
+        try:
+            rows = compare_flash_and_plain()
+        finally:
+            setattr(fa, kernel, real)
+        broken = {r["dtype"]: _held_on_off(r, VIT_LOSS_TOL, VIT_STATE_TOL,
+                                           name) for r in rows}
+        caught[name] = all(broken.values())
+        emit({"phase": "mutation", "mutation": name,
+              "breaks_bounds": {k: bool(v) for k, v in broken.items()},
+              "why": broken, "rows": rows})
+    emit({"mutations_caught": caught})
+    return 0 if all(caught.values()) else 1
+
+
+def _vit_category(kernel: str) -> str:
+    n = kernel.lower()
+    for name in fa.KERNELS:
+        if name in n:
+            return name
+    if any(s in n for s in ("gemm", "cutlass", "xmma", "nvjet", "cublas")):
+        return "matmul"
+    if "conv" in n or "cudnn" in n:
+        return "conv"
+    if "multi_tensor" in n or "adam" in n:
+        return "optimizer"
+    if "layer_norm" in n:
+        return "layer_norm"
+    if any(s in n for s in ("copy", "cast", "convert")):
+        return "casts_copies"
+    if any(s in n for s in ("elementwise", "gelu", "reduce", "softmax",
+                            "cross_entropy", "nll")):
+        return "elementwise_reductions"
+    return "other"
+
+
+def phase_vit_train_step_breakdown() -> dict:
+    """One ViT-B/16 train step (batch 128, 224 px, bf16, --flash on,
+    AdamW) on a device-resident batch: synchronised wall (median of 10),
+    images/s, device busy by category (torch.profiler over 3 steps), the
+    idle share, launches a step and the peak memory."""
+    _, step = _vit_setup(True, optimizer="adamw")
+    x, y = _device_batch(7, VIT_B)
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        step(x, y, 1e-3)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        step(x, y, 1e-3)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(walls)
+    n = 3
+    fa.reset_counts()
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        for _ in range(n):
+            step(x, y, 1e-3)
+        torch.cuda.synchronize()
+    launches = {k: v / n for k, v in fa.LAUNCHES.items()}
+    relayouts = fa.RELAYOUTS / n
+    by_cat, kernels = _device_kernels(prof, n, _vit_category)
+    busy = sum(by_cat.values())
+    out = {"phase": "vit_train_step_breakdown", "arch": "vit_b_16",
+           "batch": VIT_B, "image_size": TRAIN_PX, "dtype": "bfloat16",
+           "flash": "on", "optimizer": "adamw", "wall_ms_p50": wall,
+           "wall_ms_min": min(walls), "images_per_s": VIT_B / wall * 1e3,
+           "device_busy_ms": busy if busy else "not measured",
+           "idle_share": 1.0 - busy / wall if busy else "not measured",
+           "by_category_ms": by_cat or "not measured",
+           "flash_launches_per_step": launches,
+           "relayouts_per_step": relayouts,
+           "kernel_launches_per_step": sum(k["calls"] for k in kernels),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "top_kernels": kernels[:20]}
+    emit(out)
+    return out
+
+
+def _bwd_kernel_entries(bwd: dict, vit: dict, card: dict) -> list:
+    """The dQ and dKV entries of the kernels line: the main row is ViT-B/16's
+    training shape; ``step_ms`` is the kernel's time over one train step's
+    12 launches."""
+    replaces = {
+        "flash_bwd_dq": "tpudist/ops/pallas/flash_attention.py:373 "
+                        "(_bwd_dq_kernel, via _flash_backward)",
+        "flash_bwd_dkv": "tpudist/ops/pallas/flash_attention.py:425 "
+                         "(_bwd_dkv_kernel, via _flash_backward)"}
+    main = bwd["cases"][0]
+    out = []
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        r = main[name]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "tpudist_torch/ops/csrc/flash_bwd.cu",
+            "replaces": replaces[name],
+            "launches": vit["flash_launches"][name],
+            "max_abs_err": max(c[name]["max_abs_err"] for c in bwd["cases"]),
+            "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": main["library_ms"],
+            "plain_and_library_cover": "both backward passes",
+            "shape": main["shape"], "dtype": main["dtype"],
+            "step_ms": LAYERS * r["kernel_ms"],
+            "by_shape": [{"case": c["case"], "shape": c["shape"],
+                          "kernel_ms": c[name]["kernel_ms"],
+                          "bound_ms": c[name]["bound_ms"],
+                          "plain_ms": c["plain_ms"],
+                          "library_ms": c["library_ms"]}
+                         for c in bwd["cases"]],
+            "card": card["nvidia_smi"]})
     return out
 
 
@@ -805,16 +1205,23 @@ def _norm_kernel_entries(norm: dict, train: dict, card: dict) -> list:
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 1
+    if argv not in ([], ["--mutations"]):
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = phase_card_and_build()
+    if argv:
+        return run_mutations()
     _, peaks = peaks_for(card["device_name"])
     kern = phase_kernel_vs_plain(peaks)
+    bwd = phase_flash_bwd_vs_plain(peaks)
     norm = phase_fused_norm_vs_plain(peaks)
     serve, model = phase_serve()
     phase_forward_breakdown(model)
@@ -822,15 +1229,23 @@ def main() -> int:
     train = phase_train()
     phase_fused_vs_plain()
     phase_train_breakdown()
+    vit = phase_train_vit()
+    phase_flash_vs_plain_train()
+    phase_vit_train_step_breakdown()
 
-    serve_rows = [r for r in kern["cases"] if r["case"].startswith("serve_")]
-    main_row = serve_rows[-1]              # bucket 8, the largest call
+    fwd_rows = [r for r in kern["cases"] if r["case"].startswith(
+        ("serve_", "train_"))]
+    main_row = fwd_rows[-1]                # batch 128, the training call
     emit({"kernels": [{
         "name": "flash_fwd", "route": "cuda",
         "source": "tpudist_torch/ops/csrc/flash_fwd.cu",
         "replaces": "tpudist/ops/pallas/flash_attention.py:95 "
                     "(_flash_kernel, via _flash_forward)",
-        "launches": serve["flash_launches"],
+        "launches": serve["flash_launches"]
+        + vit["flash_launches"]["flash_fwd"],
+        "launches_by_path": {
+            "serve": serve["flash_launches"],
+            "train_vit": vit["flash_launches"]["flash_fwd"]},
         "max_abs_err": max(r["o_max_abs_err"] for r in kern["cases"]),
         "ms": main_row["kernel_ms"], "kernel_ms": main_row["kernel_ms"],
         "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
@@ -839,9 +1254,9 @@ def main() -> int:
         "shape": main_row["shape"], "dtype": main_row["dtype"],
         "by_batch": [{k: r[k] for k in ("shape", "kernel_ms", "plain_ms",
                                          "library_ms", "bound_ms")}
-                     for r in serve_rows],
-        "card": card["nvidia_smi"]}] + _norm_kernel_entries(norm, train,
-                                                            card)})
+                     for r in fwd_rows],
+        "card": card["nvidia_smi"]}] + _bwd_kernel_entries(bwd, vit, card)
+        + _norm_kernel_entries(norm, train, card)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -83,7 +83,7 @@ def test_mixed_stream_warms_each_bucket_once_and_summarize_reads_it(tmp_path):
     tel = telemetry_lib.Telemetry(str(tmp_path), rank=0)
     tel.emit("run_start", platform="cpu", n_devices=1, arch="vit_tiny",
              global_batch=BUCKETS[-1])
-    launches = fa.LAUNCHES
+    launches = dict(fa.LAUNCHES)
     eng = ServeEngine(_tiny_model(), image_size=32, buckets=BUCKETS,
                       device="cpu", telemetry=tel)
     batcher = ContinuousBatcher(eng, max_wait_s=0.001, telemetry=tel)

@@ -4,6 +4,10 @@
   console lines and ``best_acc1=``; every BN+ReLU epilogue of a train step
   goes through the fused ``Function``s (17 sites), and none in
   validation.
+- It trains ViT-B/16 (at 32 px) with ``--flash on --optimizer adamw``:
+  every attention of a train step goes through the flash ``Function``
+  (12 forwards and 12 backwards a step), validation runs the forward
+  alone, and the dispatch lines and events say so.
 - Its events validate under tpudist's schema, and tpudist's own
   ``summarize`` reads the run.
 - The sampler order, the loader's batches and the synthetic data equal
@@ -25,6 +29,7 @@ from tpudist_torch import config as port_config
 from tpudist_torch.data import build_train_val_loaders
 from tpudist_torch.data.sampler import ShardedSampler
 from tpudist_torch.data.synthetic import SyntheticDataset
+from tpudist_torch.ops import flash_attention as fa
 from tpudist_torch.ops import fused_norm as fn
 
 pytestmark = pytest.mark.torch_port
@@ -110,6 +115,47 @@ def test_cli_plain_epilogue_f32_without_the_overlaps(tmp_path, capsys):
     assert sum(fn.LAUNCHES.values()) == 0
 
 
+def test_cli_trains_vit_through_flash_with_adamw(tmp_path, capsys,
+                                                monkeypatch):
+    calls = {"fwd": 0, "bwd": 0}
+    real_fwd, real_bwd = fa.flash_attention_fwd, fa.flash_attention_bwd
+
+    def fwd(*a, **k):
+        calls["fwd"] += 1
+        return real_fwd(*a, **k)
+
+    def bwd(*a, **k):
+        calls["bwd"] += 1
+        return real_bwd(*a, **k)
+
+    monkeypatch.setattr(fa, "flash_attention_fwd", fwd)
+    monkeypatch.setattr(fa, "flash_attention_bwd", bwd)
+    fa.reset_counts()
+    out = tmp_path / "vit"
+    rc = cli.main(["--device", "cpu", "--synthetic", "-a", "vit_b_16",
+                   "--image-size", "32", "--num-classes", "10", "-b", "4",
+                   "--epochs", "1", "--synthetic-size", "8", "-p", "1",
+                   "--flash", "on", "--optimizer", "adamw", "--lr", "1e-3",
+                   "--weight-decay", "0.05", "--telemetry", "--seed", "0",
+                   "--outpath", str(out)])
+    lines = capsys.readouterr().out.splitlines()
+    assert rc == 0 and lines[-1].startswith("best_acc1=")
+    assert ("=> attention dispatch: flash attention (mode on, forced: the "
+            "CPU runs each kernel's plain body)" in lines)
+    assert ("=> fused-norm dispatch: plain epilogue (mode on, ineligible; "
+            "vit_b_16 has no BatchNorm)" in lines)
+    train_loss = next(ln for ln in lines if ln.startswith("||==> Train"))
+    assert np.isfinite(float(train_loss.split("Loss ")[1].split()[0]))
+    # 2 train steps and 1 validation batch of 12 attention layers.
+    assert calls == {"fwd": 12 * 3, "bwd": 12 * 2}
+    assert fa.LAUNCHES == dict.fromkeys(fa.KERNELS, 0)    # no card
+    events = [json.loads(ln) for ln in open(out / "events.0.jsonl")]
+    disp = next(e for e in events if e["type"] == "attention_dispatch")
+    assert (disp["kernel"], disp["mode"], disp["source"]) == ("flash", "on",
+                                                              "forced")
+    assert [e["type"] for e in events].count("step") == 2
+
+
 def test_events_validate_and_tpudist_summarize_reads_them(cli_run, capsys):
     pytest.importorskip("jax")
     from tpudist import summarize
@@ -182,7 +228,7 @@ def test_flag_surface_is_tpudists():
 @pytest.mark.parametrize("flags,named", [
     (["--mixup-alpha", "0.2"], "--mixup-alpha"),
     (["--cutmix-alpha", "1.0"], "--cutmix-alpha"),
-    (["--optimizer", "adamw"], "--optimizer"),
+    (["-a", "vit_b_16", "--flash", "auto"], "--flash auto"),
     (["--accum-steps", "2"], "--accum-steps"),
     (["--model-ema-decay", "0.99"], "--model-ema-decay"),
     (["--amp-dtype", "float16"], "--amp-dtype"),

@@ -103,11 +103,23 @@ def test_fresh_init_follows_the_flax_distributions():
 
 
 def test_bf16_model_keeps_layernorm_in_f32():
+    """A bf16 ViT holds f32 master weights, every parameter, as the flax
+    tree does (``param_dtype`` f32), and computes in bf16: its output is
+    bf16 and equals the f32 model's run on bf16-rounded weights within
+    bf16 rounding."""
     m = VisionTransformer(*TINY.values(), image_size=32,
                           dtype=torch.bfloat16)
     m.reset_parameters(torch.Generator().manual_seed(0))
-    assert m.encoder_layer_0.mlp_0.weight.dtype == torch.bfloat16
-    assert m.encoder_layer_0.ln_1.weight.dtype == torch.float32
+    assert {p.dtype for p in m.parameters()} == {torch.float32}
+    assert m.encoder_layer_0.mlp_0.dtype == torch.bfloat16
+    assert m.conv_proj.compute_dtype == torch.bfloat16
     with torch.inference_mode():
         out = m(torch.from_numpy(_images(2)))
     assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
+    f32 = VisionTransformer(*TINY.values(), image_size=32)
+    f32.load_state_dict({k: v.bfloat16().float()
+                         for k, v in m.state_dict().items()})
+    with torch.inference_mode():
+        ref = f32(torch.from_numpy(_images(2)))
+    np.testing.assert_allclose(out.float().numpy(), ref.numpy(),
+                               rtol=0.1, atol=0.1)

@@ -154,6 +154,9 @@ class Config:
         return dataclasses.asdict(self)
 
 
+# The attention archs the trainer takes (models/__init__.py registers them).
+VIT_ARCHS = ("vit_b_16", "vit_b_32", "vit_l_16", "vit_l_32", "vit_h_14")
+
 # Flags the port does not support yet: a value other than the default is
 # refused at startup, naming the flag and what is missing.
 _NOT_YET = {
@@ -161,7 +164,6 @@ _NOT_YET = {
     "pretrained_path": ("--pretrained-path", "torchvision weights (compat/)"),
     "accum_steps": ("--accum-steps", "gradient accumulation"),
     "microbatches": ("--microbatches", "pipeline parallelism"),
-    "optimizer": ("--optimizer", "AdamW (sgd is ported)"),
     "model_ema_decay": ("--model-ema-decay", "the parameter EMA"),
     "mixup_alpha": ("--mixup-alpha", "ops/mixup.mix_batch"),
     "cutmix_alpha": ("--cutmix-alpha", "ops/mixup.mix_batch"),
@@ -218,14 +220,20 @@ def refuse_unsupported(cfg: Config) -> None:
     bad = [f"{flag} ({what} is not in the port yet)"
            for name, (flag, what) in _NOT_YET.items()
            if getattr(cfg, name) != getattr(default, name)]
-    if not cfg.arch.startswith(("resnet", "resnext", "wide_resnet")):
-        bad.append(f"-a {cfg.arch} (the port trains the resnet family so "
-                   f"far)")
+    vit = cfg.arch in VIT_ARCHS
+    if not (vit or cfg.arch.startswith(("resnet", "resnext",
+                                         "wide_resnet"))):
+        bad.append(f"-a {cfg.arch} (the port trains the resnet and vit "
+                   f"families so far)")
     if cfg.fused_bn == "auto":
         bad.append("--fused-bn auto (the measurement dispatch, "
                    "ops/norm_dispatch, is not in the port yet; pass on or "
                    "off)")
-    if cfg.flash == "on":
+    if vit and cfg.flash == "auto":
+        bad.append(f"--flash auto (the measurement dispatch, "
+                   f"ops/attention_dispatch, is not in the port yet; pass "
+                   f"--flash on|off for -a {cfg.arch})")
+    if not vit and cfg.flash == "on":
         bad.append(f"--flash on (it applies to attention archs (vit*); got "
                    f"'{cfg.arch}')")
     if cfg.data and not cfg.synthetic:
@@ -279,7 +287,7 @@ def build_parser() -> argparse.ArgumentParser:
     add("--amp-dtype", default=d.amp_dtype, dest="amp_dtype", choices=("bfloat16", "float16"), help="--use_amp compute dtype; float16 is " + not_yet)
     _bool_flag(p, "sync_batchnorm", d.sync_batchnorm, not_yet)
     _bool_flag(p, "remat", d.remat, not_yet)
-    add("--flash", default=d.flash, choices=("auto", "on", "off"), help="attention kernel for vit archs (no-op for the conv nets; on is refused for them)")
+    add("--flash", default=d.flash, choices=("auto", "on", "off"), help="attention kernel for vit archs: on = the hand-written CUDA flash-attention kernels (forward, dQ and dKV), off = plain attention; auto is " + not_yet + " (no-op for the conv nets; on is refused for them)")
     add("--fused-bn", default=d.fused_bn, dest="fused_bn", choices=("auto", "on", "off"), help="on (the port's default) = the hand-written CUDA BN+ReLU / BN+add+ReLU epilogue kernels in train mode; off = the plain epilogue; auto is " + not_yet)
     _bool_flag(p, "device_prefetch", d.device_prefetch, "stage the next batch's pinned host-to-device copy while the current step runs")
     _bool_flag(p, "async_drain", d.async_drain, "read each step's metrics back one step late, behind the next step's launch")
@@ -288,7 +296,7 @@ def build_parser() -> argparse.ArgumentParser:
     add("--seed", default=d.seed, type=int, help="seed for initializing training")
     add("--outpath", metavar="DIR", default=d.outpath, help="path to output")
     add("--lr-scheduler", metavar="LR scheduler", default=d.lr_scheduler, dest="lr_scheduler", help="LR scheduler (steplr|cosine)")
-    add("--optimizer", default=d.optimizer, choices=("sgd", "adamw"), help="optimizer; adamw is " + not_yet)
+    add("--optimizer", default=d.optimizer, choices=("sgd", "adamw"), help="optimizer: sgd, or adamw (decay on tensors of 2 or more dims only)")
     add("--warmup-epochs", default=d.warmup_epochs, type=int, dest="warmup_epochs", help="linear lr warmup epochs")
     add("--label-smoothing", default=d.label_smoothing, type=float, dest="label_smoothing", help="cross-entropy label smoothing (train only)")
     add("--model-ema-decay", default=d.model_ema_decay, type=float, dest="model_ema_decay", help=not_yet)

@@ -15,8 +15,10 @@ What the reference does and the port keeps:
 - LayerNorm runs in f32 (epsilon 1e-6, flax's default) on the residual
   stream and its result is cast back to the compute dtype;
 - GELU is the tanh approximation (flax ``nn.gelu``);
-- matmuls and the conv run in the compute dtype; LayerNorm parameters stay
-  f32, as in the flax tree.
+- parameters stay f32 (the master weights), as in the flax tree; each
+  matmul (``layers.DenseTorch``) and the conv cast their input and weights
+  to the compute dtype per op, as flax's ``nn.Dense(dtype=dt)`` and
+  ``nn.Conv`` do, and add the bias after the product's rounding.
 
 ``seq_axis`` (ring attention), tensor parallelism and ``remat`` come later.
 """
@@ -29,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpudist_torch.models.layers import DenseTorch as Linear
 from tpudist_torch.ops.flash_attention import flash_attention
 from tpudist_torch.parallel.ring_attention import attention
 
@@ -36,6 +39,24 @@ LN_EPS = 1e-6            # flax nn.LayerNorm's default epsilon
 # jax.nn.initializers.lecun_normal draws a normal truncated at ±2 and
 # divides by this factor, the stddev of that truncated unit normal.
 _TRUNC_STD = 0.87962566103423978
+
+
+class PatchConv(nn.Conv2d):
+    """The patchify ``nn.Conv2d`` (kernel = stride = patch, no padding)
+    with f32 parameters, computed as flax's ``nn.Conv(dtype=dt)``: input
+    and weight cast to ``dt``, the bias added after the conv's
+    rounding."""
+
+    def __init__(self, in_channels: int, features: int, patch: int, *,
+                 dtype=None, device=None):
+        super().__init__(in_channels, features, patch, stride=patch,
+                         dtype=torch.float32, device=device)
+        self.compute_dtype = dtype or torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+        return y + self.bias.to(dt).view(1, -1, 1, 1)
 
 
 class MultiHeadAttention(nn.Module):
@@ -50,8 +71,8 @@ class MultiHeadAttention(nn.Module):
         self.num_heads = num_heads
         self.flash = bool(flash)
         kw = dict(dtype=dtype, device=device)
-        self.in_proj = nn.Linear(dim, 3 * dim, **kw)
-        self.out_proj = nn.Linear(dim, dim, **kw)
+        self.in_proj = Linear(dim, 3 * dim, **kw)
+        self.out_proj = Linear(dim, dim, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, dim = x.shape
@@ -72,8 +93,8 @@ class EncoderBlock(nn.Module):
         self.self_attention = MultiHeadAttention(dim, num_heads, flash=flash,
                                                  **kw)
         self.ln_2 = nn.LayerNorm(dim, **ln_kw)
-        self.mlp_0 = nn.Linear(dim, mlp_dim, **kw)
-        self.mlp_3 = nn.Linear(mlp_dim, dim, **kw)
+        self.mlp_0 = Linear(dim, mlp_dim, **kw)
+        self.mlp_3 = Linear(mlp_dim, dim, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.ln_1(x.float()).to(x.dtype)      # LayerNorm in f32
@@ -87,8 +108,9 @@ class VisionTransformer(nn.Module):
     """torchvision-architecture ViT over NHWC images.
 
     ``dtype`` is the compute dtype (the flax module's ``dtype``): the conv
-    and the linear layers hold their weights in it. ``image_size`` fixes
-    the token count of ``pos_embedding`` (flax infers it at init).
+    and the linear layers hold f32 weights and compute in it.
+    ``image_size`` fixes the token count of ``pos_embedding`` (flax infers
+    it at init).
     """
 
     def __init__(self, patch_size: int = 16, hidden_dim: int = 768,
@@ -108,8 +130,7 @@ class VisionTransformer(nn.Module):
         self.pool = pool
         self.dtype = dtype or torch.float32
         kw = dict(dtype=self.dtype, device=device)
-        self.conv_proj = nn.Conv2d(3, hidden_dim, patch_size,
-                                   stride=patch_size, **kw)
+        self.conv_proj = PatchConv(3, hidden_dim, patch_size, **kw)
         tokens = (image_size // patch_size) ** 2 + (pool == "token")
         f32 = dict(dtype=torch.float32, device=device)
         if pool == "token":
@@ -122,7 +143,7 @@ class VisionTransformer(nn.Module):
             self.add_module(name, EncoderBlock(hidden_dim, num_heads,
                                                mlp_dim, flash=flash, **kw))
         self.ln = nn.LayerNorm(hidden_dim, eps=LN_EPS, **f32)
-        self.head = nn.Linear(hidden_dim, num_classes, **kw)
+        self.head = Linear(hidden_dim, num_classes, **kw)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -140,7 +161,7 @@ class VisionTransformer(nn.Module):
             p.copy_(w)
 
         for mod in self.modules():
-            if isinstance(mod, (nn.Linear, nn.Conv2d)):
+            if isinstance(mod, (Linear, nn.Conv2d)):
                 fan_in = mod.weight[0].numel()
                 draw(mod.weight, math.sqrt(1.0 / fan_in) / _TRUNC_STD, True)
                 mod.bias.zero_()

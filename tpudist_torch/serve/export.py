@@ -1,8 +1,8 @@
 """Arch name → eval-mode serving model on the device (the export half of
 ``tpudist_torch.serve``).
 
-Counterpart of ``tpudist/serve/export.py``. The model is built in the
-compute dtype (bf16 by default) on the device, with fresh weights drawn
+Counterpart of ``tpudist/serve/export.py``. The model computes in the
+compute dtype (bf16 by default) from fresh f32 weights on the device, drawn
 from ``seed`` (the bench/smoke path, where serving performance is the
 measured quantity and the weights are irrelevant). ``flash`` reaches the
 model's attention as the reference's ``--flash on|off`` does.

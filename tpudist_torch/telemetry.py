@@ -30,6 +30,8 @@ SCHEMA: dict[str, tuple[str, ...]] = {
     "compile": ("seconds", "phase"),
     "epoch": ("epoch", "seconds"),
     "eval": ("epoch", "seconds"),
+    # Which attention backend --flash resolved to. One per ViT trainer.
+    "attention_dispatch": ("kernel", "mode", "source"),
     # Which BN epilogue --fused-bn resolved to. One per trainer.
     "fused_norm_dispatch": ("kernel", "mode", "source"),
     # One per replica startup: the warm-up wall of the bucket set.

@@ -10,13 +10,18 @@ the step eagerly on one card.
   the gradient before momentum, the first step's buffer is the gradient.
   That is optax's ``add_decayed_weights → trace → scale_by_learning_rate``
   exactly. The lr is set per epoch in ``param_groups``.
+- AdamW is ``torch.optim.AdamW(betas=(0.9, 0.999), eps=1e-8)``:
+  ``p ← p(1 − lr·wd) − lr·m̂/(√v̂ + eps)``, tpudist's ``adamw_torch``, with
+  two parameter groups as its ``no_decay_mask`` draws them: decay on
+  tensors of two or more dims (matrices, convs, the ViT's class token and
+  position embedding), none on biases and norm scales.
 - Mixed precision is the model's compute dtype: parameters stay f32 (the
   master weights), activations run in bf16 under ``--use_amp``, the loss
   is f32. No ``torch.autocast`` (it would move the rounding points) and no
   loss scaling (bf16 has f32's exponent range).
 
-AdamW, accumulation, EMA, fp16 loss scaling, the doctor guard and
-gradient compression are not in the port yet.
+Accumulation, EMA, fp16 loss scaling, the doctor guard and gradient
+compression are not in the port yet.
 """
 
 from __future__ import annotations
@@ -56,12 +61,19 @@ def compute_dtype(cfg) -> torch.dtype:
 
 
 def make_optimizer(model: torch.nn.Module, cfg) -> torch.optim.Optimizer:
-    if cfg.optimizer != "sgd":
-        raise NotImplementedError(f"--optimizer {cfg.optimizer} is not in "
-                                  f"the port yet (sgd is)")
-    return torch.optim.SGD(model.parameters(), lr=cfg.lr,
-                           momentum=cfg.momentum,
-                           weight_decay=cfg.weight_decay, nesterov=False)
+    if cfg.optimizer == "sgd":
+        return torch.optim.SGD(model.parameters(), lr=cfg.lr,
+                               momentum=cfg.momentum,
+                               weight_decay=cfg.weight_decay, nesterov=False)
+    if cfg.optimizer == "adamw":
+        params = list(model.parameters())
+        groups = [{"params": [p for p in params if p.ndim >= 2],
+                   "weight_decay": cfg.weight_decay},
+                  {"params": [p for p in params if p.ndim < 2],
+                   "weight_decay": 0.0}]
+        return torch.optim.AdamW(groups, lr=cfg.lr, betas=(0.9, 0.999),
+                                 eps=1e-8)
+    raise ValueError(f"unsupported optimizer '{cfg.optimizer}' (sgd|adamw)")
 
 
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,

@@ -14,9 +14,10 @@ The hot loop keeps tpudist's two overlaps:
 - ``--device_prefetch``: the next batch's pinned, ``non_blocking``
   host-to-device copy is staged while the current step runs.
 
-It logs which epilogue the BN workloads take, as
-``_resolve_fused_norm_dispatch`` does, and on the card the fused-norm
-kernel launches its first train step made. Checkpoints, the data-parallel
+It logs which attention a ViT takes and which epilogue the BN workloads
+take, as ``_resolve_attention_dispatch`` and
+``_resolve_fused_norm_dispatch`` do, and on the card the kernel launches
+its first train step made. Checkpoints, the data-parallel
 plane, the doctor, fault injection and the profiler window come later;
 ``fit`` says once that it writes no checkpoint.
 """
@@ -29,11 +30,12 @@ import torch
 
 from tpudist_torch import telemetry as telemetry_lib
 from tpudist_torch._device import resolve_device
-from tpudist_torch.config import Config, refuse_unsupported, write_settings
+from tpudist_torch.config import (VIT_ARCHS, Config, refuse_unsupported,
+                                  write_settings)
 from tpudist_torch.data import DevicePrefetcher, build_train_val_loaders
 from tpudist_torch.data.loader import to_device
 from tpudist_torch.models import create_model
-from tpudist_torch.ops import fused_norm
+from tpudist_torch.ops import flash_attention, fused_norm
 from tpudist_torch.train import (compute_dtype, lr_for_epoch, make_eval_step,
                                  make_optimizer, make_train_step)
 from tpudist_torch.utils import (AverageMeter, ProgressMeter, get_logger,
@@ -109,19 +111,20 @@ class Trainer:
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
         seed = cfg.seed if cfg.seed is not None else 0
-        kw = dict(num_classes=cfg.num_classes, dtype=dtype,
-                  fused_bn=cfg.fused_bn == "on")
+        self.is_vit = cfg.arch in VIT_ARCHS
+        kw = dict(num_classes=cfg.num_classes, dtype=dtype)
+        if self.is_vit:
+            kw.update(image_size=cfg.image_size, flash=cfg.flash == "on")
+        else:
+            kw["fused_bn"] = cfg.fused_bn == "on"
         self.model = create_model(cfg.arch, **kw)
         self.model.reset_parameters(torch.Generator().manual_seed(seed))
         self.model.to(self.device)
         self.log(f"=> creating model '{cfg.arch}'")
-        if on_gpu and cfg.fused_bn == "on" and not cfg.evaluate:
-            from tpudist_torch.ops import _build
-            t0 = time.time()
-            _build.load("fused_norm")
-            if self.telemetry is not None:
-                self.telemetry.note_compile(time.time() - t0,
-                                            phase="kernel_build")
+        if on_gpu:
+            self._build_kernels()
+        self.attention_decision = (self._resolve_attention_dispatch()
+                                   if self.is_vit else None)
         self.fused_norm_decision = self._resolve_fused_norm_dispatch()
         self.optimizer = make_optimizer(self.model, cfg)
         self.train_step = make_train_step(self.model, self.optimizer, cfg)
@@ -130,6 +133,46 @@ class Trainer:
         self.start_epoch = cfg.start_epoch
         self.global_step = 0
         self._train_dispatched = False
+
+    def _build_kernels(self) -> None:
+        """Compile the kernel sources this run launches (one ``nvcc`` each,
+        in parallel) before the first step; the time is a
+        ``kernel_build`` compile event."""
+        cfg = self.cfg
+        names = []
+        if self.is_vit and cfg.flash == "on":
+            names += ["flash_fwd"] + ([] if cfg.evaluate else ["flash_bwd"])
+        if not self.is_vit and cfg.fused_bn == "on" and not cfg.evaluate:
+            names.append("fused_norm")
+        if not names:
+            return
+        from tpudist_torch.ops import _build
+        t0 = time.time()
+        _build.build_all(names)
+        for name in names:
+            _build.load(name)
+        if self.telemetry is not None:
+            self.telemetry.note_compile(time.time() - t0,
+                                        phase="kernel_build")
+
+    def _resolve_attention_dispatch(self) -> dict:
+        """Which attention a ViT's blocks take: the flash ``Function``
+        under ``--flash on`` (the CUDA kernels on the card, their plain
+        versions on the CPU), plain attention under ``off``. Logged in
+        tpudist's format and emitted as an ``attention_dispatch`` event."""
+        cfg = self.cfg
+        dec = {"kernel": "flash" if cfg.flash == "on" else "plain",
+               "mode": cfg.flash, "source": "forced"}
+        if cfg.flash == "on" and self.device.type != "cuda":
+            dec["reason"] = "the CPU runs each kernel's plain body"
+        msg = (f"=> attention dispatch: {dec['kernel']} attention (mode "
+               f"{dec['mode']}, {dec['source']}")
+        if dec.get("reason"):
+            msg += f": {dec['reason']}"
+        self.log(msg + ")")
+        if self.telemetry is not None:
+            self.telemetry.emit("attention_dispatch", **dec)
+        return dec
 
     def _resolve_fused_norm_dispatch(self) -> dict:
         """Which epilogue the train-mode BN+ReLU sites take: the fused
@@ -140,7 +183,10 @@ class Trainer:
         reports what the card ran."""
         cfg = self.cfg
         agg = {"kernel": "plain", "mode": cfg.fused_bn, "source": "forced"}
-        if cfg.evaluate:
+        if self.is_vit:
+            agg.update(source="ineligible",
+                       reason=f"{cfg.arch} has no BatchNorm")
+        elif cfg.evaluate:
             agg.update(source="ineligible",
                        reason="eval mode runs the plain epilogue")
         elif cfg.fused_bn == "on":
@@ -157,10 +203,21 @@ class Trainer:
             self.telemetry.emit("fused_norm_dispatch", **agg)
         return agg
 
-    def _log_first_step_launches(self, before: dict) -> None:
-        launched = {k: fused_norm.LAUNCHES[k] - before[k]
-                    for k in fused_norm.KERNELS}
-        self.log(f"=> fused-norm kernels launched by the first train step: "
+    def _first_step_kernels(self):
+        """``(label, ops module)`` of the kernels a train step launches on
+        the card, or None where it launches none."""
+        if self.device.type != "cuda":
+            return None
+        if self.is_vit:
+            return (("flash", flash_attention)
+                    if self.attention_decision["kernel"] == "flash" else None)
+        return (("fused-norm", fused_norm)
+                if self.fused_norm_decision["kernel"] == "cuda" else None)
+
+    def _log_first_step_launches(self, label: str, ops,
+                                 before: dict) -> None:
+        launched = {k: ops.LAUNCHES[k] - before[k] for k in ops.KERNELS}
+        self.log(f"=> {label} kernels launched by the first train step: "
                  f"{sum(launched.values())} ("
                  + ", ".join(f"{k} {v}" for k, v in launched.items()) + ")")
 
@@ -193,13 +250,14 @@ class Trainer:
                 images, labels = to_device(images, labels, self.device)
             first_dispatch = not self._train_dispatched
             self._train_dispatched = True
-            launches = dict(fused_norm.LAUNCHES) if first_dispatch else None
+            counted = self._first_step_kernels() if first_dispatch else None
+            launches = dict(counted[1].LAUNCHES) if counted else None
             t_c = time.time()
             metrics = self.train_step(images, labels, lr)
             t_done = time.time()
             h2d_s, compute_s = t_c - t_h, t_done - t_c
-            if first_dispatch and self.fused_norm_decision["kernel"] == "cuda":
-                self._log_first_step_launches(launches)
+            if counted:
+                self._log_first_step_launches(*counted, launches)
             prefetch_s = pf.poke() if pf is not None else None
             drain.push(metrics, n=int(images.shape[0]))
             drain_ovl_s = None
