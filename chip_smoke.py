@@ -16,9 +16,11 @@ line and raising on failure:
    a. the flash-attention forward at the serving shapes, ViT-B/16's
       training shape (batch 128) and odd ones;
    b. the flash-attention backward, its dQ and dKV passes, at ViT-B/16's
-      training shape in bf16 and at odd f32 shapes (head dims 32 and 80,
-      causal cross lengths with fully masked rows), beside SDPA's
-      backward;
+      training shape in bf16 and at odd shapes in f32 and bf16 (head dims
+      32 and 80, causal cross lengths with fully masked rows): within the
+      bound, the share of entries not bit-equal to the plain version, two
+      launches bit-identical; beside SDPA's backward and the names of the
+      device kernels it launched;
    c. the four fused BatchNorm epilogues (forward, forward+residual,
       backward, backward+residual) at the five resnet18 shapes of batch
       256 at 224 px in bf16 and three odd shapes in f32;
@@ -154,7 +156,10 @@ BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # against that leaf's change in the step: read at 0.021 (bf16) and 0.0095
 # (f32) there. The bounds sit about 3x above. A backward with dq 10 % off
 # reads 0.11 in both dtypes, one with a key tile's dk and dv dropped 0.79
-# (python3 chip_smoke.py --mutations).
+# (python3 chip_smoke.py --mutations). Those readings were taken with the
+# scalar bf16 backward; with the tensor-core bf16 backward (f32 sums in
+# another order) the same card reads 4.1e-4 and 0.0215 (bf16), 6.7e-8 and
+# 0.0095 (f32), and the two faults 0.116 / 0.112 and 0.790 / 0.791.
 VIT_CMP_B = 32
 VIT_CMP_LR = 1e-3
 VIT_LOSS_TOL = {"bfloat16": 1.5e-3, "float32": 2e-7}
@@ -843,16 +848,34 @@ def _grad_errors(got, want, tol):
     return errs
 
 
+def _sdpa_backward_kernels(o_l, inputs, do_t) -> list[str]:
+    """Names of the device kernels one SDPA backward launches (one
+    torch.profiler pass): they say which backend (flash or memory-
+    efficient) ``library_ms`` timed."""
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        torch.autograd.grad(o_l, inputs, do_t, retain_graph=True)
+        torch.cuda.synchronize()
+    return sorted(k["kernel"] for k in _device_kernels(prof, 1, str)[1])
+
+
 def phase_flash_bwd_vs_plain(peaks: dict) -> dict:
     cases = [
         # (label, B, Tq, Tk, H, D, dtype, causal): ViT-B/16's training
         # shape first, then head dim 80 at 197 tokens, a ragged causal
-        # cross length, and head dim 32 with fully masked rows.
+        # cross length, and head dim 32 with fully masked rows, in f32
+        # (the scalar kernels) and in bf16 (the tensor-core kernels; at
+        # D = 32 and 80 the scale is no power of two, so an unrounded Qs
+        # would show there only).
         (f"train_b{VIT_B}", VIT_B, SERVE_T, SERVE_T, SERVE_H, SERVE_D,
          torch.bfloat16, False),
         ("f32_d80", 2, SERVE_T, SERVE_T, 4, 80, torch.float32, False),
         ("f32_causal_cross", 2, 150, 197, 4, 64, torch.float32, True),
         ("f32_d32_masked_rows", 2, 100, 60, 3, 32, torch.float32, True),
+        ("bf16_d80", 2, SERVE_T, SERVE_T, 4, 80, torch.bfloat16, False),
+        ("bf16_causal_cross", 2, 150, 197, 4, 64, torch.bfloat16, True),
+        ("bf16_d32_masked_rows", 2, 100, 60, 3, 32, torch.bfloat16, True),
     ]
     rows = []
     for i, (label, b, tq, tk, h, d, dtype, causal) in enumerate(cases):
@@ -864,16 +887,27 @@ def phase_flash_bwd_vs_plain(peaks: dict) -> dict:
         args = (q, k, v, do, lse, delta, causal)
         dq = fa.flash_bwd_dq(*args)
         dk, dv = fa.flash_bwd_dkv(*args)
+        again = (fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args))
         torch.cuda.synchronize()
         want = fa.flash_attention_bwd_reference(*args)
         tol = BWD_TOL[dtype]
         errs = _grad_errors((dq, dk, dv), want, tol)
         if causal and tq > tk and not torch.all(dq[:, :tq - tk] == 0):
             raise RuntimeError(f"{label}: rows that see no key got a dq")
+        if not all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv))):
+            raise RuntimeError(f"{label}: two launches on the same inputs "
+                               f"differ")
         large = b >= VIT_B
         row = {"case": label, "shape": [b, tq, tk, h, d],
                "dtype": str(dtype).replace("torch.", ""), "causal": causal,
                "tol": tol, "errors": errs,
+               "relative_errors": {
+                   n: errs[n] / max(1e-30, w.float().abs().max().item())
+                   for n, w in zip(("dq", "dk", "dv"), want)},
+               "not_bit_equal_share": {
+                   n: (a != w).float().mean().item()
+                   for n, a, w in zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                      want)},
                "plain_ms": time_ms(
                    lambda: fa.flash_attention_bwd_reference(*args),
                    reps=5 if large else 25, inner=2 if large else 10)}
@@ -898,9 +932,12 @@ def phase_flash_bwd_vs_plain(peaks: dict) -> dict:
             do_t = do.transpose(1, 2)
             row["library_ms"] = time_ms(lambda: torch.autograd.grad(
                 o_l, (qt, kt, vt), do_t, retain_graph=True))
+            row["library_kernels"] = _sdpa_backward_kernels(
+                o_l, (qt, kt, vt), do_t)
             del o_l
         else:
             row["library_ms"] = None
+            row["library_kernels"] = None
         rows.append(row)
     out = {"phase": "flash_bwd_vs_plain", "cases": rows,
            "library": "torch.nn.functional.scaled_dot_product_attention "
@@ -1146,6 +1183,7 @@ def _bwd_kernel_entries(bwd: dict, vit: dict, card: dict) -> list:
             "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"],
             "plain_ms": main["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": main["library_ms"],
+            "library_kernels": main["library_kernels"],
             "plain_and_library_cover": "both backward passes",
             "shape": main["shape"], "dtype": main["dtype"],
             "step_ms": LAYERS * r["kernel_ms"],

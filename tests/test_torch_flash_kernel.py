@@ -50,6 +50,30 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         fa.flash_attention(q[0], q[0], q[0])
 
 
+def _fused_views(d, shift=0, device="cpu"):
+    """q, k, v as the model cuts them from its head-major fused QKV output
+    (B, T, H, 3, D), in bf16, the buffer moved ``shift`` elements on."""
+    b, t, h = 2, 17, 4
+    flat = torch.zeros(b * t * h * 3 * d + shift, dtype=torch.bfloat16,
+                       device=device)
+    return flat[shift:].view(b, t, h, 3, d).unbind(3)
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_alignment_predicate_takes_fused_qkv_views(d):
+    """The bf16 backward copies tiles 16 bytes at a time: the model's
+    fused-QKV views (row stride 3·H·D·2 bytes, head offsets D·2 bytes) are
+    aligned; the same views one element on, or a row stride that is no
+    multiple of 16 bytes, are not."""
+    def ok(t):
+        return fa.aligned_16(t.data_ptr(), t.stride(), t.element_size())
+
+    assert all(ok(t) for t in _fused_views(d))
+    assert not any(ok(t) for t in _fused_views(d, shift=1))
+    odd_rows = torch.zeros(2, 17, 4, 3 * d + 1, dtype=torch.bfloat16)[..., :d]
+    assert odd_rows.stride(-1) == 1 and not ok(odd_rows)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -95,6 +119,11 @@ CARD_CASES = [
     (torch.float32, 64, True, 150, 197),
     (torch.float32, 80, False, 197, 197),
     (torch.float32, 32, True, 100, 60),      # 40 rows see no key
+    # bf16 runs the tensor-core kernels: at D = 32 and 80 the scale is no
+    # power of two, so only these catch an unrounded Qs.
+    (torch.bfloat16, 64, True, 150, 197),
+    (torch.bfloat16, 80, False, 197, 197),
+    (torch.bfloat16, 32, True, 100, 60),
 ]
 
 
@@ -127,6 +156,11 @@ def test_backward_kernels_match_plain_on_card(cuda_device, dtype, d, causal,
     _grad_close((dq, dk, dv), want, dtype)
     if tq > tk and causal:
         assert torch.all(dq[:, :tq - tk] == 0)
+    # Each block owns its output tile (no atomics): a second launch on the
+    # same inputs gives the same bits.
+    again = (fa.flash_bwd_dq(q, k, v, do, lse, delta, causal),
+             *fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal))
+    assert all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv)))
 
 
 def test_function_on_card_reads_fused_qkv_views(cuda_device):
@@ -158,3 +192,21 @@ def test_backward_refuses_unsupported_inputs_on_card(cuda_device):
         fa.flash_bwd_dkv(q, q, q, q.bfloat16(), rows, rows)
     with pytest.raises(ValueError, match="lse"):
         fa.flash_bwd_dkv(q, q, q, q, rows.double(), rows)
+
+
+def test_kernels_refuse_misaligned_bf16_views_on_card(cuda_device):
+    """A bf16 view one element off a 16-byte boundary is refused by name,
+    by the backward passes and the forward alike, with no route to another
+    kernel or to the plain version."""
+    q, k, v = _fused_views(64, device=cuda_device)
+    bq, bk, bv = _fused_views(64, shift=1, device=cuda_device)
+    rows = torch.zeros(q.shape[0], q.shape[2], q.shape[1],
+                       device=cuda_device)
+    before = dict(fa.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_bwd_dq(bq, bk, bv, q.contiguous(), rows, rows)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_bwd_dkv(q, k, v, bq, rows, rows)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(bq, bk, bv)
+    assert fa.LAUNCHES == before

@@ -32,30 +32,75 @@
 // ~235 MB against 30.5 GFLOP (S, dP, P^T dO, dS^T Qs). Against 3.35 TB/s and
 // the 989 TFLOP/s bf16 tensor-core peak both are bytes-bound: ~0.058 ms and
 // ~0.070 ms. chip_smoke.py recomputes both bounds from the shapes it runs.
+// Both passes do their products over 64 x 64 tiles, so at T = 197 (four tiles,
+// the last one 5 rows full) they compute 1.69x the FLOPs of the visible pairs;
+// even so, at the tensor cores' peak the products (~0.039 and ~0.052 ms) stay
+// under the bytes bound, while on the FP32 pipes (~6 TFLOP/s reached, 67 peak)
+// they took 4-6 ms a pass. The dKV pass holds the most live state (four
+// accumulator sets); its registers, not shared memory, cap the blocks an SM
+// runs.
 //
-// What the design does about it, and what it leaves for later:
+// Shared by both dtypes:
 //   - one thread block per (64-row tile, head, batch): the dQ pass tiles over
 //     queries and loops over 64-key tiles, the dKV pass tiles over keys and
 //     loops over 64-query tiles; the loop inside the block takes the place of
 //     the TPU's sequential "arbitrary" grid axis. Each block owns its output
 //     tile, so there are no atomics and the result does not depend on how
-//     blocks are scheduled;
+//     blocks are scheduled: two launches on the same inputs are bit-identical;
 //   - each block reads its own tile once and streams the other operand's
 //     tiles past it, so q, k, v and dO are read once per tile of the other
 //     axis (4 times at T = 197), from L2 for the most part;
-//   - tiles are staged in shared memory as f32 with odd row strides, so the
-//     dot loops are free of bank conflicts; four threads own one row and split
-//     its 64 partner rows and its D output columns; a row's dS (and P) goes
-//     through shared memory between the lanes of one warp;
 //   - tiles wholly above the causal diagonal are skipped.
-// The products run as scalar FMAs on the FP32 pipes, reading both operands
-// from shared memory: simple and right first. So the FP32 issue rate and
-// shared-memory reads, not the bytes, set their time (PERF.md has it beside
-// the bound); tensor-core products (mma.sync, then wgmma/TMA) are later work.
+//
+// bf16 (the training path, --use_amp): tensor cores. Four warps a block, each
+// owning 16 rows of the block's 64 (queries in the dQ pass, keys in the dKV
+// pass). Every product is mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32: bf16
+// operands, f32 accumulators. That is exactly _flash_backward's arithmetic,
+// because every operand it feeds a product is already rounded to bf16:
+//   S   = Qs K^T      A: Qs (dQ pass) or K (dKV: S^T = K Qs^T), B: the other
+//   dP  = dO V^T      A: dO or V, B: the other
+//   dQ += T(dS) K     A: T(dS) packed from S/dP's C fragments, B: K (.trans)
+//   dV += T(P)^T dO   A: T(P^T) from the C fragments, B: dO (.trans)
+//   dK += T(dS)^T Qs  A: T(dS^T) from the C fragments, B: Qs (.trans)
+// Only the order of the f32 sums differs from the plain version, so an entry
+// of P or dS lying at a bf16 rounding boundary can round the other way: the
+// results are within the Pallas backward's 1e-2 bound, not bit-equal.
+//   - tiles reach shared memory by cp.async (16 bytes a thread, zero-filled
+//     past Tq / Tk), as bf16 rows padded by 8 elements, so ldmatrix reads
+//     8 rows at 8 distinct 16-byte bank groups for D = 32, 64 and 80;
+//   - the streamed tiles are double-buffered: the copy of tile i+1 is in
+//     flight while the warps multiply tile i;
+//   - Qs = T(f32(q) * scale) is formed once per Q tile, in shared memory (at
+//     D = 64 the scale is a power of two and the rounding is exact; at 32
+//     and 80 it is not);
+//   - the dQ pass keeps its warp's Qs and dO A fragments in registers for
+//     the whole key loop; the dKV pass reloads K and V fragments from shared
+//     memory each query tile, which keeps its four accumulator sets (S^T,
+//     dP^T, dK, dV: 4 x 32 f32 a thread at D = 64) clear of spills;
+//   - S and dP's C fragments turn into P and dS in registers and are packed
+//     to bf16 A fragments (two n8 C tiles make one k16 A tile) with no trip
+//     through shared memory; lse and delta come per row from registers (dQ
+//     pass) or per column from shared memory (dKV pass).
+// A masked pair (key >= Tk, query >= Tq, or causal at the Tk - Tq offset) gets
+// P = 0 by the mask, never from exp: a row that sees no key (lse clamped to 0)
+// gets dq = 0 exactly.
+//
+// f32 keeps the scalar kernels: on tensor cores f32 would run as TF32, whose
+// 10-bit mantissa breaks the 1e-5 bound the f32 backward is held to. Tiles
+// are staged in shared memory as f32 with odd row strides; four threads own
+// one row and split its 64 partner rows and its D output columns; a row's dS
+// (and P) goes through shared memory between the lanes of one warp. The
+// products are scalar FMAs on the FP32 pipes, bit-equal to the plain version.
+//
+// Left for later: wgmma on 64-row warpgroup tiles with TMA loads into
+// swizzled shared memory, a producer warp, and a persistent grid; 128-row
+// tiles, which would also cut the re-reads of the streamed operand.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -65,14 +110,11 @@ constexpr int TPR = 4;           // threads per row
 constexpr int THREADS = 64 * TPR;
 constexpr int CPT = 64 / TPR;    // partner rows per thread in a tile
 
+// The scalar kernels below run f32 only (bf16 takes the tensor-core ones).
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // x rounded to T and widened back to f32.
 template <typename T> __device__ __forceinline__ float round_to(float x) {
@@ -317,6 +359,449 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---- bf16: tensor-core kernels ---------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int MMA_THREADS = 128;   // four warps, 16 rows each
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, or 16 zero bytes when !valid (src unread).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes global -> shared, or zero when !valid.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// The same, each matrix transposed on the way into registers.
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 rounded to bf16, `lo` in the low half (the lower column).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A fragments of T(X) over k16 step kk, from the f32 C fragments of the n8
+// tiles 2kk and 2kk+1 (row g: c[0], c[1]; row g + 8: c[2], c[3]).
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c0)[4],
+                                       const float (&c1)[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// Row stride of a bf16 tile in shared memory: D plus 8 elements of padding.
+template <int D>
+__host__ __device__ constexpr int ld_of() { return D + 8; }
+
+template <int D>
+constexpr size_t tile_bytes() { return sizeof(bf16) * 64 * ld_of<D>(); }
+
+// rows [first, first + 64) x D of a (B, T, H, D) tensor into a padded tile by
+// cp.async; rows past `len` are zero-filled.
+template <int D>
+__device__ __forceinline__ void copy_tile(bf16* dst, const bf16* src,
+                                          int64_t st, int first, int len) {
+  constexpr int CH = D / 8;      // 16-byte chunks a row
+  for (int i = threadIdx.x; i < 64 * CH; i += MMA_THREADS) {
+    const int r = i / CH, c = (i % CH) * 8;
+    const int t = first + r;
+    const bool ok = t < len;
+    cp_async16(dst + r * ld_of<D>() + c, ok ? src + t * st + c : src, ok);
+  }
+}
+
+// Qs = T(f32(q) * scale) in place over a whole tile.
+template <int D>
+__device__ __forceinline__ void scale_tile(bf16* tile, float scale) {
+  for (int i = threadIdx.x; i < 64 * D / 2; i += MMA_THREADS) {
+    const int r = i / (D / 2), c = (i % (D / 2)) * 2;
+    __nv_bfloat162* p =
+        reinterpret_cast<__nv_bfloat162*>(tile + r * ld_of<D>() + c);
+    const float2 f = __bfloat1622float2(*p);
+    *p = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+  }
+}
+
+template <int D>
+constexpr size_t dq_mma_smem_bytes() { return 6 * tile_bytes<D>(); }
+
+template <int D>
+constexpr size_t dkv_mma_smem_bytes() {
+  return 6 * tile_bytes<D>() + 4 * 64 * sizeof(float);
+}
+
+// Per-lane row and column offsets of ldmatrix.x4 addresses within a 16x16
+// block: an A fragment (or a B fragment pair read .trans from a [k][n] tile),
+// and a B fragment pair for n8 tiles 2j, 2j+1 read from an [n][k] tile.
+__device__ __forceinline__ int a_row(int lane) { return lane & 15; }
+__device__ __forceinline__ int a_col(int lane) { return (lane >> 4) * 8; }
+__device__ __forceinline__ int b_row(int lane) {
+  return (lane & 7) + ((lane >> 4) << 3);
+}
+__device__ __forceinline__ int b_col(int lane) { return ((lane >> 3) & 1) * 8; }
+
+// The dQ pass in bf16: one block per (query tile, head, batch); warp w owns
+// query rows 16w..16w+15; lane (g, tg) = (lane / 4, lane % 4) holds rows g
+// and g + 8 and, of each n8 tile, columns 2tg and 2tg + 1.
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, bf16* __restrict__ dq, int H,
+                 int Tq, int Tk, Strides st, int causal, float scale) {
+  constexpr int LD = ld_of<D>();
+  constexpr int TILE = 64 * LD;
+  constexpr int KS = D / 16;     // k16 steps over D
+  constexpr int NT = D / 8;      // n8 tiles over D
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // Qs
+  bf16* sO = sQ + TILE;                           // dO
+  bf16* sK = sO + TILE;                           // 2 buffers
+  bf16* sV = sK + 2 * TILE;                       // 2 buffers
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tg = lane % 4;
+  const int q0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
+  const int offset = Tk - Tq;
+
+  const bf16* qb = q + b * st.q[0] + h * st.q[2];
+  const bf16* kb = k + b * st.k[0] + h * st.k[2];
+  const bf16* vb = v + b * st.v[0] + h * st.v[2];
+  const bf16* ob = dout + b * st.o[0] + h * st.o[2];
+
+  int nk = (Tk + 63) / 64;
+  if (causal) {
+    const int last = q0 + 63 + offset;
+    nk = min(nk, last < 0 ? 0 : last / 64 + 1);
+  }
+
+  copy_tile<D>(sQ, qb, st.q[1], q0, Tq);
+  copy_tile<D>(sO, ob, st.o[1], q0, Tq);
+  cp_async_commit();
+  if (nk > 0) {
+    copy_tile<D>(sK, kb, st.k[1], 0, Tk);
+    copy_tile<D>(sV, vb, st.v[1], 0, Tk);
+  }
+  cp_async_commit();
+
+  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
+  const int64_t stat = (int64_t(b) * H + h) * Tq;
+  const float lse0 = row0 < Tq ? lse[stat + row0] : 0.f;
+  const float lse1 = row1 < Tq ? lse[stat + row1] : 0.f;
+  const float dl0 = row0 < Tq ? delta[stat + row0] : 0.f;
+  const float dl1 = row1 < Tq ? delta[stat + row1] : 0.f;
+
+  cp_async_wait<1>();            // Q and dO have landed
+  __syncthreads();
+  scale_tile<D>(sQ, scale);
+  __syncthreads();
+
+  uint32_t aQ[KS][4], aO[KS][4];
+  const int ar = warp * 16 + a_row(lane), ac = a_col(lane);
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    ldsm_x4(aQ[ks], sQ + ar * LD + ks * 16 + ac);
+    ldsm_x4(aO[ks], sO + ar * LD + ks * 16 + ac);
+  }
+
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  const int br = b_row(lane), bc = b_col(lane);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * 64;
+    const bf16* cK = sK + (kt & 1) * TILE;
+    const bf16* cV = sV + (kt & 1) * TILE;
+    if (kt + 1 < nk) {
+      copy_tile<D>(sK + ((kt + 1) & 1) * TILE, kb, st.k[1], k0 + 64, Tk);
+      copy_tile<D>(sV + ((kt + 1) & 1) * TILE, vb, st.v[1], k0 + 64, Tk);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();          // tile kt has landed
+    __syncthreads();
+
+    // S = Qs K^T and dP = dO V^T over the warp's 16 rows x 64 keys.
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t bk[4], bv[4];
+        ldsm_x4(bk, cK + (j * 16 + br) * LD + ks * 16 + bc);
+        ldsm_x4(bv, cV + (j * 16 + br) * LD + ks * 16 + bc);
+        mma_bf16(s[2 * j], aQ[ks], bk[0], bk[1]);
+        mma_bf16(s[2 * j + 1], aQ[ks], bk[2], bk[3]);
+        mma_bf16(dp[2 * j], aO[ks], bv[0], bv[1]);
+        mma_bf16(dp[2 * j + 1], aO[ks], bv[2], bv[3]);
+      }
+    }
+
+    // P = exp(S - lse) where visible, else 0; dS = P (dP - delta), into s.
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = e < 2 ? row0 : row1;
+        const int col = k0 + n * 8 + 2 * tg + (e & 1);
+        const bool ok = row < Tq && col < Tk && (!causal || row + offset >= col);
+        const float p = ok ? expf(s[n][e] - (e < 2 ? lse0 : lse1)) : 0.f;
+        s[n][e] = p * (dp[n][e] - (e < 2 ? dl0 : dl1));
+      }
+    }
+
+    // dQ += T(dS) K, K read transposed.
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t aS[4];
+      pack_a(aS, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j) {
+        uint32_t bk[4];
+        ldsm_x4_t(bk, cK + (kk * 16 + a_row(lane)) * LD + j * 16 + ac);
+        mma_bf16(acc[2 * j], aS, bk[0], bk[1]);
+        mma_bf16(acc[2 * j + 1], aS, bk[2], bk[3]);
+      }
+    }
+    __syncthreads();             // buffer kt & 1 is free for tile kt + 2
+  }
+  cp_async_wait<0>();
+
+  const int64_t r0 = ((int64_t(b) * Tq + row0) * H + h) * D;
+  const int64_t r1 = ((int64_t(b) * Tq + row1) * H + h) * D;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int col = n * 8 + 2 * tg;
+    if (row0 < Tq)
+      *reinterpret_cast<uint32_t*>(dq + r0 + col) =
+          pack_bf16(acc[n][0] * scale, acc[n][1] * scale);
+    if (row1 < Tq)
+      *reinterpret_cast<uint32_t*>(dq + r1 + col) =
+          pack_bf16(acc[n][2] * scale, acc[n][3] * scale);
+  }
+}
+
+// The dKV pass in bf16: one block per (key tile, head, batch); warp w owns
+// keys 16w..16w+15 and works in the transposed orientation (S^T = K Qs^T,
+// dP^T = V dO^T), so P^T and dS^T leave the accumulators already laid out
+// as A fragments for dV += T(P)^T dO and dK += T(dS)^T Qs.
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, bf16* __restrict__ dk,
+                  bf16* __restrict__ dv, int H, int Tq, int Tk, Strides st,
+                  int causal, float scale) {
+  constexpr int LD = ld_of<D>();
+  constexpr int TILE = 64 * LD;
+  constexpr int KS = D / 16;
+  constexpr int NT = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sV = sK + TILE;
+  bf16* sQ = sV + TILE;          // 2 buffers, Qs once formed
+  bf16* sO = sQ + 2 * TILE;      // 2 buffers
+  float* sL = reinterpret_cast<float*>(sO + 2 * TILE);   // [2][64] lse
+  float* sD = sL + 2 * 64;                               // [2][64] delta
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tg = lane % 4;
+  const int k0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
+  const int offset = Tk - Tq;
+
+  const bf16* qb = q + b * st.q[0] + h * st.q[2];
+  const bf16* kb = k + b * st.k[0] + h * st.k[2];
+  const bf16* vb = v + b * st.v[0] + h * st.v[2];
+  const bf16* ob = dout + b * st.o[0] + h * st.o[2];
+  const float* lb = lse + (int64_t(b) * H + h) * Tq;
+  const float* db = delta + (int64_t(b) * H + h) * Tq;
+
+  // Query tiles whose every row lies above the causal diagonal of this key
+  // tile's first key are skipped.
+  int qt0 = 0;
+  if (causal) {
+    const int lo = k0 - offset - 63;
+    qt0 = lo <= 0 ? 0 : (lo + 63) / 64;
+  }
+  const int nq = (Tq + 63) / 64;
+
+  // Q, dO, lse and delta of query tile qt into buffer `buf`.
+  auto copy_q_tile = [&](int qt, int buf) {
+    const int q0 = qt * 64;
+    copy_tile<D>(sQ + buf * TILE, qb, st.q[1], q0, Tq);
+    copy_tile<D>(sO + buf * TILE, ob, st.o[1], q0, Tq);
+    const int i = tid & 63, t = q0 + i;
+    const float* src = tid < 64 ? lb : db;
+    float* dst = (tid < 64 ? sL : sD) + buf * 64 + i;
+    cp_async4(dst, t < Tq ? src + t : src, t < Tq);
+  };
+
+  copy_tile<D>(sK, kb, st.k[1], k0, Tk);
+  copy_tile<D>(sV, vb, st.v[1], k0, Tk);
+  cp_async_commit();
+  if (qt0 < nq) copy_q_tile(qt0, 0);
+  cp_async_commit();
+
+  float dk_acc[NT][4], dv_acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  const int key0 = k0 + warp * 16 + g, key1 = key0 + 8;
+  const int ar = warp * 16 + a_row(lane), ac = a_col(lane);
+  const int br = b_row(lane), bc = b_col(lane);
+  for (int qt = qt0; qt < nq; ++qt) {
+    const int q0 = qt * 64;
+    const int buf = (qt - qt0) & 1;
+    bf16* cQ = sQ + buf * TILE;
+    const bf16* cO = sO + buf * TILE;
+    const float* cL = sL + buf * 64;
+    const float* cD = sD + buf * 64;
+    if (qt + 1 < nq) copy_q_tile(qt + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();          // K, V and query tile qt have landed
+    __syncthreads();
+    scale_tile<D>(cQ, scale);
+    __syncthreads();
+
+    // S^T = K Qs^T and dP^T = V dO^T over the warp's 16 keys x 64 queries.
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t aK[4], aV[4];
+      ldsm_x4(aK, sK + ar * LD + ks * 16 + ac);
+      ldsm_x4(aV, sV + ar * LD + ks * 16 + ac);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t bq[4], bo[4];
+        ldsm_x4(bq, cQ + (j * 16 + br) * LD + ks * 16 + bc);
+        ldsm_x4(bo, cO + (j * 16 + br) * LD + ks * 16 + bc);
+        mma_bf16(s[2 * j], aK, bq[0], bq[1]);
+        mma_bf16(s[2 * j + 1], aK, bq[2], bq[3]);
+        mma_bf16(dp[2 * j], aV, bo[0], bo[1]);
+        mma_bf16(dp[2 * j + 1], aV, bo[2], bo[3]);
+      }
+    }
+
+    // P^T = exp(S^T - lse[col]) where visible, else 0, into s; dS^T into dp.
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = e < 2 ? key0 : key1;
+        const int c = n * 8 + 2 * tg + (e & 1);
+        const int qrow = q0 + c;
+        const bool ok = key < Tk && qrow < Tq && (!causal || qrow + offset >= key);
+        const float p = ok ? expf(s[n][e] - cL[c]) : 0.f;
+        s[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - cD[c]);
+      }
+    }
+
+    // dV += T(P^T) dO and dK += T(dS^T) Qs, dO and Qs read transposed.
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t aP[4], aS[4];
+      pack_a(aP, s[2 * kk], s[2 * kk + 1]);
+      pack_a(aS, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j) {
+        uint32_t bo[4], bq[4];
+        ldsm_x4_t(bo, cO + (kk * 16 + a_row(lane)) * LD + j * 16 + ac);
+        ldsm_x4_t(bq, cQ + (kk * 16 + a_row(lane)) * LD + j * 16 + ac);
+        mma_bf16(dv_acc[2 * j], aP, bo[0], bo[1]);
+        mma_bf16(dv_acc[2 * j + 1], aP, bo[2], bo[3]);
+        mma_bf16(dk_acc[2 * j], aS, bq[0], bq[1]);
+        mma_bf16(dk_acc[2 * j + 1], aS, bq[2], bq[3]);
+      }
+    }
+    __syncthreads();             // buffer `buf` is free for tile qt + 2
+  }
+  cp_async_wait<0>();
+
+  const int64_t r0 = ((int64_t(b) * Tk + key0) * H + h) * D;
+  const int64_t r1 = ((int64_t(b) * Tk + key1) * H + h) * D;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int col = n * 8 + 2 * tg;
+    if (key0 < Tk) {
+      *reinterpret_cast<uint32_t*>(dk + r0 + col) =
+          pack_bf16(dk_acc[n][0], dk_acc[n][1]);
+      *reinterpret_cast<uint32_t*>(dv + r0 + col) =
+          pack_bf16(dv_acc[n][0], dv_acc[n][1]);
+    }
+    if (key1 < Tk) {
+      *reinterpret_cast<uint32_t*>(dk + r1 + col) =
+          pack_bf16(dk_acc[n][2], dk_acc[n][3]);
+      *reinterpret_cast<uint32_t*>(dv + r1 + col) =
+          pack_bf16(dv_acc[n][2], dv_acc[n][3]);
+    }
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
   void *out0, *out1;             // dq; or dk and dv
@@ -359,13 +844,56 @@ cudaError_t launch_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_dq_mma(const Args& a) {
+  constexpr size_t smem = dq_mma_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.Tq + 63) / 64, a.H, a.B);
+  flash_bwd_dq_mma<D><<<grid, MMA_THREADS, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<bf16*>(a.out0), a.H, a.Tq, a.Tk, a.st, a.causal, a.scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_mma(const Args& a) {
+  constexpr size_t smem = dkv_mma_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.Tk + 63) / 64, a.H, a.B);
+  flash_bwd_dkv_mma<D><<<grid, MMA_THREADS, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<bf16*>(a.out0), static_cast<bf16*>(a.out1), a.H, a.Tq,
+      a.Tk, a.st, a.causal, a.scale);
+  return cudaGetLastError();
+}
+
+// f32 runs the scalar kernels; bf16 the tensor-core ones.
 template <bool DQ, typename T>
 cudaError_t dispatch_dim(int head_dim, const Args& a) {
-  switch (head_dim) {
-    case 32: return DQ ? launch_dq<T, 32>(a) : launch_dkv<T, 32>(a);
-    case 64: return DQ ? launch_dq<T, 64>(a) : launch_dkv<T, 64>(a);
-    case 80: return DQ ? launch_dq<T, 80>(a) : launch_dkv<T, 80>(a);
-    default: return cudaErrorInvalidValue;
+  if constexpr (std::is_same_v<T, bf16>) {
+    switch (head_dim) {
+      case 32: return DQ ? launch_dq_mma<32>(a) : launch_dkv_mma<32>(a);
+      case 64: return DQ ? launch_dq_mma<64>(a) : launch_dkv_mma<64>(a);
+      case 80: return DQ ? launch_dq_mma<80>(a) : launch_dkv_mma<80>(a);
+      default: return cudaErrorInvalidValue;
+    }
+  } else {
+    switch (head_dim) {
+      case 32: return DQ ? launch_dq<T, 32>(a) : launch_dkv<T, 32>(a);
+      case 64: return DQ ? launch_dq<T, 64>(a) : launch_dkv<T, 64>(a);
+      case 80: return DQ ? launch_dq<T, 80>(a) : launch_dkv<T, 80>(a);
+      default: return cudaErrorInvalidValue;
+    }
   }
 }
 

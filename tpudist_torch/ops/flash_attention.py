@@ -26,8 +26,10 @@ on the card and how they are laid out.
 Shapes are ``(B, T, H, D)`` as in the JAX API; ``lse`` and ``delta`` are
 ``(B, H, Tq)`` f32 (the JAX kernel's ``(B, H, Tq_pad, 1)`` without padding).
 The inputs may be strided views (the model passes slices of its fused QKV
-output); only the head dim has to be contiguous. The gradients come out
-contiguous, in the inputs' dtype.
+output); only the head dim has to be contiguous, and in bf16, where the
+backward copies its tiles 16 bytes at a time, the address and the (batch,
+seq, head) strides must be 16-byte multiples (``aligned_16``; the fused
+QKV views are). The gradients come out contiguous, in the inputs' dtype.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ import torch
 NEG_INF = -1e30
 
 # Bumped whenever a kernel's math or schedule changes.
-KERNEL_REV = 2
+KERNEL_REV = 3
 
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
@@ -204,9 +206,18 @@ def _check_bwd(q, k, v, do, lse, delta) -> None:
                              f"{t.dtype}")
 
 
+def aligned_16(address: int, strides, element_size: int) -> bool:
+    """Whether 16-byte ``cp.async`` copies can read a (B, T, H, D) operand
+    row by row: its address and its (batch, seq, head) strides in bytes
+    are multiples of 16. The bf16 backward kernels copy their tiles so."""
+    return address % 16 == 0 and all(
+        s * element_size % 16 == 0 for s in tuple(strides)[:3])
+
+
 def _kernel_ready(*ts: torch.Tensor) -> None:
     """Raise unless the CUDA kernels take these (B, T, H, D) operands as
-    they are."""
+    they are. bf16 operands must be 16-byte aligned (``aligned_16``): the
+    backward passes need it, and the forward is held to the same rule."""
     q = ts[0]
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, got "
@@ -220,6 +231,13 @@ def _kernel_ready(*ts: torch.Tensor) -> None:
     if any(t.stride(-1) != 1 for t in ts):
         raise ValueError("flash_attention needs a contiguous head dim "
                          "(stride(-1) == 1) on q, k, v and dO")
+    if q.dtype == torch.bfloat16 and not all(
+            aligned_16(t.data_ptr(), t.stride(), t.element_size())
+            for t in ts):
+        raise ValueError("the bf16 flash kernels need 16-byte alignment: "
+                         "the address and the (batch, seq, head) strides "
+                         "in bytes of q, k, v (and dO) must be multiples "
+                         "of 16")
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
