@@ -9,12 +9,17 @@ line and raising on failure:
 
 1. card and build: the card (``nvidia-smi`` name and power limit, torch's
    device name and CUDA version), then ``nvcc`` builds every kernel and
-   its ``-Xptxas -v`` report (registers, spills) is printed;
+   its ``-Xptxas -v`` report (registers, spills) is printed; a bf16
+   tensor-core kernel that spills fails the phase;
 2. kernel vs plain: each kernel against its plain-PyTorch version on the
    card, with its time, the plain version's, one PyTorch library call's
    (where one computes the same function) and the card's bound:
    a. the flash-attention forward at the serving shapes, ViT-B/16's
-      training shape (batch 128) and odd ones;
+      training shape (batch 128) and odd shapes in f32 and bf16 (head
+      dims 32 and 80, a causal cross length, fully masked rows): o and
+      lse within the bound (the bf16 lse within the f32 one), the share
+      of O entries not bit-equal to the plain version, two launches
+      bit-identical, rows that see no key O = 0 and lse = -1e30;
    b. the flash-attention backward, its dQ and dKV passes, at ViT-B/16's
       training shape in bf16 and at odd shapes in f32 and bf16 (head dims
       32 and 80, causal cross lengths with fully masked rows): within the
@@ -51,17 +56,23 @@ line and raising on failure:
 It exits non-zero, printing no result, without a CUDA card or without the
 rest of the repository. ``python3 chip_smoke.py --mutations`` runs only
 the ``--flash on``/``off`` comparison under in-memory faults of the
-backward (dq 10 % off; one key tile's dk and dv dropped) and exits 0 only
-if every fault breaks its bounds.
+backward (dq 10 % off; one key tile's dk and dv dropped), then builds two
+faulty copies of the forward kernel (one key tile's contribution to O
+dropped; l summed from the rounded P) and holds each against the bf16
+forward cases, the served logits on/off and the bf16 training on/off; it
+exits 0 only if every fault breaks a bound.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import io
 import json
 import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -97,6 +108,13 @@ LAYERS = 12
 F32_TOL = 2e-5     # rtol and atol, the bound tests/test_flash_attention.py
 #                    holds the Pallas kernel to
 BF16_TOL = 1e-2
+# The bf16 forward's lse against the plain version's. Every product feeding
+# S is exact in f32 (bf16 operands) and l sums the unrounded P in f32, so
+# only the order of f32 sums differs; held to the f32 bound. Read at 9.5e-7
+# on an H100 80GB HBM3 at 700 W. A kernel that sums l from the bf16-rounded
+# P reads 5.6e-4 to 1.2e-3 there, and breaks neither the served logits nor
+# the training bounds (python3 chip_smoke.py --mutations).
+BF16_LSE_TOL = F32_TOL
 # --flash on vs off logits of the served ViT-B/16 in bf16: the kernel
 # rounds P before normalising and the plain path after, and the two
 # roundings of 2^-8 relative differ per layer across 12 layers.
@@ -196,6 +214,46 @@ def time_ms(fn, reps: int = 25, inner: int = 10) -> float:
 
 # -- phase 1 -----------------------------------------------------------------
 
+def _kernel_name(mangled: str) -> str:
+    """``flash_fwd_mma<64>``, ``flash_bwd_dq_kernel<f32,64>`` or
+    ``bn_act_fwd_kernel<bf16,true>`` from a mangled kernel name; one of
+    another form comes back as it is."""
+    m = re.search(r"\d+((?:flash|bn)_\w+?_(?:mma|kernel))I(\w+?)EEv",
+                  mangled)
+    if not m:
+        return mangled
+    words = {"f": "f32", "13__nv_bfloat16": "bf16", "Lb0E": "false",
+             "Lb1E": "true"}
+    toks = re.finditer(r"f(?=L|$)|13__nv_bfloat16|Lb[01]E|Li(\d+)E",
+                       m.group(2))
+    names = [words.get(t.group(0)) or t.group(1) for t in toks]
+    return f"{m.group(1)}<{','.join(names)}>"
+
+
+def _ptxas_entries(log: str) -> dict:
+    """Registers and spill bytes of each kernel in an ``-Xptxas -v``
+    report, by readable name (``flash_fwd_mma<64>``; an entry of another
+    form keeps its mangled name)."""
+    out, entry = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            entry = _kernel_name(m.group(1))
+            out[entry] = {}
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            out[entry].update(spill_stores=int(m.group(1)),
+                              spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[entry]["registers"] = int(m.group(1))
+    return out
+
+
 def phase_card_and_build() -> dict:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -207,10 +265,12 @@ def phase_card_and_build() -> dict:
     t0 = time.perf_counter()
     paths, logs = _build.build_all()
     build_s = time.perf_counter() - t0
-    ptxas = {k: [ln.strip() for ln in log.splitlines()
-                 if any(w in ln for w in ("Compiling entry", "registers",
-                                          "spill"))]
-             for k, log in logs.items()}
+    ptxas = {k: _ptxas_entries(log) for k, log in logs.items()}
+    spills = [f"{lib}: {entry} {r}" for lib, entries in ptxas.items()
+              for entry, r in entries.items() if "_mma<" in entry
+              and (r.get("spill_stores") or r.get("spill_loads"))]
+    if spills:
+        raise RuntimeError(f"a bf16 tensor-core kernel spills: {spills}")
     peak_kind, _ = peaks_for(name)
     card = {"phase": "card_and_build", "nvidia_smi": smi_line,
             "device_name": name, "torch": torch.__version__,
@@ -254,34 +314,80 @@ def _work(q, k, v, causal):
     return nbytes, 4.0 * b * h * pairs * d
 
 
+FWD_CASES = [
+    # (label, B, Tq, Tk, H, D, dtype, causal): the serving shapes first,
+    # then ViT-B/16's training shape, then odd ones in f32 (the scalar
+    # kernel) and in bf16 (the tensor-core kernel): head dim 80 (ViT-H/14's
+    # 257 tokens of 16 heads), a ragged causal cross length, and head dim 32
+    # causal with fully masked rows. At D = 32 and 80 the scale is no power
+    # of two, so an unrounded Qs would show there only.
+    *[(f"serve_b{b}", b, SERVE_T, SERVE_T, SERVE_H, SERVE_D, torch.bfloat16,
+       False) for b in BUCKETS],
+    (f"train_b{VIT_B}", VIT_B, SERVE_T, SERVE_T, SERVE_H, SERVE_D,
+     torch.bfloat16, False),
+    ("f32_causal_cross", 2, 150, 197, 4, 64, torch.float32, True),
+    ("f32_d80", 2, 257, 257, 16, 80, torch.float32, False),
+    ("f32_d32_masked_rows", 2, 100, 60, 3, 32, torch.float32, True),
+    ("bf16_d80", 2, 257, 257, 16, 80, torch.bfloat16, False),
+    ("bf16_causal_cross", 2, 150, 197, 4, 64, torch.bfloat16, True),
+    ("bf16_d32_masked_rows", 2, 100, 60, 3, 32, torch.bfloat16, True),
+]
+
+
+def _close(got, want, tol):
+    """Whether |got − want| <= tol + tol·|want| everywhere (the form of
+    torch.testing.assert_close with rtol = atol = tol)."""
+    return bool(((got - want).abs() <= tol + tol * want.abs()).all())
+
+
+def _fwd_check(q, k, v, causal) -> tuple[dict, list[str]]:
+    """The forward kernel against its plain version on one input: the
+    errors and bit-equality shares of O and lse, and what breaks its
+    bounds (none: []): o within 2e-5 (f32) or 1e-2 (bf16), lse within
+    2e-5 (F32_TOL, BF16_LSE_TOL), two launches bit-identical, and rows
+    that see no key O = 0 and lse = -1e30 exactly."""
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal=causal)
+    bf16 = q.dtype == torch.bfloat16
+    tol = BF16_TOL if bf16 else F32_TOL
+    of, rf = o.float(), o_ref.float()
+    bad = []
+    if not _close(of, rf, tol):
+        bad.append(f"o off by {(of - rf).abs().max().item()} (tol {tol})")
+    lse_tol = BF16_LSE_TOL if bf16 else F32_TOL
+    if not _close(lse, lse_ref, lse_tol):
+        bad.append(f"lse off by {(lse - lse_ref).abs().max().item()} "
+                   f"(tol {lse_tol})")
+    relaunch = torch.equal(o, o2) and torch.equal(lse, lse2)
+    if not relaunch:
+        bad.append("two launches on the same inputs differ")
+    blind = max(0, q.shape[1] - k.shape[1]) if causal else 0
+    if blind and not (torch.all(o[:, :blind] == 0)
+                      and torch.all(lse[:, :, :blind] == fa.NEG_INF)):
+        bad.append("rows that see no key got O != 0 or lse != -1e30")
+    row = {"o_max_abs_err": (of - rf).abs().max().item(),
+           "lse_max_abs_err": (lse - lse_ref).abs().max().item(),
+           "o_not_bit_equal_share": (o != o_ref).float().mean().item(),
+           "lse_not_bit_equal_share": (lse != lse_ref).float().mean()
+           .item(),
+           "lse_tol": lse_tol, "relaunch_bit_identical": relaunch,
+           "rows_seeing_no_key": blind}
+    return row, bad
+
+
 def phase_kernel_vs_plain(peaks: dict) -> dict:
-    cases = [
-        # (label, B, Tq, Tk, H, D, dtype, causal): the serving shapes
-        # first, then a ragged causal cross length, head dim 80 (ViT-H/14's
-        # 257 tokens of 16 heads) and head dim 32 with fully masked rows.
-        *[(f"serve_b{b}", b, SERVE_T, SERVE_T, SERVE_H, SERVE_D,
-           torch.bfloat16, False) for b in BUCKETS],
-        (f"train_b{VIT_B}", VIT_B, SERVE_T, SERVE_T, SERVE_H, SERVE_D,
-         torch.bfloat16, False),
-        ("f32_causal_cross", 2, 150, 197, 4, 64, torch.float32, True),
-        ("f32_d80", 2, 257, 257, 16, 80, torch.float32, False),
-        ("f32_d32_masked_rows", 2, 100, 60, 3, 32, torch.float32, True),
-    ]
     rows = []
-    for i, (label, b, tq, tk, h, d, dtype, causal) in enumerate(cases):
+    for i, (label, b, tq, tk, h, d, dtype, causal) in enumerate(FWD_CASES):
         q, k, v = _qkv_views(b, tq, tk, h, d, dtype, seed=i)
-        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal=causal)
+        checked, bad = _fwd_check(q, k, v, causal)
+        if bad:
+            raise RuntimeError(f"flash_fwd {label}: {'; '.join(bad)}")
         tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-        torch.testing.assert_close(o.float(), o_ref.float(), rtol=tol,
-                                   atol=tol)
-        torch.testing.assert_close(lse, lse_ref, rtol=tol, atol=tol)
         row = {"case": label, "shape": [b, tq, tk, h, d],
                "dtype": str(dtype).replace("torch.", ""), "causal": causal,
-               "tol": tol,
-               "o_max_abs_err": (o.float() - o_ref.float()).abs().max().item(),
-               "lse_max_abs_err": (lse - lse_ref).abs().max().item()}
+               "tol": tol, **checked}
         nbytes, flops = _work(q, k, v, causal)
         rate = peaks["bf16" if dtype == torch.bfloat16 else "f32"]
         t_bytes, t_ops = nbytes / peaks["hbm"] * 1e3, flops / rate * 1e3
@@ -347,7 +453,25 @@ def phase_serve() -> dict:
                            f"{bucket_calls} bucket calls of {LAYERS} "
                            f"layers: some attention skipped the kernel")
 
-    # --flash on vs --flash off with the same weights, on one batch of 8.
+    logits, bad, model = serve_logits_on_off()
+    if bad:
+        raise RuntimeError(bad)
+    by_bucket = {b: sum(e["bucket"] == b for e in calls) for b in BUCKETS}
+    out = {"phase": "serve", "arch": "vit_b_16", "image_size": 224,
+           "dtype": "bfloat16", "wall_s": round(wall_s, 3),
+           "summary": summary, "bucket_calls": bucket_calls,
+           "warmup_calls": len(warm), "serve_calls_by_bucket": by_bucket,
+           "flash_launches": launches,
+           "launches_per_bucket_call": launches / bucket_calls,
+           **logits}
+    emit(out)
+    return out, model
+
+
+def serve_logits_on_off():
+    """The served logits of a ``--flash on`` and a ``--flash off`` engine
+    with the same weights, on one batch of 8: the reading, what breaks its
+    bound (None if nothing), and the ``on`` model."""
     rng = np.random.default_rng(0)
     images = rng.standard_normal((8, 224, 224, 3)).astype(np.float32)
     logits, models = {}, {}
@@ -356,25 +480,16 @@ def phase_serve() -> dict:
         engine = ServeEngine(models[mode], image_size=224, buckets=(8,))
         logits[mode] = engine.infer(images)
     on, off = logits["on"], logits["off"]
-    if on.shape != (8, 1000) or not np.isfinite(on).all():
-        raise RuntimeError(f"served logits {on.shape}, finite "
-                           f"{np.isfinite(on).all()}")
     diff = float(np.abs(on - off).max())
     scale = max(1.0, float(np.abs(off).max()))
-    if diff > LOGITS_TOL * scale:
-        raise RuntimeError(f"--flash on vs off logits differ by {diff} "
-                           f"(bound {LOGITS_TOL} x {scale})")
-    by_bucket = {b: sum(e["bucket"] == b for e in calls) for b in BUCKETS}
-    out = {"phase": "serve", "arch": "vit_b_16", "image_size": 224,
-           "dtype": "bfloat16", "wall_s": round(wall_s, 3),
-           "summary": summary, "bucket_calls": bucket_calls,
-           "warmup_calls": len(warm), "serve_calls_by_bucket": by_bucket,
-           "flash_launches": launches,
-           "launches_per_bucket_call": launches / bucket_calls,
-           "logits_on_vs_off_max_abs": diff, "logits_max_abs": scale,
-           "logits_tol": LOGITS_TOL * scale}
-    emit(out)
-    return out, models["on"]
+    bad = None
+    if on.shape != (8, 1000) or not np.isfinite(on).all():
+        bad = f"served logits {on.shape}, finite {np.isfinite(on).all()}"
+    elif not diff <= LOGITS_TOL * scale:
+        bad = (f"--flash on vs off logits differ by {diff} (bound "
+               f"{LOGITS_TOL} x {scale})")
+    return ({"logits_on_vs_off_max_abs": diff, "logits_max_abs": scale,
+             "logits_tol": LOGITS_TOL * scale}, bad, models["on"])
 
 
 # -- phase 3b: where a served forward's time goes ----------------------------
@@ -1071,10 +1186,99 @@ def _key_tile_dropped(out):
 MUTATIONS = {"dq_10pct_off": ("flash_bwd_dq", _dq_off),
              "key_tile_1_dropped": ("flash_bwd_dkv", _key_tile_dropped)}
 
+# Faults of the forward: one line of flash_fwd.cu's tensor-core kernel
+# patched, built into a library of its own. Key tile 1's P zeroed before
+# P·V (its contribution to O dropped, l kept), and l summed from the
+# bf16-rounded P instead of the unrounded one.
+FWD_MUTANTS = {
+    "fwd_key_tile_1_dropped": (
+        "      pack_a(aP, s[2 * kk], s[2 * kk + 1]);\n",
+        "      pack_a(aP, s[2 * kk], s[2 * kk + 1]);\n"
+        "      if (kt == 1) aP[0] = aP[1] = aP[2] = aP[3] = 0u;\n"),
+    "fwd_l_from_rounded_p": (
+        "        ls[e >> 1] += p;\n",
+        "        ls[e >> 1] += __bfloat162float(__float2bfloat16(p));\n"),
+}
+
+
+def _build_mutants(root: str) -> dict:
+    """Each forward fault built under ``root`` from a patched copy of the
+    kernel sources, all nvcc runs at once: the path of each library."""
+    jobs = {}
+    for name, (old, new) in FWD_MUTANTS.items():
+        d = os.path.join(root, name)
+        shutil.copytree(_build.CSRC_DIR, d)
+        src = os.path.join(d, _build.SOURCES["flash_fwd"])
+        with open(src) as f:
+            text = f.read()
+        if text.count(old) != 1:
+            raise RuntimeError(f"{name}: the line it patches is not in "
+                               f"flash_fwd.cu exactly once: {old!r}")
+        with open(src, "w") as f:
+            f.write(text.replace(old, new))
+        lib = os.path.join(d, "libflash_fwd.so")
+        jobs[name] = (lib, subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (lib, proc) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"{name}: nvcc failed:\n{log}")
+        libs[name] = lib
+    return libs
+
+
+@contextlib.contextmanager
+def _forward_library(path: str):
+    """The flash forward launched from the library at ``path`` (the
+    wrapper, its launch count and its checks unchanged) inside the block."""
+    saved = _build._libs.get("flash_fwd")
+    _build._libs["flash_fwd"] = ctypes.CDLL(path)
+    fa._fns.pop("flash_fwd", None)
+    try:
+        yield
+    finally:
+        if saved is None:
+            _build._libs.pop("flash_fwd", None)
+        else:
+            _build._libs["flash_fwd"] = saved
+        fa._fns.pop("flash_fwd", None)
+
+
+def _forward_mutation(name: str, path: str) -> bool:
+    """One forward fault against every bound that can see it: the bf16
+    kernel_vs_plain cases, the served logits on/off and the bf16 --flash
+    on/off training comparison. Whether any of them breaks."""
+    with _forward_library(path):
+        cases = []
+        for i, (label, b, tq, tk, h, d, dtype, causal) in enumerate(
+                FWD_CASES):
+            if dtype == torch.bfloat16:
+                q, k, v = _qkv_views(b, tq, tk, h, d, dtype, seed=i)
+                row, bad = _fwd_check(q, k, v, causal)
+                cases.append(dict(row, case=label, breaks=bad))
+        logits, serve_bad, model = serve_logits_on_off()
+        del model
+        train = compare_on_off(_vit_setup, torch.bfloat16, VIT_CMP_B,
+                               VIT_CMP_LR)
+        train_bad = _held_on_off(train, VIT_LOSS_TOL, VIT_STATE_TOL, name)
+    breaks = {"kernel_vs_plain": [f"{c['case']}: {'; '.join(c['breaks'])}"
+                                  for c in cases if c["breaks"]],
+              "serve_logits": [serve_bad] if serve_bad else [],
+              "flash_vs_plain_train_bf16": train_bad}
+    emit({"phase": "mutation", "mutation": name,
+          "breaks_bounds": {k: bool(v) for k, v in breaks.items()},
+          "why": breaks, "kernel_cases": cases, "serve": logits,
+          "train_row": train})
+    return any(breaks.values())
+
 
 def run_mutations() -> int:
     """The --flash on/off comparison with a fault in the backward's
-    result, each fault in turn: 0 if every fault breaks the bounds."""
+    result, each fault in turn, then each forward fault against every
+    bound that can see it: 0 if every fault breaks a bound (a backward
+    fault: the training bounds in both dtypes)."""
     caught = {}
     for name, (kernel, fault) in MUTATIONS.items():
         real = getattr(fa, kernel)
@@ -1090,6 +1294,12 @@ def run_mutations() -> int:
         emit({"phase": "mutation", "mutation": name,
               "breaks_bounds": {k: bool(v) for k, v in broken.items()},
               "why": broken, "rows": rows})
+    root = tempfile.mkdtemp(prefix="tpudist_torch_mutants_")
+    try:
+        for name, path in _build_mutants(root).items():
+            caught[name] = _forward_mutation(name, path)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     emit({"mutations_caught": caught})
     return 0 if all(caught.values()) else 1
 
@@ -1193,8 +1403,17 @@ def _bwd_kernel_entries(bwd: dict, vit: dict, card: dict) -> list:
                           "plain_ms": c["plain_ms"],
                           "library_ms": c["library_ms"]}
                          for c in bwd["cases"]],
+            "ptxas": {k: r for k, r in _mma_ptxas(card, "flash_bwd").items()
+                      if k.startswith(name + "_mma")},
             "card": card["nvidia_smi"]})
     return out
+
+
+def _mma_ptxas(card: dict, library: str) -> dict:
+    """Registers and spills of a library's bf16 tensor-core kernels, from
+    this run's build (none if the library was built before it)."""
+    return {k: r for k, r in card["ptxas"].get(library, {}).items()
+            if "_mma<" in k}
 
 
 def _norm_kernel_entries(norm: dict, train: dict, card: dict) -> list:
@@ -1293,6 +1512,9 @@ def main(argv=None) -> int:
         "by_batch": [{k: r[k] for k in ("shape", "kernel_ms", "plain_ms",
                                          "library_ms", "bound_ms")}
                      for r in fwd_rows],
+        "o_not_bit_equal_share": {r["case"]: r["o_not_bit_equal_share"]
+                                  for r in kern["cases"]},
+        "ptxas": _mma_ptxas(card, "flash_fwd"),
         "card": card["nvidia_smi"]}] + _bwd_kernel_entries(bwd, vit, card)
         + _norm_kernel_entries(norm, train, card)})
     emit({"ok": True, "device": {"platform": "gpu",

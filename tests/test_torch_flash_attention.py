@@ -48,7 +48,7 @@ def _port_flash(q, k, v, causal, dtype=torch.float32):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("d", [32, 64, 80])
 @pytest.mark.parametrize("t", [64, 197])
 def test_plain_flash_matches_pallas_f32(t, d, causal):
     q, k, v = _qkv(1, t, 2, d, seed=t + d)
@@ -58,10 +58,18 @@ def test_plain_flash_matches_pallas_f32(t, d, causal):
     np.testing.assert_allclose(lse_p, lse_j, **F32)
 
 
-def test_plain_flash_matches_pallas_bf16():
-    q, k, v = _qkv(2, 197, 2, 64, seed=7)
-    o_j, lse_j = _jax_flash(q, k, v, False, jnp.bfloat16)
-    o_p, lse_p = _port_flash(q, k, v, False, torch.bfloat16)
+# Every head dim the kernels take, both mask modes, at ViT-B/16's 197
+# tokens, and a causal cross length (150 queries, 197 keys): the bf16
+# shapes ``chip_smoke.py`` holds the tensor-core kernel to on the card.
+BF16_CASES = [(197, 197, d, causal) for d in (32, 64, 80)
+              for causal in (False, True)] + [(150, 197, 64, True)]
+
+
+@pytest.mark.parametrize("tq,tk,d,causal", BF16_CASES)
+def test_plain_flash_matches_pallas_bf16(tq, tk, d, causal):
+    q, k, v = _qkv(2, tq, 2, d, tk=tk, seed=tq + d + causal)
+    o_j, lse_j = _jax_flash(q, k, v, causal, jnp.bfloat16)
+    o_p, lse_p = _port_flash(q, k, v, causal, torch.bfloat16)
     np.testing.assert_allclose(o_p, o_j, rtol=1e-2, atol=1e-2)
     np.testing.assert_allclose(lse_p, lse_j, rtol=1e-2, atol=1e-2)
 

@@ -3,10 +3,11 @@
 No JAX here, so this file also runs on the machine with the card
 (``python -m pytest tests/test_torch_flash_kernel.py -q``), where it holds
 each CUDA kernel against its plain version and counts its launches: the
-forward f32 within 2e-5 (rtol and atol), bf16 within 1e-2; the dQ and dKV
-passes f32 within rtol 1e-5 and atol 1e-5·max|ref|, bf16 within 1e-2 of
-the same form (the bounds ``tests/test_flash_attention.py`` holds the
-Pallas kernels to). Without a card those cases skip at setup.
+forward f32 within 2e-5 (rtol and atol), bf16 within 1e-2 (its lse within
+2e-5); the dQ and dKV passes f32 within rtol 1e-5 and atol 1e-5·max|ref|,
+bf16 within 1e-2 of the same form (the bounds
+``tests/test_flash_attention.py`` holds the Pallas kernels to). Without a
+card those cases skip at setup.
 """
 
 import numpy as np
@@ -83,15 +84,30 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype,d,causal,tq,tk", [
-    (torch.bfloat16, 64, False, 197, 197),
-    (torch.float32, 64, True, 150, 197),
-    (torch.float32, 80, False, 197, 197),
-    (torch.float32, 32, True, 100, 60),
-])
-def test_kernel_matches_plain_on_card(cuda_device, dtype, d, causal, tq, tk):
+# (dtype, B, Tq, Tk, H, D, causal): the forward cases chip_smoke.py's
+# kernel_vs_plain holds the kernels to, in f32 (the scalar kernel) and bf16
+# (the tensor-core kernel): ViT-B/16's serving shape, head dim 80 (ViT-H/14's
+# 257 tokens of 16 heads), a causal cross length, and head dim 32 causal with
+# 40 rows that see no key.
+FWD_CARD_CASES = [
+    (torch.bfloat16, 2, 197, 197, 12, 64, False),
+    (torch.float32, 2, 150, 197, 4, 64, True),
+    (torch.float32, 2, 257, 257, 16, 80, False),
+    (torch.float32, 2, 100, 60, 3, 32, True),
+    (torch.bfloat16, 2, 257, 257, 16, 80, False),
+    (torch.bfloat16, 2, 150, 197, 4, 64, True),
+    (torch.bfloat16, 2, 100, 60, 3, 32, True),
+]
+
+
+@pytest.mark.parametrize("dtype,b,tq,tk,h,d,causal", FWD_CARD_CASES)
+def test_kernel_matches_plain_on_card(cuda_device, dtype, b, tq, tk, h, d,
+                                      causal):
+    """o and lse within 2e-5 (f32) or 1e-2 (bf16), and the bf16 lse within
+    the f32 bound (only the order of its f32 sums differs); a second launch
+    bit-identical; rows that see no key O = 0 and lse = -1e30 exactly."""
     q, k, v = (x.to(cuda_device, dtype)
-               for x in _qkv(2, tq, 3, d, tk=tk, seed=d))
+               for x in _qkv(b, tq, h, d, tk=tk, seed=d))
     before = dict(fa.LAUNCHES)
     o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
     torch.cuda.synchronize()
@@ -99,7 +115,12 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, d, causal, tq, tk):
     o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal=causal)
     tol = dict(rtol=1e-2, atol=1e-2) if dtype == torch.bfloat16 else F32
     torch.testing.assert_close(o.float(), o_ref.float(), **tol)
-    torch.testing.assert_close(lse, lse_ref, **tol)
+    torch.testing.assert_close(lse, lse_ref, **F32)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v, causal=causal)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    if causal and tq > tk:
+        assert torch.all(o[:, :tq - tk] == 0)
+        assert torch.all(lse[:, :, :tq - tk] == fa.NEG_INF)
 
 
 def test_kernel_refuses_unsupported_inputs_on_card(cuda_device):

@@ -3,9 +3,10 @@
 Each source under ``ops/csrc/`` is compiled on first use into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds), in the ``build/`` directory beside the package. The library's
-name carries a hash of its source and flags, so an edited kernel is rebuilt
-and a built one is reused. ``build_all`` starts one ``nvcc`` per source at
-once and waits for all of them.
+name carries a hash of its source, the headers under ``csrc/`` and the
+flags, so an edited kernel or header is rebuilt and a built one is
+reused. ``build_all`` starts one ``nvcc`` per source at once and waits
+for all of them.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine with no ``nvcc``.
@@ -46,8 +47,11 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, SOURCES[name]), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in (SOURCES[name], *headers):
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

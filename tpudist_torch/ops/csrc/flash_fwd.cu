@@ -11,37 +11,73 @@
 //     accumulates in f32; the normalizer l sums the unrounded P;
 //   - O is stored in q's dtype and lse = m + log(l) in f32; a fully masked
 //     row has l == 0 and emits O = 0 and lse = -1e30 (the guard l == 0 -> 1).
+// q, k and v are read through their (B, T, H, D) strides (the last dim
+// contiguous): the model passes strided views of its fused QKV output, so no
+// transpose or copy precedes the kernel. O is written contiguous (B, T, H, D),
+// the layout the output projection reads; lse is (B, H, Tq) f32.
 //
-// What bounds it on this card: at the serving shapes (ViT-B/16 at 224 px:
-// T = 197, H = 12, D = 64, batch 1..8, bf16) one call moves 1.2 MB (batch 1)
-// to 9.8 MB (batch 8) of Q, K, V, O and lse against 0.12 to 0.95 GFLOP, so
-// the bound is memory (a few microseconds) and, at batch 1, launch latency.
+// What bounds it on this card: at ViT-B/16's training shape (B, T, H, D) =
+// (128, 197, 12, 64) in bf16 one call moves 156 MB (q, k, v in; O and lse
+// out) against 15.3 GFLOP of products over the visible pairs, so against
+// 3.35 TB/s and the 989 TFLOP/s bf16 tensor-core peak it is bytes-bound
+// (~0.047 ms); at the serving batches 1..8 the bound is a few microseconds
+// and launch latency sets the floor. With 64 x 64 tiles at T = 197 (four
+// tiles, the last 5 rows full) the products are 25.8 GFLOP, still under the
+// bytes bound at the tensor cores' peak; on the FP32 pipes (~6 TFLOP/s
+// reached) they took 2.5 ms. As built, the tensor-core kernel takes 0.22 ms
+// there (~118 TFLOP/s of padded tiles) and ~0.014 ms of device time at batch
+// 1, on an H100 80GB HBM3 at 700 W (chip_smoke.py; PERF.md).
 //
-// What the design does about it:
-//   - one thread block per (query tile of 64 rows, head, batch); a loop over
-//     64-key tiles inside the block takes the place of the TPU's sequential
-//     "arbitrary" grid axis. A 64-row tile gives B*H*ceil(197/64) = 48 blocks
-//     at batch 1 (24 with 128-row tiles), so more of the 132 SMs get work;
-//   - Q, K and V are read straight from their (B, T, H, D) layout through
-//     strides (the last dim must be contiguous): the model's fused QKV
-//     projection output is passed in as three strided views, so no transpose
-//     or copy precedes the kernel, and O is written in (B, T, H, D), the
-//     layout the output projection reads. Each input byte is read once per
-//     query tile;
-//   - tiles are staged in shared memory as f32 with an odd row stride, so
-//     the score and P.V loops are free of bank conflicts;
-//   - four threads own one query row: they split its 64 scores and its D
-//     output columns and combine max and sum with two warp shuffles.
-// The products run on the FP32 pipes, not the tensor cores: simple and right
-// first. As built, those scalar products and their shared-memory reads, not
-// the bytes, set its time (0.16 ms at batch 8 on an H100 SXM against a
-// 2.9 us memory bound; PERF.md). Tensor-core products (mma.sync, then
-// wgmma/TMA) for bf16 are later work; f32 stays on the FP32 pipes to keep
-// the f32 result within 2e-5 of the plain version.
+// Shared by both dtypes: one thread block per (query tile of 64 rows, head,
+// batch); a loop over 64-key tiles inside the block takes the place of the
+// TPU's sequential "arbitrary" grid axis. A 64-row tile gives 48 blocks at
+// batch 1 on 132 SMs (24 with 128-row tiles). Key tiles past k_len, or
+// (causal) wholly above the diagonal for every row of the block, are skipped.
+// Each block owns its output rows, so two launches give the same bits.
+//
+// bf16 (serving and the --use_amp training path): tensor cores, flash_fwd_mma.
+// Four warps a block, each owning 16 query rows. Both products are
+// mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 (the helpers are in
+// mma_bf16.cuh), which is exactly _flash_forward's arithmetic: every operand
+// it feeds a product is already bf16.
+//   S   = Qs K^T   A: Qs, kept in registers for the whole key loop;
+//                  B: K by ldmatrix (a [key][d] tile is B's [n][k] order)
+//   O  += T(P) V   A: T(P) packed from two n8 C tiles of S into one k16 A
+//                  tile, in registers; B: V by ldmatrix.trans
+//   - Qs = T(f32(q) * scale) is formed once per tile in shared memory (at
+//     D = 64 the scale is a power of two and the rounding is exact; at 32
+//     and 80 it is not);
+//   - K and V tiles reach shared memory by 16-byte cp.async (zero-filled past
+//     Tk) as bf16 rows padded by 8 elements, double-buffered: the copy of
+//     tile i+1 is in flight while the warps multiply tile i;
+//   - the online softmax runs on S's C fragments: a lane holds two rows
+//     (g and g + 8), so the row max reduces over the lane quad with two
+//     shuffles, and the rescale alpha of each row scales exactly that row's
+//     accumulator entries (c[0..1] and c[2..3] of every n8 tile of O). Each
+//     lane sums its share of l (rescaled by the same alpha) and the quad
+//     adds the shares once, at the end;
+//   - a masked pair gets P = 0 by the mask, never from exp: while m is still
+//     -1e30, exp(s - m) of a masked column would be 1. Tiles whose every pair
+//     is visible skip the mask.
+// Only the order of the f32 sums differs from the plain version (and P is
+// rounded from exp(S - m) at the running max m, as in the Pallas kernel, not
+// at the row's final max), so O is within the 1e-2 bound, not bit-equal.
+//
+// f32 keeps the scalar kernel, flash_fwd_kernel: on tensor cores f32 would
+// run as TF32, whose 10-bit mantissa breaks the 2e-5 bound the f32 forward is
+// held to. Tiles are staged in shared memory as f32 with odd row strides;
+// four threads own one query row and split its 64 scores and its D output
+// columns; the products are scalar FMAs on the FP32 pipes.
+//
+// Left for later: wgmma on 64-row warpgroup tiles with TMA loads into
+// swizzled shared memory, a producer warp, and a persistent grid; 128-row
+// tiles, which would halve the re-reads of K and V.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -52,19 +88,12 @@ constexpr int THREADS = BQ * TPR;
 constexpr int CPT = BK / TPR;    // score columns per thread
 constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+// The batch, seq and head element strides of q, k and v.
+struct Strides {
+  int64_t q[3], k[3], v[3];
+};
 
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// x rounded to T and widened back to f32.
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
+// ---- f32: the scalar kernel -------------------------------------------------
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -72,14 +101,11 @@ constexpr size_t smem_bytes() {
                           size_t(BK) * D + size_t(BQ) * (BK + 1));
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int H, int Tq, int Tk,
-                 int64_t q_sb, int64_t q_st, int64_t q_sh,
-                 int64_t k_sb, int64_t k_st, int64_t k_sh,
-                 int64_t v_sb, int64_t v_st, int64_t v_sh,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, int H, int Tq, int Tk, Strides st,
                  int causal, float scale) {
   constexpr int DP = D + 1;      // row stride of the Q and K tiles
   constexpr int PP = BK + 1;     // row stride of the P tile
@@ -99,15 +125,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int row = q0 + r;
   const int offset = Tk - Tq;
 
-  const T* qb = q + b * q_sb + h * q_sh;
-  const T* kb = k + b * k_sb + h * k_sh;
-  const T* vb = v + b * v_sb + h * v_sh;
+  const float* qb = q + b * st.q[0] + h * st.q[2];
+  const float* kb = k + b * st.k[0] + h * st.k[2];
+  const float* vb = v + b * st.v[0] + h * st.v[2];
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int rr = i / D, d = i % D;
     const int qi = q0 + rr;
-    const float x = qi < Tq ? to_f(qb[qi * q_st + d]) : 0.f;
-    sQ[rr * DP + d] = round_to<T>(x * scale);
+    sQ[rr * DP + d] = qi < Tq ? qb[qi * st.q[1] + d] * scale : 0.f;
   }
 
   float m = NEG_INF, l = 0.f;
@@ -115,8 +140,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < DPT; ++i) acc[i] = 0.f;
 
-  // k-tiles past the key length, or (causal) wholly above the diagonal for
-  // every row of this tile, are skipped.
   int nk = (Tk + BK - 1) / BK;
   if (causal) {
     const int last = q0 + BQ - 1 + offset;
@@ -130,8 +153,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int rr = i / D, d = i % D;
       const int key = k0 + rr;
       const bool in = key < Tk;
-      sK[rr * DP + d] = in ? to_f(kb[key * k_st + d]) : 0.f;
-      sV[rr * D + d] = in ? to_f(vb[key * v_st + d]) : 0.f;
+      sK[rr * DP + d] = in ? kb[key * st.k[1] + d] : 0.f;
+      sV[rr * D + d] = in ? vb[key * st.v[1] + d] : 0.f;
     }
     __syncthreads();
 
@@ -163,7 +186,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < CPT; ++j) {
       const float p = (valid >> j) & 1u ? expf(s[j] - m_next) : 0.f;
       l_cur += p;
-      pr[sub + TPR * j] = round_to<T>(p);
+      pr[sub + TPR * j] = p;
     }
     l_cur += __shfl_xor_sync(0xffffffffu, l_cur, 1);
     l_cur += __shfl_xor_sync(0xffffffffu, l_cur, 2);
@@ -183,61 +206,263 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (row < Tq) {
     const float l_safe = l == 0.f ? 1.f : l;
-    T* orow = o + ((int64_t(b) * Tq + row) * H + h) * D;
+    float* orow = o + ((int64_t(b) * Tq + row) * H + h) * D;
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) orow[sub + TPR * i] = from_f<T>(acc[i] / l_safe);
+    for (int i = 0; i < DPT; ++i) orow[sub + TPR * i] = acc[i] / l_safe;
     if (sub == 0) lse[(int64_t(b) * H + h) * Tq + row] = m + logf(l_safe);
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int B, int H, int Tq, int Tk,
-                   const long long* st, int causal, float scale,
-                   cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
-  if (err != cudaSuccess) return err;
-  dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      H, Tq, Tk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], causal, scale);
-  return cudaGetLastError();
-}
+// ---- bf16: the tensor-core kernel -------------------------------------------
 
-template <typename T>
-cudaError_t dispatch_dim(int head_dim, const void* q, const void* k,
-                         const void* v, void* o, void* lse, int B, int H,
-                         int Tq, int Tk, const long long* st, int causal,
-                         float scale, cudaStream_t stream) {
-  switch (head_dim) {
-    case 32: return launch<T, 32>(q, k, v, o, lse, B, H, Tq, Tk, st, causal, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, lse, B, H, Tq, Tk, st, causal, scale, stream);
-    case 80: return launch<T, 80>(q, k, v, o, lse, B, H, Tq, Tk, st, causal, scale, stream);
-    default: return cudaErrorInvalidValue;
+template <int D>
+constexpr size_t mma_smem_bytes() { return 5 * tile_bytes<D>(); }
+
+// One block per (query tile, head, batch); warp w owns query rows
+// 16w..16w+15; lane (g, tg) = (lane / 4, lane % 4) holds rows g and g + 8
+// and, of each n8 tile, columns 2tg and 2tg + 1.
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, bf16* __restrict__ o,
+              float* __restrict__ lse, int H, int Tq, int Tk, Strides st,
+              int causal, float scale) {
+  constexpr int LD = ld_of<D>();
+  constexpr int TILE = 64 * LD;
+  constexpr int KS = D / 16;     // k16 steps over D
+  constexpr int NT = D / 8;      // n8 tiles over D
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // Qs
+  bf16* sK = sQ + TILE;                           // 2 buffers
+  bf16* sV = sK + 2 * TILE;                       // 2 buffers
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, tg = lane % 4;
+  const int q0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
+  const int offset = Tk - Tq;
+
+  const bf16* qb = q + b * st.q[0] + h * st.q[2];
+  const bf16* kb = k + b * st.k[0] + h * st.k[2];
+  const bf16* vb = v + b * st.v[0] + h * st.v[2];
+
+  int nk = (Tk + 63) / 64;
+  if (causal) {
+    const int last = q0 + 63 + offset;
+    nk = min(nk, last < 0 ? 0 : last / 64 + 1);
+  }
+
+  copy_tile<D>(sQ, qb, st.q[1], q0, Tq);
+  cp_async_commit();
+  if (nk > 0) {
+    copy_tile<D>(sK, kb, st.k[1], 0, Tk);
+    copy_tile<D>(sV, vb, st.v[1], 0, Tk);
+  }
+  cp_async_commit();
+
+  cp_async_wait<1>();            // Q has landed
+  __syncthreads();
+  scale_tile<D>(sQ, scale);
+  __syncthreads();
+
+  uint32_t aQ[KS][4];
+  const int ar = warp * 16 + a_row(lane), ac = a_col(lane);
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) ldsm_x4(aQ[ks], sQ + ar * LD + ks * 16 + ac);
+
+  // Per row (g, g + 8): the running max, this lane's share of l, and the
+  // f32 accumulators of O.
+  const int row0 = q0 + warp * 16 + g;
+  float m[2] = {NEG_INF, NEG_INF}, ls[2] = {0.f, 0.f};
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  const int br = b_row(lane), bc = b_col(lane);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * 64;
+    const bf16* cK = sK + (kt & 1) * TILE;
+    const bf16* cV = sV + (kt & 1) * TILE;
+    if (kt + 1 < nk) {
+      copy_tile<D>(sK + ((kt + 1) & 1) * TILE, kb, st.k[1], k0 + 64, Tk);
+      copy_tile<D>(sV + ((kt + 1) & 1) * TILE, vb, st.v[1], k0 + 64, Tk);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();          // tile kt has landed
+    __syncthreads();
+
+    // S = Qs K^T over the warp's 16 rows x 64 keys.
+    float s[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t bk[4];
+        ldsm_x4(bk, cK + (j * 16 + br) * LD + ks * 16 + bc);
+        mma_bf16(s[2 * j], aQ[ks], bk[0], bk[1]);
+        mma_bf16(s[2 * j + 1], aQ[ks], bk[2], bk[3]);
+      }
+    }
+
+    // Which pairs are visible: bit 4n + e for s[n][e]. A tile whose keys all
+    // lie below Tk and (causal) on or below the diagonal of the block's
+    // first row needs no mask.
+    uint32_t valid = 0xffffffffu;
+    if (k0 + 64 > Tk || (causal && q0 + offset < k0 + 63)) {
+      valid = 0u;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = row0 + (e >> 1) * 8;
+          const int col = k0 + n * 8 + 2 * tg + (e & 1);
+          const bool ok = col < Tk && (!causal || row + offset >= col);
+          valid |= uint32_t(ok) << (4 * n + e);
+        }
+    }
+
+    // Online softmax: the new row max over the quad, alpha = exp(m - m_next)
+    // for the old sums, P = exp(S - m_next) where visible, else 0.
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = NEG_INF;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          if ((valid >> (4 * n + 2 * r + c)) & 1u)
+            mx = fmaxf(mx, s[n][2 * r + c]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_next = fmaxf(m[r], mx);
+      alpha[r] = expf(m[r] - m_next);
+      m[r] = m_next;
+      ls[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p =
+            (valid >> (4 * n + e)) & 1u ? expf(s[n][e] - m[e >> 1]) : 0.f;
+        s[n][e] = p;
+        ls[e >> 1] += p;
+      }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+
+    // O += T(P) V, V read transposed.
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t aP[4];
+      pack_a(aP, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int j = 0; j < NT / 2; ++j) {
+        uint32_t bv[4];
+        ldsm_x4_t(bv, cV + (kk * 16 + a_row(lane)) * LD + j * 16 + ac);
+        mma_bf16(acc[2 * j], aP, bv[0], bv[1]);
+        mma_bf16(acc[2 * j + 1], aP, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();             // buffer kt & 1 is free for tile kt + 2
+  }
+  cp_async_wait<0>();
+
+  // The quad's shares of l added up; a row that saw no key has l == 0 -> 1.
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    ls[r] += __shfl_xor_sync(0xffffffffu, ls[r], 1);
+    ls[r] += __shfl_xor_sync(0xffffffffu, ls[r], 2);
+    ls[r] = ls[r] == 0.f ? 1.f : ls[r];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= Tq) continue;
+    const float l = ls[r];
+    bf16* orow = o + ((int64_t(b) * Tq + row) * H + h) * D;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * tg) =
+          pack_bf16(acc[n][2 * r] / l, acc[n][2 * r + 1] / l);
+    if (tg == 0) lse[(int64_t(b) * H + h) * Tq + row] = m[r] + logf(l);
   }
 }
 
+// ---- launch -----------------------------------------------------------------
+
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       void* lse, int B, int H, int Tq, int Tk,
+                       const Strides& st, int causal, float scale,
+                       cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid((Tq + BQ - 1) / BQ, H, B);
+  flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), H, Tq, Tk, st, causal, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
+                       void* lse, int B, int H, int Tq, int Tk,
+                       const Strides& st, int causal, float scale,
+                       cudaStream_t stream) {
+  constexpr size_t smem = mma_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid((Tq + 63) / 64, H, B);
+  flash_fwd_mma<D><<<grid, MMA_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      static_cast<float*>(lse), H, Tq, Tk, st, causal, scale);
+  return cudaGetLastError();
+}
+
+using Launch = cudaError_t (*)(const void*, const void*, const void*, void*,
+                               void*, int, int, int, int, const Strides&, int,
+                               float, cudaStream_t);
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. st: the (batch, seq, head) element
-// strides of q, k and v in that order. Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32 (the scalar kernel), 1 = bfloat16 (the tensor-core
+// kernel). st: the (batch, seq, head) element strides of q, k and v in that
+// order. Returns a cudaError_t (0 = launched).
 extern "C" int tpudist_flash_fwd(int dtype, int head_dim, const void* q,
                                  const void* k, const void* v, void* o,
                                  void* lse, int B, int H, int Tq, int Tk,
                                  const long long* st, int causal, float scale,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = dispatch_dim<float>(head_dim, q, k, v, o, lse, B, H, Tq, Tk, st, causal, scale, s);
-  else if (dtype == 1)
-    err = dispatch_dim<__nv_bfloat16>(head_dim, q, k, v, o, lse, B, H, Tq, Tk, st, causal, scale, s);
-  else
-    err = cudaErrorInvalidValue;
-  return int(err);
+  Strides sd;
+  for (int i = 0; i < 3; ++i) {
+    sd.q[i] = st[i];
+    sd.k[i] = st[3 + i];
+    sd.v[i] = st[6 + i];
+  }
+  Launch launch = nullptr;
+  switch (head_dim) {
+    case 32: launch = dtype == 0 ? launch_f32<32> : launch_mma<32>; break;
+    case 64: launch = dtype == 0 ? launch_f32<64> : launch_mma<64>; break;
+    case 80: launch = dtype == 0 ? launch_f32<80> : launch_mma<80>; break;
+  }
+  if (launch == nullptr || (dtype != 0 && dtype != 1))
+    return int(cudaErrorInvalidValue);
+  return int(launch(q, k, v, o, lse, B, H, Tq, Tk, sd, causal, scale, s));
 }

@@ -26,8 +26,8 @@ on the card and how they are laid out.
 Shapes are ``(B, T, H, D)`` as in the JAX API; ``lse`` and ``delta`` are
 ``(B, H, Tq)`` f32 (the JAX kernel's ``(B, H, Tq_pad, 1)`` without padding).
 The inputs may be strided views (the model passes slices of its fused QKV
-output); only the head dim has to be contiguous, and in bf16, where the
-backward copies its tiles 16 bytes at a time, the address and the (batch,
+output); only the head dim has to be contiguous, and in bf16, where every
+kernel copies its tiles 16 bytes at a time, the address and the (batch,
 seq, head) strides must be 16-byte multiples (``aligned_16``; the fused
 QKV views are). The gradients come out contiguous, in the inputs' dtype.
 """
@@ -41,7 +41,7 @@ import torch
 NEG_INF = -1e30
 
 # Bumped whenever a kernel's math or schedule changes.
-KERNEL_REV = 3
+KERNEL_REV = 4
 
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
@@ -209,7 +209,8 @@ def _check_bwd(q, k, v, do, lse, delta) -> None:
 def aligned_16(address: int, strides, element_size: int) -> bool:
     """Whether 16-byte ``cp.async`` copies can read a (B, T, H, D) operand
     row by row: its address and its (batch, seq, head) strides in bytes
-    are multiples of 16. The bf16 backward kernels copy their tiles so."""
+    are multiples of 16. The bf16 kernels, forward and backward, copy
+    their tiles so."""
     return address % 16 == 0 and all(
         s * element_size % 16 == 0 for s in tuple(strides)[:3])
 
@@ -217,7 +218,8 @@ def aligned_16(address: int, strides, element_size: int) -> bool:
 def _kernel_ready(*ts: torch.Tensor) -> None:
     """Raise unless the CUDA kernels take these (B, T, H, D) operands as
     they are. bf16 operands must be 16-byte aligned (``aligned_16``): the
-    backward passes need it, and the forward is held to the same rule."""
+    tensor-core kernels of both directions copy their tiles 16 bytes at a
+    time."""
     q = ts[0]
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, got "
@@ -243,7 +245,9 @@ def _kernel_ready(*ts: torch.Tensor) -> None:
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = False):
     """Fused attention forward: ``(o, lse)`` with o ``(B, Tq, H, D)`` in
-    q's dtype and lse ``(B, H, Tq)`` f32."""
+    q's dtype and lse ``(B, H, Tq)`` f32. On the card the dtype picks the
+    kernel: bf16 the tensor-core ``flash_fwd_mma``, f32 the scalar
+    ``flash_fwd_kernel``; one launch either way."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal)
