@@ -34,7 +34,8 @@ line and raising on failure:
    have gone through the flash kernel, and the logits of a ``--flash on``
    and a ``--flash off`` engine with the same weights must agree; then one
    forward at batch 1 and 8 is broken down by kernel (torch.profiler)
-   beside its synchronised host wall;
+   beside its synchronised host wall; then the CLI's default arch,
+   resnet18, serves for 1.5 s and launches no kernel (eval-mode BN);
 4. training end to end: ``python -m tpudist_torch`` trains resnet18 at
    224 px, batch 256, bf16, ``--fused-bn on`` for two short epochs; every
    train step must launch the fused-norm kernels exactly 17 times in each
@@ -42,7 +43,8 @@ line and raising on failure:
    the losses must be finite; the first three steps' losses under
    ``--fused-bn on`` and ``off`` (same seed, same batches) must agree;
    then one train step on a device-resident batch is broken down by
-   kernel category beside its synchronised wall;
+   kernel category, and each fused-norm kernel's device ms, beside its
+   synchronised wall;
 5. ViT training end to end: ``python -m tpudist_torch`` trains ViT-B/16
    at 224 px, batch 128, bf16, ``--flash on``, AdamW for two short
    epochs; every train step must launch each flash kernel exactly 12
@@ -50,8 +52,19 @@ line and raising on failure:
    three SGD steps under ``--flash on`` and ``off`` (same seed, same
    batches, bf16 and f32) must agree; then one train step is broken down
    by kernel category;
-6. one ``{"kernels": [...]}`` line;
-7. last, ``{"ok": true, "device": {...}}``.
+6. data-parallel training, world 1 over NCCL, through ``python -m
+   tpudist_torch.launch -n 1 -- python -m tpudist_torch --distributed``:
+   resnet18 at 224 px, batch 256, bf16, ``--fused-bn on`` for two epochs
+   of 8 steps (the log and ``run_start`` name backend nccl, the first
+   step launches B1–B4 9/8/9/8 times, ``init_s`` > 0); a short
+   ``--sync_batchnorm`` run (the plain epilogue: no fused-norm launch);
+   a short ViT-B/16 ``--flash on`` run (12/12/12 flash launches a step).
+   A rank's launch counters start at 0 in its process, and the trainer
+   reports them in ``run_end``. Then, in this process, three steps of the
+   world-1 DDP step against the one-card step (bit-equal whenever two
+   one-card runs are) and the DDP step's breakdown;
+7. one ``{"kernels": [...]}`` line;
+8. last, ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, without a CUDA card or without the
 rest of the repository. ``python3 chip_smoke.py --mutations`` runs only
@@ -85,6 +98,8 @@ import torch.nn.functional as F
 
 from tpudist_torch import __main__ as train_cli
 from tpudist_torch import config as config_lib
+from tpudist_torch import dist as dist_lib
+from tpudist_torch import launch as launch_lib
 from tpudist_torch import telemetry as telemetry_lib
 from tpudist_torch import train as train_lib
 from tpudist_torch.models import create_model
@@ -468,6 +483,43 @@ def phase_serve() -> dict:
     return out, model
 
 
+def phase_serve_resnet() -> dict:
+    """``python -m tpudist_torch.serve`` with its default arch, resnet18, at
+    224 px in bf16 for 1.5 s of load: eval-mode BatchNorm takes the plain
+    epilogue, so no kernel of the port is launched."""
+    outdir = tempfile.mkdtemp(prefix="tpudist_torch_serve_r18_")
+    argv = ["--image-size", "224", "--buckets", "1,8", "--load-rate", "20",
+            "--load-duration", "1.5", "--seed", "0", "--telemetry",
+            "--outpath", outdir]
+    fa.reset_counts()
+    fn.reset_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_cli.main(argv)
+    launches = {**fa.LAUNCHES, **fn.LAUNCHES}
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    summary = json.loads(next(ln for ln in text.splitlines()
+                              if ln.startswith("SERVE_SUMMARY "))
+                         .split(" ", 1)[1])
+    if rc != 0 or summary["arch"] != "resnet18" \
+            or summary.get("n_errors", 1) != 0 \
+            or not summary.get("n_requests") or any(launches.values()):
+        raise RuntimeError(f"serving resnet18: exit {rc}, {summary}, "
+                           f"kernel launches {launches}")
+    with open(telemetry_lib.events_path(outdir, 0)) as f:
+        events = [json.loads(ln) for ln in f]
+    for ev in events:
+        telemetry_lib.validate_event(ev)
+    if events[-1]["type"] != "run_end":
+        raise RuntimeError(f"serving resnet18 wrote no run_end: {events[-1]}")
+    out = {"phase": "serve_resnet18", "arch": "resnet18", "image_size": 224,
+           "dtype": "bfloat16", "summary": summary,
+           "kernel_launches": launches}
+    emit(out)
+    return out
+
+
 def serve_logits_on_off():
     """The served logits of a ``--flash on`` and a ``--flash off`` engine
     with the same weights, on one batch of 8: the reading, what breaks its
@@ -765,14 +817,19 @@ def phase_train() -> dict:
     return out
 
 
-def _train_setup(fused: bool, dtype=torch.bfloat16, seed: int = 0):
+def _train_setup(fused: bool, dtype=torch.bfloat16, seed: int = 0,
+                 ddp: bool = False):
+    """resnet18 at TRAIN_B and its train step; with ``ddp`` the step is the
+    data-parallel one (the process group must be up)."""
     cfg = config_lib.Config(batch_size=TRAIN_B, image_size=TRAIN_PX,
                             fused_bn="on" if fused else "off")
     model = create_model("resnet18", dtype=dtype, fused_bn=fused)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     model.cuda()
+    net = (train_lib.data_parallel(model, torch.device("cuda", 0)) if ddp
+           else model)
     step = train_lib.make_train_step(
-        model, train_lib.make_optimizer(model, cfg), cfg)
+        net, train_lib.make_optimizer(model, cfg), cfg)
     return model, step
 
 
@@ -861,6 +918,8 @@ def phase_fused_vs_plain() -> dict:
 
 def _train_category(kernel: str) -> str:
     n = kernel.lower()
+    if "nccl" in n:
+        return "nccl_all_reduce"
     if "bn_act_fwd" in n:
         return "fused_norm_fwd"
     if "bn_act_bwd" in n:
@@ -886,12 +945,34 @@ def _train_category(kernel: str) -> str:
     return "other"
 
 
-def phase_train_breakdown() -> dict:
+def _fused_norm_device_ms(prof, n: int) -> dict:
+    """Device ms a step of each fused-norm kernel (B1–B4), summed over its
+    launches at every shape, from a torch.profiler window over ``n``
+    steps; None where the profiler saw no device time."""
+    out = dict.fromkeys(fn.KERNELS, 0.0)
+    for e in prof.key_averages():
+        m = re.search(r"bn_act_(fwd|bwd)_kernel<[^,>]+,\s*(true|false)>",
+                      e.key)
+        if not m or getattr(e, "device_type", None) \
+                != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        name = f"bn_act_{m.group(1)}" + ("_res" if m.group(2) == "true"
+                                         else "")
+        out[name] += us / 1e3 / n
+    return out if any(out.values()) else None
+
+
+def phase_train_breakdown(ddp: bool = False) -> dict:
     """One resnet18 train step (batch 256, 224 px, bf16, --fused-bn on)
     on a device-resident batch: synchronised wall (median of 15),
     images/s, device busy time by category (torch.profiler over 3 steps),
-    the idle share, kernels a step and the fused backward's re-layouts."""
-    _, step = _train_setup(True)
+    the idle share, kernels a step, each fused-norm kernel's device ms a
+    step and the fused backward's re-layouts. With ``ddp`` the step is the
+    world-1 data-parallel one (DDP's reducer, the buffer and metric
+    all-reduces)."""
+    _, step = _train_setup(True, ddp=ddp)
     x, y = _device_batch(7)
     torch.cuda.reset_peak_memory_stats()
     for _ in range(3):
@@ -913,20 +994,217 @@ def phase_train_breakdown() -> dict:
             step(x, y, 0.1)
         torch.cuda.synchronize()
     relayouts = fn.RELAYOUTS / n
+    launches = {k: v / n for k, v in fn.LAUNCHES.items()}
     by_cat, kernels = _device_kernels(prof, n, _train_category)
+    by_kernel = _fused_norm_device_ms(prof, n)
     busy = sum(by_cat.values())
     out = {"phase": "train_step_breakdown", "arch": "resnet18",
            "batch": TRAIN_B, "image_size": TRAIN_PX, "dtype": "bfloat16",
-           "fused_bn": "on", "wall_ms_p50": wall,
+           "fused_bn": "on", "ddp": ddp, "wall_ms_p50": wall,
            "wall_ms_min": min(walls), "images_per_s": TRAIN_B / wall * 1e3,
            "device_busy_ms": busy if busy else "not measured",
            "idle_share": 1.0 - busy / wall if busy else "not measured",
            "by_category_ms": by_cat or "not measured",
            "kernel_launches_per_step": sum(k["calls"] for k in kernels),
+           "fused_norm_launches_per_step": launches,
+           "fused_norm_device_ms_per_step": by_kernel or "not measured",
            "relayouts_per_step": relayouts,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
            "top_kernels": kernels[:20]}
     emit(out)
+    return out
+
+
+# -- phase 6: data-parallel training (world 1 over NCCL) ---------------------
+
+DDP_LINE = ("=> data-parallel: world 1, backend nccl, DDP (buffers averaged "
+            "after the step)")
+
+
+def _launch_trainer(args: list[str], what: str, timeout: float = 300.0):
+    """``python -m tpudist_torch.launch -n 1 -- python -m tpudist_torch
+    --distributed ARGS --telemetry``: its output (printed) and a summary
+    of its rank-0 events (each validated). The wrappers' launch counters
+    start at 0 in the rank's process; the trainer reports them in
+    ``run_end``."""
+    outdir = os.path.join(tempfile.mkdtemp(prefix="tpudist_torch_ddp_"),
+                          "run")
+    cmd = [sys.executable, "-m", "tpudist_torch.launch", "-n", "1", "--",
+           sys.executable, "-m", "tpudist_torch", "--distributed", *args,
+           "--telemetry", "--seed", "0", "--outpath", outdir]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(
+        __file__)), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        text, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.terminate()               # the launcher tears its rank down
+        text, err = proc.communicate(timeout=60)
+        raise RuntimeError(f"{what} timed out after {timeout}s: "
+                           f"{err[-2000:]}")
+    wall_s = time.perf_counter() - t0
+    print(text, end="", flush=True)
+    lines = text.splitlines()
+    if proc.returncode != 0 or not lines \
+            or not lines[-1].startswith("best_acc1="):
+        raise RuntimeError(f"{what} exited {proc.returncode}: "
+                           f"{err[-3000:]}")
+    if "Grad strides do not match" in err:
+        raise RuntimeError(f"{what}: DDP re-laid out a gradient: "
+                           f"{err[-2000:]}")
+    with open(telemetry_lib.events_path(outdir, 0)) as f:
+        events = [json.loads(ln) for ln in f]
+    for ev in events:
+        telemetry_lib.validate_event(ev)
+    start, end = events[0], events[-1]
+    if DDP_LINE not in text or start.get("backend") != "nccl" \
+            or start["n_devices"] != 1 or not start["init_s"] > 0 \
+            or not end["init_s"] > 0:
+        raise RuntimeError(f"{what}: not a world-1 NCCL run with its init "
+                           f"phase recorded: run_start {start}, run_end "
+                           f"{end}")
+    train_l, val_l = _epoch_losses(text, "Train"), _epoch_losses(text, "Val")
+    if not train_l or not all(np.isfinite(train_l + val_l)):
+        raise RuntimeError(f"{what}: losses {train_l}, {val_l}")
+    steps = [e for e in events if e["type"] == "step"]
+    return text, {
+        "wall_s": wall_s, "train_steps": len(steps), "train_loss": train_l,
+        "val_loss": val_l, "launches": end["kernel_launches"],
+        "init_s": {"run_start": start["init_s"], "run_end": end["init_s"]},
+        "backend": start["backend"],
+        "host_step_s_p50": (statistics.median(e["step_s"] for e in steps[1:])
+                            if len(steps) > 1 else None),
+        "run_end": {k: end[k] for k in ("wall_s", "productive_s", "goodput",
+                                        "init_s", "compile_s", "eval_s")}}
+
+
+def phase_train_ddp() -> dict:
+    """The data-parallel path through the launcher at full width: resnet18
+    at 224 px, 1000 classes, global batch 256, bf16, --fused-bn on, two
+    epochs of 8 steps, world 1 over NCCL; every train step launches the
+    fused-norm kernels 9/8/9/8 times and validation none."""
+    text, row = _launch_trainer(
+        ["-a", "resnet18", "--use_amp", "--fused-bn", "on", "-b",
+         str(TRAIN_B), "--synthetic", "--image-size", str(TRAIN_PX),
+         "--num-classes", "1000", "--epochs", "2", "--synthetic-size",
+         "2048", "--step", "1", "-p", "4"], "the DDP resnet18 run")
+    n = row["train_steps"]
+    want = {"bn_act_fwd": 9 * n, "bn_act_fwd_res": 8 * n,
+            "bn_act_bwd": 9 * n, "bn_act_bwd_res": 8 * n}
+    got = {k: row["launches"][k] for k in fn.KERNELS}
+    first = ("=> fused-norm kernels launched by the first train step: "
+             "34 (bn_act_fwd 9, bn_act_fwd_res 8, bn_act_bwd 9, "
+             "bn_act_bwd_res 8)")
+    if n != 16 or got != want or first not in text.splitlines():
+        raise RuntimeError(f"DDP fused-norm launches {got} for {n} steps; "
+                           f"want {want} and the line {first!r}")
+    out = {"phase": "train_ddp", "arch": "resnet18", "batch": TRAIN_B,
+           "world": 1, "dtype": "bfloat16", **row,
+           "fused_norm_launches": got,
+           "images_per_s_host": TRAIN_B / row["host_step_s_p50"]}
+    emit(out)
+    return out
+
+
+def phase_train_syncbn_ddp() -> dict:
+    """``--sync_batchnorm`` at world 1, two steps: the statistics go
+    through the all-reduce and the epilogue is the plain one, as tpudist's
+    (0 fused-norm launches)."""
+    text, row = _launch_trainer(
+        ["-a", "resnet18", "--use_amp", "--fused-bn", "on",
+         "--sync_batchnorm", "-b", str(TRAIN_B), "--synthetic",
+         "--image-size", str(TRAIN_PX), "--num-classes", "1000",
+         "--epochs", "1", "--synthetic-size", str(2 * TRAIN_B), "-p", "1"],
+        "the DDP SyncBN run")
+    plain = ("=> fused-norm dispatch: plain epilogue (mode on, ineligible; "
+             "SyncBN's statistics all-reduce has no fused kernel; plain "
+             "epilogue)")
+    got = {k: row["launches"][k] for k in fn.KERNELS}
+    if any(got.values()) or plain not in text.splitlines() \
+            or DDP_LINE + ", SyncBN" not in text.splitlines():
+        raise RuntimeError(f"SyncBN run: fused-norm launches {got}; want 0 "
+                           f"and the line {plain!r}")
+    out = {"phase": "train_syncbn_ddp", "arch": "resnet18",
+           "batch": TRAIN_B, "world": 1, **row, "fused_norm_launches": got}
+    emit(out)
+    return out
+
+
+def phase_train_vit_ddp() -> dict:
+    """ViT-B/16 at 224 px, batch 128, bf16, --flash on, AdamW under DDP at
+    world 1, two steps and one validation batch: 12 of each flash kernel
+    a train step and 12 forwards a validation batch."""
+    text, row = _launch_trainer(
+        ["-a", "vit_b_16", "--use_amp", "--flash", "on", "--optimizer",
+         "adamw", "--lr", "1e-3", "--weight-decay", "0.05", "-b",
+         str(VIT_B), "--synthetic", "--image-size", "224", "--num-classes",
+         "1000", "--epochs", "1", "--synthetic-size", str(2 * VIT_B), "-p",
+         "1"], "the DDP ViT-B/16 run")
+    n, val = row["train_steps"], 1
+    want = {"flash_fwd": LAYERS * (n + val), "flash_bwd_dq": LAYERS * n,
+            "flash_bwd_dkv": LAYERS * n}
+    got = {k: row["launches"][k] for k in fa.KERNELS}
+    first = ("=> flash kernels launched by the first train step: 36 "
+             "(flash_fwd 12, flash_bwd_dq 12, flash_bwd_dkv 12)")
+    if n != 2 or got != want or first not in text.splitlines():
+        raise RuntimeError(f"DDP flash launches {got} for {n} steps; want "
+                           f"{want} and the line {first!r}")
+    out = {"phase": "train_vit_ddp", "arch": "vit_b_16", "batch": VIT_B,
+           "world": 1, **row, "flash_launches": got}
+    emit(out)
+    return out
+
+
+def phase_ddp_vs_plain() -> dict:
+    """Three SGD steps (resnet18, batch 256, bf16, --fused-bn on, lr 0.1)
+    of the world-1 data-parallel step against the one-card step, from one
+    seed on the same device batches, in the order plain, DDP, DDP, plain.
+    Averaging over one rank is a copy and a division by 1, and the step
+    repeats bit for bit, so every pair must be bit-equal in its losses,
+    parameters and BN buffers; the phase fails otherwise and reports the
+    largest difference of each pair. Then the DDP step's breakdown, beside
+    the plain one."""
+    port = launch_lib.find_free_port()
+    dist_lib.initialize_runtime(f"127.0.0.1:{port}", 1, 0, device="cuda")
+    try:
+        batches = [_device_batch(300 + i) for i in range(TRAIN_CMP_STEPS)]
+        runs, launches = [], {}
+        for mode in ("plain", "ddp", "ddp", "plain"):
+            model, step = _train_setup(True, ddp=mode == "ddp")
+            fn.reset_counts()
+            losses = [float(step(x, y, 0.1)["loss"]) for x, y in batches]
+            torch.cuda.synchronize()
+            launches[mode] = dict(fn.LAUNCHES)
+            runs.append((mode, losses, _leaves(model)))
+            del model, step
+
+        def diff(a, b):
+            loss = max(abs(x - y) for x, y in zip(a[1], b[1]))
+            leaf = max((a[2][k] - b[2][k]).abs().max().item() for k in a[2])
+            return {"loss_max_abs_diff": loss, "state_max_abs_diff": leaf,
+                    "bit_equal": loss == 0 and leaf == 0 and all(
+                        torch.equal(a[2][k], b[2][k]) for k in a[2])}
+
+        pairs = {"ddp_vs_plain": diff(runs[1], runs[0]),
+                 "ddp_vs_plain_2": diff(runs[2], runs[3]),
+                 "plain_vs_plain": diff(runs[0], runs[3]),
+                 "ddp_vs_ddp": diff(runs[1], runs[2])}
+        want = {k: 9 * TRAIN_CMP_STEPS if not k.endswith("_res")
+                else 8 * TRAIN_CMP_STEPS for k in fn.KERNELS}
+        if launches["ddp"] != want:
+            raise RuntimeError(f"DDP step launches {launches['ddp']}; want "
+                               f"{want}")
+        if not all(p["bit_equal"] for p in pairs.values()):
+            raise RuntimeError(f"world-1 DDP and the one-card step are not "
+                               f"all bit-equal: {pairs}")
+        out = {"phase": "ddp_vs_plain", "steps": TRAIN_CMP_STEPS,
+               "batch": TRAIN_B, "dtype": "bfloat16", "backend":
+               dist_lib.backend(), "losses": {m: l for m, l, _ in runs},
+               "ddp_launches": launches["ddp"], **pairs}
+        emit(out)
+        out["breakdown"] = phase_train_breakdown(ddp=True)
+    finally:
+        dist_lib.shutdown()
     return out
 
 
@@ -1371,7 +1649,8 @@ def phase_vit_train_step_breakdown() -> dict:
     return out
 
 
-def _bwd_kernel_entries(bwd: dict, vit: dict, card: dict) -> list:
+def _bwd_kernel_entries(bwd: dict, vit: dict, ddp: dict,
+                        card: dict) -> list:
     """The dQ and dKV entries of the kernels line: the main row is ViT-B/16's
     training shape; ``step_ms`` is the kernel's time over one train step's
     12 launches."""
@@ -1389,6 +1668,9 @@ def _bwd_kernel_entries(bwd: dict, vit: dict, card: dict) -> list:
             "source": "tpudist_torch/ops/csrc/flash_bwd.cu",
             "replaces": replaces[name],
             "launches": vit["flash_launches"][name],
+            "launches_by_path": {
+                "train_vit": vit["flash_launches"][name],
+                "train_vit_ddp": ddp["train_vit_ddp"]["launches"][name]},
             "max_abs_err": max(c[name]["max_abs_err"] for c in bwd["cases"]),
             "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"],
             "plain_ms": main["plain_ms"], "bound_ms": r["bound_ms"],
@@ -1416,7 +1698,8 @@ def _mma_ptxas(card: dict, library: str) -> dict:
             if "_mma<" in k}
 
 
-def _norm_kernel_entries(norm: dict, train: dict, card: dict) -> list:
+def _norm_kernel_entries(norm: dict, train: dict, ddp: dict,
+                         card: dict) -> list:
     """The four fused-norm entries of the kernels line: the main row is
     the largest main-path shape of each kernel (the stem for the plain
     epilogue, stage 1 for the residual one); ``step_ms`` sums the kernel's
@@ -1448,6 +1731,10 @@ def _norm_kernel_entries(norm: dict, train: dict, card: dict) -> list:
             "source": "tpudist_torch/ops/csrc/fused_norm.cu",
             "replaces": replaces[name],
             "launches": train["fused_norm_launches"][name],
+            "launches_by_path": {
+                "train": train["fused_norm_launches"][name],
+                "train_ddp": ddp["train_ddp"]["launches"][name],
+                "train_syncbn_ddp": ddp["train_syncbn_ddp"]["launches"][name]},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main["kernel_ms"], "kernel_ms": main["kernel_ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
@@ -1483,12 +1770,17 @@ def main(argv=None) -> int:
     serve, model = phase_serve()
     phase_forward_breakdown(model)
     del model
+    phase_serve_resnet()
     train = phase_train()
     phase_fused_vs_plain()
     phase_train_breakdown()
     vit = phase_train_vit()
     phase_flash_vs_plain_train()
     phase_vit_train_step_breakdown()
+    ddp = {"train_ddp": phase_train_ddp(),
+           "train_syncbn_ddp": phase_train_syncbn_ddp(),
+           "train_vit_ddp": phase_train_vit_ddp()}
+    phase_ddp_vs_plain()
 
     fwd_rows = [r for r in kern["cases"] if r["case"].startswith(
         ("serve_", "train_"))]
@@ -1502,7 +1794,8 @@ def main(argv=None) -> int:
         + vit["flash_launches"]["flash_fwd"],
         "launches_by_path": {
             "serve": serve["flash_launches"],
-            "train_vit": vit["flash_launches"]["flash_fwd"]},
+            "train_vit": vit["flash_launches"]["flash_fwd"],
+            "train_vit_ddp": ddp["train_vit_ddp"]["launches"]["flash_fwd"]},
         "max_abs_err": max(r["o_max_abs_err"] for r in kern["cases"]),
         "ms": main_row["kernel_ms"], "kernel_ms": main_row["kernel_ms"],
         "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
@@ -1515,8 +1808,8 @@ def main(argv=None) -> int:
         "o_not_bit_equal_share": {r["case"]: r["o_not_bit_equal_share"]
                                   for r in kern["cases"]},
         "ptxas": _mma_ptxas(card, "flash_fwd"),
-        "card": card["nvidia_smi"]}] + _bwd_kernel_entries(bwd, vit, card)
-        + _norm_kernel_entries(norm, train, card)})
+        "card": card["nvidia_smi"]}] + _bwd_kernel_entries(bwd, vit, ddp, card)
+        + _norm_kernel_entries(norm, train, ddp, card)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -4,7 +4,9 @@ Bucket math and batching semantics as in ``tests/test_serve.py``: padding
 rows never change valid rows, oversize requests chunk, a mixed request
 stream makes exactly one warm-up ``compile`` event per bucket (all
 ``phase="serve_aot"``), and the events file validates under the port's
-schema and is read by tpudist's own ``summarize``.
+schema and is read by tpudist's own ``summarize``. The CLI serves its
+default arch, tpudist's ``resnet18``, and a served resnet18 gives
+tpudist's logits for the same weights.
 """
 
 import json
@@ -16,6 +18,7 @@ import torch
 from tpudist_torch import telemetry as telemetry_lib
 from tpudist_torch.models.vit import VisionTransformer
 from tpudist_torch.ops import flash_attention as fa
+from tpudist_torch.ops import fused_norm as fn
 from tpudist_torch.serve import __main__ as serve_cli
 from tpudist_torch.serve.batching import (ContinuousBatcher, pad_to_bucket,
                                           parse_buckets, pick_bucket)
@@ -129,6 +132,55 @@ def test_cli_serves_vit_b_32_on_cpu(tmp_path, capsys):
     evs = [json.loads(ln) for ln in open(tmp_path / "events.0.jsonl")]
     assert evs[0]["type"] == "run_start" and evs[0]["platform"] == "cpu"
     assert evs[-1]["type"] == "run_end"
+
+
+def test_cli_serves_its_default_arch_resnet18_on_cpu(tmp_path, capsys):
+    """tpudist's default serve arch; eval-mode BN runs no kernel."""
+    launches = dict(fn.LAUNCHES)
+    rc = serve_cli.main(["--device", "cpu", "--image-size", "32",
+                         "--num-classes", "8", "--buckets", "1,2",
+                         "--load-rate", "10", "--load-duration", "0.3",
+                         "--telemetry", "--outpath", str(tmp_path)])
+    assert rc == 0
+    line = [ln for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith("SERVE_SUMMARY ")]
+    summary = json.loads(line[-1].split(" ", 1)[1])
+    assert summary["arch"] == "resnet18"
+    assert summary["n_requests"] >= 1 and summary["n_errors"] == 0
+    evs = [json.loads(ln) for ln in open(tmp_path / "events.0.jsonl")]
+    assert evs[0]["type"] == "run_start" and evs[-1]["type"] == "run_end"
+    assert fn.LAUNCHES == launches
+
+
+def test_served_resnet18_matches_tpudists_export():
+    """The same weights (tpudist's fresh export, with running statistics
+    drawn away from 0 and 1) through the weight bridge: f32 eval logits
+    within the bound of ``tests/test_torch_resnet.py``."""
+    jax = pytest.importorskip("jax")
+    jnp = pytest.importorskip("jax.numpy")
+    from tpudist.serve.export import load_serve_state as jax_load
+    from tpudist_torch.compat.jax_params import resnet_state_dict_from_jax
+    from tpudist_torch.serve.export import load_serve_state
+    jm, variables = jax_load("resnet18", num_classes=8, image_size=32,
+                             dtype=jnp.float32, seed=0)
+    rng = np.random.default_rng(0)
+    stats = jax.tree_util.tree_map_with_path(
+        lambda path, v: (rng.uniform(0.5, 1.5, v.shape) if path[-1].key
+                         == "var" else 0.1 * rng.standard_normal(v.shape)
+                         ).astype(np.float32), variables["batch_stats"])
+    images = _images(4)
+    want = np.asarray(jm.apply({"params": variables["params"],
+                                "batch_stats": stats}, jnp.asarray(images),
+                               train=False))
+    model = load_serve_state("resnet18", num_classes=8, image_size=32,
+                             dtype=torch.float32, device="cpu")
+    model.load_state_dict(resnet_state_dict_from_jax(
+        jax.device_get(variables["params"]), stats), strict=True)
+    got = ServeEngine(model, image_size=32, buckets=(4,),
+                      device="cpu").infer(images)
+    assert got.shape == want.shape == (4, 8)
+    err = float(np.abs(got - want).max())
+    assert err <= 1e-4 * (1 + float(np.abs(want).max())), err
 
 
 @pytest.mark.parametrize("flag,missing", [

@@ -232,7 +232,7 @@ def test_flag_surface_is_tpudists():
     (["--accum-steps", "2"], "--accum-steps"),
     (["--model-ema-decay", "0.99"], "--model-ema-decay"),
     (["--amp-dtype", "float16"], "--amp-dtype"),
-    (["--sync_batchnorm"], "--sync_batchnorm"),
+    (["--keep-checkpoints", "3"], "--keep-checkpoints"),
     (["--remat"], "--remat"),
     (["--resume", "x.msgpack"], "--resume"),
     (["--doctor"], "--doctor"),

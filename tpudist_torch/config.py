@@ -121,8 +121,9 @@ class Config:
     per_device_batch_size: int = 0
 
     def finalize(self, num_devices: int = 1) -> "Config":
-        """Derive the per-device batch from the global batch and check the
-        values tpudist checks."""
+        """Derive the per-device batch from the global batch (one card a
+        rank: ``num_devices`` is the world size) and check the values
+        tpudist checks."""
         self.nprocs = num_devices
         self.per_device_batch_size = max(1, self.batch_size // num_devices)
         self.batch_size = self.per_device_batch_size * num_devices
@@ -170,7 +171,6 @@ _NOT_YET = {
     "auto_augment": ("--auto-augment", "the ImageFolder transforms"),
     "random_erase": ("--random-erase", "the ImageFolder transforms"),
     "amp_dtype": ("--amp-dtype", "float16 loss scaling (bfloat16 is ported)"),
-    "sync_batchnorm": ("--sync_batchnorm", "SyncBN"),
     "remat": ("--remat", "block checkpointing"),
     "compile_cache": ("--compile-cache", "a persistent compile cache"),
     "resume": ("--resume", "checkpoint.py (the msgpack format)"),
@@ -206,10 +206,6 @@ _NOT_YET = {
     "zero_opt": ("--zero_opt", "ZeRO weight-update sharding"),
     "zero": ("--zero", "ZeRO weight-update sharding"),
     "compress_grads": ("--compress-grads", "gradient compression"),
-    "distributed": ("--distributed", "dist.py (NCCL)"),
-    "coordinator_address": ("--coordinator-address", "dist.py (NCCL)"),
-    "num_processes": ("--num-processes", "dist.py (NCCL)"),
-    "process_id": ("--process-id", "dist.py (NCCL)"),
 }
 
 
@@ -285,7 +281,7 @@ def build_parser() -> argparse.ArgumentParser:
     add("--pretrained-path", default=d.pretrained_path, dest="pretrained_path", help=not_yet)
     _bool_flag(p, "use_amp", d.use_amp, "bf16 compute policy (f32 master weights)")
     add("--amp-dtype", default=d.amp_dtype, dest="amp_dtype", choices=("bfloat16", "float16"), help="--use_amp compute dtype; float16 is " + not_yet)
-    _bool_flag(p, "sync_batchnorm", d.sync_batchnorm, not_yet)
+    _bool_flag(p, "sync_batchnorm", d.sync_batchnorm, "SyncBN: BatchNorm statistics averaged across the data-parallel ranks (the plain epilogue, as tpudist)")
     _bool_flag(p, "remat", d.remat, not_yet)
     add("--flash", default=d.flash, choices=("auto", "on", "off"), help="attention kernel for vit archs: on = the hand-written CUDA flash-attention kernels (forward, dQ and dKV), off = plain attention; auto is " + not_yet + " (no-op for the conv nets; on is refused for them)")
     add("--fused-bn", default=d.fused_bn, dest="fused_bn", choices=("auto", "on", "off"), help="on (the port's default) = the hand-written CUDA BN+ReLU / BN+add+ReLU epilogue kernels in train mode; off = the plain epilogue; auto is " + not_yet)
@@ -342,10 +338,10 @@ def build_parser() -> argparse.ArgumentParser:
     _bool_flag(p, "zero_opt", d.zero_opt, not_yet)
     add("--zero", default=d.zero, choices=("off", "1", "full"), help=not_yet)
     add("--compress-grads", default=d.compress_grads, dest="compress_grads", choices=("off", "int8", "auto"), help=not_yet)
-    _bool_flag(p, "distributed", d.distributed, not_yet)
-    add("--coordinator-address", default=None, dest="coordinator_address", help=not_yet)
-    add("--num-processes", default=None, type=int, dest="num_processes", help=not_yet)
-    add("--process-id", default=None, type=int, dest="process_id", help=not_yet)
+    _bool_flag(p, "distributed", d.distributed, "data-parallel training: join the process group (NCCL on the card, gloo on the CPU) and train under DDP; python -m tpudist_torch.launch starts the ranks")
+    add("--coordinator-address", default=None, dest="coordinator_address", help="host:port of rank 0's rendezvous (default: env TPUDIST_COORDINATOR)")
+    add("--num-processes", default=None, type=int, dest="num_processes", help="world size (default: env TPUDIST_NUM_PROCESSES)")
+    add("--process-id", default=None, type=int, dest="process_id", help="this rank (default: env TPUDIST_PROCESS_ID)")
     add("--device", default=d.device, choices=("cuda", "cpu"), help="where the trainer runs (default cuda; there is no fallback to the CPU)")
     return p
 

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpudist_torch import dist as dist_lib
 from tpudist_torch.ops.fused_norm import fused_bn_act, reference_bn_act
 
 
@@ -30,24 +31,29 @@ class BatchNorm(nn.Module):
       biased ``var = max(mean_sq − mean², 0)`` normalises;
     - the running var takes the unbiased ``var·n/(n−1)``, with torch's
       momentum 0.1 (the weight of the new statistic);
+    - SyncBN (``axis_name`` set, tpudist's ``"data"``): in train mode the
+      f32 ``mean`` and ``mean_sq`` are averaged across the data-parallel
+      ranks and ``n`` counts every rank's rows. The all-reduce is
+      differentiable, so each rank's gradient also carries the other
+      ranks' share of the statistics. Without a process group the rank is
+      alone and the statistics are its own;
     - ``act="relu"`` (optionally with ``residual=``) asks for the fused
-      epilogue: in train mode with ``fused`` set, ``relu(x̂·scale + bias
-      [+ residual])`` runs through the fused_norm kernels; eval mode (the
-      running statistics) and ``fused=False`` take the plain epilogue in
-      the op order the call sites ran (f32 normalize → cast → add → relu).
+      epilogue: in train mode with ``fused`` set and no ``axis_name``,
+      ``relu(x̂·scale + bias [+ residual])`` runs through the fused_norm
+      kernels; eval mode (the running statistics), SyncBN and
+      ``fused=False`` take the plain epilogue in the op order the call
+      sites ran (f32 normalize → cast → add → relu), as tpudist's
+      structural fallbacks do.
 
     Parameter and buffer names are the flax tree's (``scale``, ``bias``;
-    ``batch_stats`` ``mean``, ``var``). SyncBN (``axis_name``) comes with
-    the port's data-parallel plane.
+    ``batch_stats`` ``mean``, ``var``).
     """
 
     def __init__(self, features: int, *, momentum: float = 0.1,
                  epsilon: float = 1e-5, dtype=None, fused: bool = True,
                  axis_name: str | None = None, device=None):
         super().__init__()
-        if axis_name is not None:
-            raise NotImplementedError(
-                "SyncBN (BatchNorm axis_name) is not in the port yet")
+        self.axis_name = axis_name
         self.momentum = momentum
         self.epsilon = epsilon
         self.dtype = dtype
@@ -80,8 +86,13 @@ class BatchNorm(nn.Module):
             xf = xh.float()
             mean = xf.mean(dim=(0, 1, 2))
             mean_sq = xf.square().mean(dim=(0, 1, 2))
-            var = torch.clamp_min(mean_sq - mean.square(), 0.0)
             n = math.prod(xh.shape[:-1])
+            if self.axis_name is not None and dist_lib.is_initialized():
+                world = dist_lib.data_rank_world()[1]
+                stats = dist_lib.all_reduce_sum(torch.stack([mean, mean_sq]))
+                mean, mean_sq = (stats / world).unbind(0)
+                n *= world
+            var = torch.clamp_min(mean_sq - mean.square(), 0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_((1 - m) * self.mean + m * mean)
@@ -90,7 +101,8 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self.mean, self.var
         out_dt = self.dtype or x.dtype
-        if act == "relu" and self.training and self.fused:
+        if act == "relu" and self.training and self.fused \
+                and self.axis_name is None:
             if x.dtype != out_dt:
                 raise ValueError(f"the fused epilogue writes x's dtype "
                                  f"{x.dtype}; this BatchNorm's is {out_dt}")
@@ -119,9 +131,15 @@ class Conv2d(nn.Module):
         self.padding = kernel_size // 2 if padding is None else padding
         self.groups = groups
         self.dtype = dtype
+        # The forward's channels_last cast hands a 1x1 kernel's gradient
+        # back with channels_last strides: the same memory order as a
+        # contiguous kernel, but DDP's gradient buckets compare strides, so
+        # a 1x1 master weight is laid out so too.
+        layout = (torch.channels_last if kernel_size == 1
+                  else torch.contiguous_format)
         self.weight = nn.Parameter(torch.empty(
             features, in_features // groups, kernel_size, kernel_size,
-            dtype=torch.float32, device=device))
+            dtype=torch.float32, device=device, memory_format=layout))
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:

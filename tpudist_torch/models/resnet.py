@@ -15,7 +15,7 @@ ResNeXt/WideResNet's groups and base width), stage widths ``width·2^i``,
   leaf ``layer1_0/bn1/mean``), so ``compat.jax_params`` is a transpose per
   leaf.
 
-SyncBN and ``remat`` come later.
+``remat`` comes later.
 """
 
 from __future__ import annotations
@@ -62,13 +62,15 @@ class BasicBlock(nn.Module):
 
     def __init__(self, in_features: int, features: int, strides: int = 1, *,
                  groups: int = 1, base_width: int = 64, dtype=None,
-                 fused: bool = True, device=None):
+                 fused: bool = True, axis_name: str | None = None,
+                 device=None):
         super().__init__()
         if groups != 1 or base_width != 64:
             raise ValueError("BasicBlock only supports groups=1 and "
                              "base_width=64")
         conv = dict(dtype=dtype, device=device)
-        bn = dict(dtype=dtype, fused=fused, device=device)
+        bn = dict(dtype=dtype, fused=fused, axis_name=axis_name,
+                  device=device)
         self.conv1 = Conv2d(in_features, features, 3, strides, **conv)
         self.bn1 = BatchNorm(features, **bn)
         self.conv2 = Conv2d(features, features, 3, 1, **conv)
@@ -95,10 +97,12 @@ class Bottleneck(nn.Module):
 
     def __init__(self, in_features: int, features: int, strides: int = 1, *,
                  groups: int = 1, base_width: int = 64, dtype=None,
-                 fused: bool = True, device=None):
+                 fused: bool = True, axis_name: str | None = None,
+                 device=None):
         super().__init__()
         conv = dict(dtype=dtype, device=device)
-        bn = dict(dtype=dtype, fused=fused, device=device)
+        bn = dict(dtype=dtype, fused=fused, axis_name=axis_name,
+                  device=device)
         width = int(features * (base_width / 64.0)) * groups
         out = features * self.expansion
         self.conv1 = Conv2d(in_features, width, 1, 1, **conv)
@@ -128,18 +132,23 @@ class ResNet(nn.Module):
 
     ``dtype`` is the compute dtype (bf16 under the AMP policy); parameters
     stay f32. ``fused_bn`` routes the train-mode BN epilogues through the
-    fused_norm kernels (``--fused-bn on``) or the plain epilogue (off)."""
+    fused_norm kernels (``--fused-bn on``) or the plain epilogue (off);
+    ``sync_batchnorm`` makes every BatchNorm SyncBN (``axis_name="data"``,
+    the reference's ``convert_sync_batchnorm``), which takes the plain
+    epilogue."""
 
     def __init__(self, stage_sizes, block, num_classes: int = 1000, *,
                  width: int = 64, dtype=None, s2d_stem: bool = False,
                  fused_bn: bool = True, groups: int = 1,
-                 base_width: int = 64, device=None):
+                 base_width: int = 64, sync_batchnorm: bool = False,
+                 device=None):
         super().__init__()
         self.dtype = dtype
+        axis = "data" if sync_batchnorm else None
         self.conv1 = _StemConvS2D(3, width, s2d=s2d_stem, dtype=dtype,
                                   device=device)
         self.bn1 = BatchNorm(width, dtype=dtype, fused=fused_bn,
-                             device=device)
+                             axis_name=axis, device=device)
         self.block_names = []
         in_features = width
         for i, num_blocks in enumerate(stage_sizes):
@@ -149,7 +158,7 @@ class ResNet(nn.Module):
                 self.add_module(name, block(
                     in_features, features, 2 if i > 0 and j == 0 else 1,
                     groups=groups, base_width=base_width, dtype=dtype,
-                    fused=fused_bn, device=device))
+                    fused=fused_bn, axis_name=axis, device=device))
                 self.block_names.append(name)
                 in_features = features * block.expansion
         self.fc = DenseTorch(in_features, num_classes, dtype=dtype,
@@ -180,16 +189,13 @@ def _resnet(stage_sizes, block, groups: int = 1, width_per_group: int = 64):
              sync_batchnorm: bool = False, remat: bool = False,
              fused_bn: bool = True, width: int = 64, s2d_stem: bool = False,
              device=None) -> ResNet:
-        if sync_batchnorm:
-            raise NotImplementedError(
-                "sync_batchnorm: SyncBN is not in the port yet")
         if remat:
             raise NotImplementedError("remat: block checkpointing is not in "
                                       "the port yet")
         return ResNet(stage_sizes, block, num_classes, width=width,
                       dtype=dtype, s2d_stem=s2d_stem, fused_bn=fused_bn,
                       groups=groups, base_width=width_per_group,
-                      device=device)
+                      sync_batchnorm=sync_batchnorm, device=device)
     return ctor
 
 

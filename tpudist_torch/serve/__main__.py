@@ -26,7 +26,7 @@ def build_parser() -> argparse.ArgumentParser:
         prog="python -m tpudist_torch.serve",
         description="Serve a model with the PyTorch port: bucket warm-up + "
                     "continuous batching + telemetry")
-    p.add_argument("-a", "--arch", default="vit_b_16")
+    p.add_argument("-a", "--arch", default="resnet18")
     p.add_argument("--checkpoint", default="",
                    help="'' = fresh init weights from --seed (bench/smoke); "
                         "loading a checkpoint is not in the port yet")

@@ -4,8 +4,11 @@
 Counterpart of ``tpudist/serve/export.py``. The model computes in the
 compute dtype (bf16 by default) from fresh f32 weights on the device, drawn
 from ``seed`` (the bench/smoke path, where serving performance is the
-measured quantity and the weights are irrelevant). ``flash`` reaches the
-model's attention as the reference's ``--flash on|off`` does.
+measured quantity and the weights are irrelevant). ``image_size`` and
+``flash`` reach a ViT (its position embedding and attention) as the
+reference's do; the conv nets take neither, and in eval mode their
+BatchNorm epilogues are plain, so a served resnet runs no kernel of the
+port.
 
 Not yet in the port: ``--flash auto`` (the measurement-honest dispatch of
 ``ops/attention_dispatch``) and loading a checkpoint.
@@ -45,10 +48,10 @@ def load_serve_state(arch: str, checkpoint: str = "", *,
             "--checkpoint: the port cannot read tpudist .msgpack "
             "checkpoints yet (it needs its own msgpack reader); serve "
             "fresh weights with --checkpoint ''")
-    model = create_model(arch, num_classes=num_classes,
-                         image_size=image_size,
-                         flash=resolve_serve_flash(flash), dtype=dtype,
-                         device="meta")
+    kw = dict(num_classes=num_classes, dtype=dtype, device="meta")
+    if arch.startswith("vit"):
+        kw.update(image_size=image_size, flash=resolve_serve_flash(flash))
+    model = create_model(arch, **kw)
     model = model.to_empty(device=dev)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     if log is not None:

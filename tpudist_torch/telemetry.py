@@ -1,11 +1,12 @@
 """Structured run events, goodput accounting and heartbeats for the port.
 
 The port's copy of the part of ``tpudist/telemetry.py`` that serving and
-the one-card trainer use. Events are byte-compatible with the JAX
-package's: the same envelope (``t``/``type``/``rank``/``attempt``), the
-same required fields per type and the same ``events.<rank>.jsonl`` and
-``heartbeats/rank<r>.json`` files, so ``python -m tpudist.summarize
-<outpath>`` reads a port run.
+the trainer use. Events are byte-compatible with the JAX package's: the
+same envelope (``t``/``type``/``rank``/``attempt``), the same required
+fields per type and the same ``events.<rank>.jsonl`` and
+``heartbeats/rank<r>.json`` files, one of each per rank of a
+data-parallel run, so ``python -m tpudist.summarize <outpath>`` reads a
+port run.
 """
 
 from __future__ import annotations
@@ -106,10 +107,14 @@ class Telemetry:
     Thread-safe emit (the batcher's loop thread emits); every line is
     flushed on write."""
 
-    def __init__(self, outpath: str, rank: int = 0):
+    def __init__(self, outpath: str, rank: int = 0, init_s: float = 0.0):
+        """``init_s``: seconds spent before this object existed
+        (``dist.initialize_runtime``); ``wall_s`` and ``run_end`` count
+        them, as tpudist's pending ``init`` phase."""
         self.outpath = outpath
         self.rank = rank
         self.attempt = env_attempt()
+        self.init_s = float(init_s)
         os.makedirs(outpath, exist_ok=True)
         self.path = events_path(outpath, rank)
         self._f = open(self.path, "a", buffering=1)
@@ -221,7 +226,8 @@ class Telemetry:
             pass                       # heartbeats are best-effort telemetry
 
     def wall_s(self) -> float:
-        return time.time() - self._t0
+        """Wall time of the run so far, the init phase included."""
+        return time.time() - self._t0 + self.init_s
 
     def close(self, **extra) -> Optional[dict]:
         """Emit the ``run_end`` goodput summary and close the stream."""
@@ -234,7 +240,7 @@ class Telemetry:
             "run_end", wall_s=round(wall, 3),
             productive_s=round(self.productive_s, 3),
             goodput=round(min(1.0, self.productive_s / wall), 4),
-            init_s=0.0, compile_s=round(self.compile_s, 3),
+            init_s=round(self.init_s, 3), compile_s=round(self.compile_s, 3),
             checkpoint_s=0.0, eval_s=round(self.eval_s, 3),
             data_wait_s=round(self.data_s, 3), h2d_s=round(self.h2d_s, 3),
             drain_s=round(self.drain_s, 3),

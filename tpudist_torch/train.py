@@ -1,9 +1,18 @@
-"""One-card train and eval steps.
+"""Train and eval steps, on one card or data-parallel.
 
 Counterpart of ``tpudist/train.py`` (``sgd_torch``, ``lr_for_epoch``,
 ``compute_dtype``, ``create_train_state``, ``_loss_fn``,
-``make_train_step``, ``make_eval_step``) without the mesh: PyTorch runs
-the step eagerly on one card.
+``make_train_step``, ``make_eval_step``): PyTorch runs the step eagerly,
+one card a rank.
+
+- Data-parallel (``data_parallel``) is tpudist's shard_map step:
+  ``DistributedDataParallel`` averages the gradients (``pmean``) in its
+  bucketed all-reduce during the backward; after the optimizer step the
+  BatchNorm running statistics are averaged across ranks (tpudist's
+  ``pmean`` of ``batch_stats``; DDP's ``broadcast_buffers`` would instead
+  copy rank 0's at every forward, so it is off); the loss and accuracy
+  are averaged across ranks, in train and in eval. Every all-reduce is
+  queued on the device stream: the host never waits for one.
 
 - SGD is ``torch.optim.SGD(momentum, weight_decay, nesterov=False)`` over
   every parameter, BN scale and bias included: weight decay folded into
@@ -26,11 +35,14 @@ compression are not in the port yet.
 
 from __future__ import annotations
 
+import inspect
 import math
 from typing import Callable
 
 import torch
+from torch.nn.parallel import DistributedDataParallel
 
+from tpudist_torch import dist as dist_lib
 from tpudist_torch.ops.loss import cross_entropy_loss
 from tpudist_torch.ops.metrics import accuracy
 from tpudist_torch.ops.mixup import mixed_ce
@@ -76,12 +88,55 @@ def make_optimizer(model: torch.nn.Module, cfg) -> torch.optim.Optimizer:
     raise ValueError(f"unsupported optimizer '{cfg.optimizer}' (sgd|adamw)")
 
 
+def data_parallel(model: torch.nn.Module,
+                  device: torch.device) -> DistributedDataParallel:
+    """Wrap ``model`` (already on ``device``) for the process group's
+    data-parallel step: the default averaging all-reduce, every parameter
+    used (``find_unused_parameters=False``), no buffer broadcast (the
+    step averages them after the update), and gradients that live in
+    DDP's buckets (no copy back after the all-reduce)."""
+    # torch 2.13 renamed broadcast_buffers to forward_sync_buffers (the
+    # card's torch 2.11 has only the old name). The old name also leaves
+    # the buffers out of DDP's sync at construction; that changes nothing
+    # here, as every rank builds its BN buffers the same (zeros and ones).
+    no_buffer_sync = ({"forward_sync_buffers": False} if "forward_sync_buffers"
+                      in inspect.signature(DistributedDataParallel).parameters
+                      else {"broadcast_buffers": False})
+    return DistributedDataParallel(
+        model, device_ids=[device] if device.type == "cuda" else None,
+        find_unused_parameters=False, gradient_as_bucket_view=True,
+        **no_buffer_sync)
+
+
+def _mean_over_ranks(metrics: dict) -> dict:
+    """One all-reduce for all of a step's 0-D metrics."""
+    keys = list(metrics)
+    vals = dist_lib.reduce_mean(torch.stack([metrics[k].float()
+                                             for k in keys]))
+    return dict(zip(keys, vals.unbind(0)))
+
+
+def average_buffers(model: torch.nn.Module) -> None:
+    """Average the floating-point buffers (the BN running statistics)
+    across ranks in place, in one all-reduce."""
+    bufs = [b for b in model.buffers() if b.is_floating_point()]
+    if not bufs:
+        return
+    flat = dist_lib.reduce_mean(torch.cat([b.reshape(-1) for b in bufs]))
+    torch._foreach_copy_(bufs, [v.view_as(b) for v, b in zip(
+        flat.split([b.numel() for b in bufs]), bufs)])
+
+
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     cfg) -> Callable:
     """``step(images, labels, lr) → {"loss", "acc1"}``: forward in train
     mode (BN statistics update the running buffers), f32 CE loss,
-    backward, SGD update. The metrics stay 0-D device tensors."""
+    backward, SGD update. The metrics stay 0-D device tensors. A
+    ``DistributedDataParallel`` model (``data_parallel``) takes the
+    data-parallel step: its buffers and metrics are averaged across
+    ranks."""
     smoothing = float(getattr(cfg, "label_smoothing", 0.0))
+    ddp = isinstance(model, DistributedDataParallel)
 
     def step(images: torch.Tensor, labels: torch.Tensor, lr: float) -> dict:
         for group in optimizer.param_groups:
@@ -93,21 +148,29 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         loss.backward()
         optimizer.step()
         with torch.no_grad():
-            acc1 = accuracy(logits, labels, topk=1)
-        return {"loss": loss.detach(), "acc1": acc1}
+            metrics = {"loss": loss.detach(),
+                       "acc1": accuracy(logits, labels, topk=1)}
+            if ddp:
+                average_buffers(model.module)
+                metrics = _mean_over_ranks(metrics)
+        return metrics
 
     return step
 
 
 def make_eval_step(model: torch.nn.Module, cfg) -> Callable:
     """``step(images, labels) → {"loss", "acc1"}`` with the running BN
-    statistics and no gradient."""
+    statistics and no gradient; under DDP the metrics are averaged across
+    ranks."""
+    ddp = isinstance(model, DistributedDataParallel)
+    net = model.module if ddp else model
 
     def step(images: torch.Tensor, labels: torch.Tensor) -> dict:
-        model.eval()
+        net.eval()
         with torch.no_grad():
-            logits = model(images)
-            return {"loss": cross_entropy_loss(logits, labels),
-                    "acc1": accuracy(logits, labels, topk=1)}
+            logits = net(images)
+            metrics = {"loss": cross_entropy_loss(logits, labels),
+                       "acc1": accuracy(logits, labels, topk=1)}
+            return _mean_over_ranks(metrics) if ddp else metrics
 
     return step

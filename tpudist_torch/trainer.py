@@ -1,11 +1,17 @@
-"""The experiment runner and epoch loops on one card.
+"""The experiment runner and epoch loops, on one card or data-parallel.
 
 Counterpart of ``tpudist/trainer.py`` (``Trainer``: ``train_epoch``,
-``validate``, ``fit``; ``run``) for one CUDA card, or the CPU when asked.
+``validate``, ``fit``; ``run``) on CUDA cards, or the CPU when asked.
 It keeps tpudist's observable surface: ``experiment.log`` and stdout
 lines (``Epoch[e]:\\t[i/N]``, ``||==> Train``/``Val``, ``best_acc1=``),
 ``settings.log``, and with ``--telemetry`` the ``run_start``/``step``/
 ``eval``/``epoch``/``run_end`` events ``python -m tpudist.summarize`` reads.
+
+Under ``--distributed`` (``run`` joins the process group first) each rank
+trains its shard of every global batch under DDP (``train.data_parallel``):
+the primary rank alone sets up the run directory and writes the logs and
+``settings.log``, the others wait for it at a barrier; every rank writes
+its own ``events.<rank>.jsonl``.
 
 The hot loop keeps tpudist's two overlaps:
 - ``--async_drain``: each step's loss and accuracy are copied to pinned
@@ -17,9 +23,9 @@ The hot loop keeps tpudist's two overlaps:
 It logs which attention a ViT takes and which epilogue the BN workloads
 take, as ``_resolve_attention_dispatch`` and
 ``_resolve_fused_norm_dispatch`` do, and on the card the kernel launches
-its first train step made. Checkpoints, the data-parallel
-plane, the doctor, fault injection and the profiler window come later;
-``fit`` says once that it writes no checkpoint.
+its first train step made. Checkpoints, the doctor, fault injection
+and the profiler window come later; ``fit`` says once that it writes no
+checkpoint.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import time
 
 import torch
 
+from tpudist_torch import dist as dist_lib
 from tpudist_torch import telemetry as telemetry_lib
 from tpudist_torch._device import resolve_device
 from tpudist_torch.config import (VIT_ARCHS, Config, refuse_unsupported,
@@ -36,8 +43,9 @@ from tpudist_torch.data import DevicePrefetcher, build_train_val_loaders
 from tpudist_torch.data.loader import to_device
 from tpudist_torch.models import create_model
 from tpudist_torch.ops import flash_attention, fused_norm
-from tpudist_torch.train import (compute_dtype, lr_for_epoch, make_eval_step,
-                                 make_optimizer, make_train_step)
+from tpudist_torch.train import (compute_dtype, data_parallel, lr_for_epoch,
+                                 make_eval_step, make_optimizer,
+                                 make_train_step)
 from tpudist_torch.utils import (AverageMeter, ProgressMeter, get_logger,
                                  output_process)
 
@@ -86,23 +94,36 @@ class _MetricDrain:
 class Trainer:
     """Build everything, then ``fit``."""
 
-    def __init__(self, cfg: Config):
-        refuse_unsupported(cfg)
+    def __init__(self, cfg: Config, init_s: float = 0.0):
+        """``init_s``: the seconds ``dist.initialize_runtime`` took (the
+        telemetry's init phase)."""
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
-        cfg.finalize(1)
-        output_process(cfg.outpath, cfg.overwrite)
-        self.logger = get_logger(cfg.outpath)
-        write_settings(cfg, cfg.outpath)
+        self.rank, self.world = dist_lib.data_rank_world()
+        self.primary = self.rank == 0
+        self.distributed = dist_lib.is_initialized()
+        cfg.finalize(self.world)
+        self.logger = None
+        if self.primary:
+            output_process(cfg.outpath, cfg.overwrite)
+            self.logger = get_logger(cfg.outpath)
+            write_settings(cfg, cfg.outpath)
+        # The others open their event files only once rank 0's
+        # --overwrite handling is done with the directory.
+        dist_lib.barrier("outpath")
         on_gpu = self.device.type == "cuda"
         self.telemetry = None
         if cfg.telemetry:
-            self.telemetry = telemetry_lib.Telemetry(cfg.outpath, rank=0)
+            self.telemetry = telemetry_lib.Telemetry(
+                cfg.outpath, rank=self.rank, init_s=init_s)
             self.telemetry.emit(
                 "run_start", platform="gpu" if on_gpu else "cpu",
-                n_devices=1, device_kind=(torch.cuda.get_device_name(
+                n_devices=self.world, device_kind=(torch.cuda.get_device_name(
                     self.device) if on_gpu else "cpu"),
-                arch=cfg.arch, global_batch=cfg.batch_size, init_s=0.0)
+                arch=cfg.arch, global_batch=cfg.batch_size,
+                init_s=round(init_s, 3),
+                **({"backend": dist_lib.backend()} if self.distributed
+                   else {}))
             self.log("=> telemetry: per-step MFU is not reported by the "
                      "port yet")
         dtype = compute_dtype(cfg)
@@ -116,7 +137,8 @@ class Trainer:
         if self.is_vit:
             kw.update(image_size=cfg.image_size, flash=cfg.flash == "on")
         else:
-            kw["fused_bn"] = cfg.fused_bn == "on"
+            kw.update(fused_bn=cfg.fused_bn == "on",
+                      sync_batchnorm=cfg.sync_batchnorm)
         self.model = create_model(cfg.arch, **kw)
         self.model.reset_parameters(torch.Generator().manual_seed(seed))
         self.model.to(self.device)
@@ -127,8 +149,15 @@ class Trainer:
                                    if self.is_vit else None)
         self.fused_norm_decision = self._resolve_fused_norm_dispatch()
         self.optimizer = make_optimizer(self.model, cfg)
-        self.train_step = make_train_step(self.model, self.optimizer, cfg)
-        self.eval_step = make_eval_step(self.model, cfg)
+        step_model = self.model
+        if self.distributed:
+            step_model = data_parallel(self.model, self.device)
+            self.log(f"=> data-parallel: world {self.world}, backend "
+                     f"{dist_lib.backend()}, DDP (buffers averaged after "
+                     f"the step)" + (", SyncBN" if cfg.sync_batchnorm
+                                     and not self.is_vit else ""))
+        self.train_step = make_train_step(step_model, self.optimizer, cfg)
+        self.eval_step = make_eval_step(step_model, cfg)
         self.best_acc1 = 0.0
         self.start_epoch = cfg.start_epoch
         self.global_step = 0
@@ -142,7 +171,8 @@ class Trainer:
         names = []
         if self.is_vit and cfg.flash == "on":
             names += ["flash_fwd"] + ([] if cfg.evaluate else ["flash_bwd"])
-        if not self.is_vit and cfg.fused_bn == "on" and not cfg.evaluate:
+        if cfg.fused_bn == "on" and not (self.is_vit or cfg.evaluate
+                                         or cfg.sync_batchnorm):
             names.append("fused_norm")
         if not names:
             return
@@ -189,6 +219,10 @@ class Trainer:
         elif cfg.evaluate:
             agg.update(source="ineligible",
                        reason="eval mode runs the plain epilogue")
+        elif cfg.sync_batchnorm:
+            agg.update(source="ineligible",
+                       reason="SyncBN's statistics all-reduce has no fused "
+                              "kernel; plain epilogue")
         elif cfg.fused_bn == "on":
             if self.device.type == "cuda":
                 agg["kernel"] = "cuda"
@@ -222,7 +256,9 @@ class Trainer:
                  + ", ".join(f"{k} {v}" for k, v in launched.items()) + ")")
 
     def log(self, msg: str) -> None:
-        self.logger.info(msg)
+        """The primary rank's log; the other ranks log nothing."""
+        if self.logger is not None:
+            self.logger.info(msg)
 
     def train_epoch(self, loader, epoch: int, lr: float):
         cfg = self.cfg
@@ -316,7 +352,8 @@ class Trainer:
     def fit(self, train_loader=None, val_loader=None) -> float:
         cfg = self.cfg
         if train_loader is None or val_loader is None:
-            train_loader, val_loader = build_train_val_loaders(cfg)
+            train_loader, val_loader = build_train_val_loaders(
+                cfg, self.rank, self.world)
         try:
             if cfg.evaluate:
                 return self.validate(val_loader, epoch=-1)
@@ -351,8 +388,24 @@ class Trainer:
             return self.best_acc1
         finally:
             if self.telemetry is not None:
-                self.telemetry.close(best_acc1=float(self.best_acc1))
+                # What the card ran: the wrappers count only launches.
+                self.telemetry.close(
+                    best_acc1=float(self.best_acc1),
+                    kernel_launches={**fused_norm.LAUNCHES,
+                                     **flash_attention.LAUNCHES})
 
 
 def run(cfg: Config) -> float:
-    return Trainer(cfg).fit()
+    """The reference's ``main()``: under ``--distributed`` join the process
+    group first (NCCL on the card, gloo on the CPU) and leave it at the
+    end, on every exit path."""
+    refuse_unsupported(cfg)
+    init_s = 0.0
+    if cfg.distributed:
+        init_s = dist_lib.initialize_runtime(
+            cfg.coordinator_address, cfg.num_processes, cfg.process_id,
+            device=cfg.device)
+    try:
+        return Trainer(cfg, init_s).fit()
+    finally:
+        dist_lib.shutdown()
