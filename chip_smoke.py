@@ -63,8 +63,25 @@ line and raising on failure:
    reports them in ``run_end``. Then, in this process, three steps of the
    world-1 DDP step against the one-card step (bit-equal whenever two
    one-card runs are) and the DDP step's breakdown;
-7. one ``{"kernels": [...]}`` line;
-8. last, ``{"ok": true, "device": {...}}``.
+7. checkpoints: ``checkpoint_resume`` trains resnet18 at ``train_ddp``'s
+   settings for 3 epochs through the launcher, straight through and again
+   under ``--max-restarts 1 --resume auto --overwrite keep`` with
+   ``CRASH_WRAPPER``, whose attempt 0 dies after the first epoch's save:
+   the launcher restarts once, attempt 1 resumes, B1–B4 launch 9/8/9/8
+   times a step in both attempts and the two final checkpoints hold the
+   same parameters, BN statistics and momentum bit for bit.
+   ``checkpoint_vit`` trains ViT-B/16 (batch 128, AdamW,
+   ``--model-ema-decay 0.999``) 2 epochs straight against 1 epoch and a
+   ``--resume`` for the second: params, moments, EMA and step bit-equal,
+   12/12/12 launches a step; each save and restore is timed beside the
+   host RSS it adds. ``serve_checkpoint`` serves ViT-B/16 (the EMA
+   weights, 12 flash launches a bucket call) and resnet18 from those runs'
+   dirs; the served logits equal an eval forward of the model rebuilt
+   from the file. Where a straight and a resumed run are not bit-equal,
+   a second straight run measures the run-to-run spread and the resumed
+   run is held within 3x of it;
+8. one ``{"kernels": [...]}`` line;
+9. last, ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, without a CUDA card or without the
 rest of the repository. ``python3 chip_smoke.py --mutations`` runs only
@@ -80,6 +97,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import hashlib
 import io
 import json
 import math
@@ -90,6 +108,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -97,11 +116,13 @@ import torch
 import torch.nn.functional as F
 
 from tpudist_torch import __main__ as train_cli
+from tpudist_torch import checkpoint as ckpt_lib
 from tpudist_torch import config as config_lib
 from tpudist_torch import dist as dist_lib
 from tpudist_torch import launch as launch_lib
 from tpudist_torch import telemetry as telemetry_lib
 from tpudist_torch import train as train_lib
+from tpudist_torch.compat.jax_params import state_dict_from_jax
 from tpudist_torch.models import create_model
 from tpudist_torch.ops import _build
 from tpudist_torch.ops import flash_attention as fa
@@ -197,6 +218,34 @@ VIT_CMP_B = 32
 VIT_CMP_LR = 1e-3
 VIT_LOSS_TOL = {"bfloat16": 1.5e-3, "float32": 2e-7}
 VIT_STATE_TOL = {"bfloat16": 0.06, "float32": 0.03}
+
+# The command checkpoint_resume's interrupted run launches, written to a
+# file: the trainer under runpy, whose attempt 0 prints its optimizer step
+# and kernel launches and dies (exit 17) as soon as the first epoch's
+# history copy and its sidecar are on disk.
+CRASH_WRAPPER = r"""
+import json, os, runpy, sys
+sys.path.insert(0, os.getcwd())
+from tpudist_torch import checkpoint
+from tpudist_torch.ops import flash_attention, fused_norm
+
+if os.environ.get("TPUDIST_RESTART_COUNT", "0") == "0":
+    save = checkpoint.save_checkpoint
+
+    def save_then_crash(state, is_best, outpath, keep=0):
+        path = save(state, is_best, outpath, keep)
+        hist = os.path.join(outpath, "checkpoint-ep00001.msgpack")
+        if os.path.exists(hist) and os.path.exists(hist + ".sha256"):
+            print("CRASH " + json.dumps({
+                "step": int(state["state"]["step"]),
+                "launches": {**fused_norm.LAUNCHES,
+                             **flash_attention.LAUNCHES}}), flush=True)
+            os._exit(17)
+        return path
+
+    checkpoint.save_checkpoint = save_then_crash
+runpy.run_module("tpudist_torch", run_name="__main__", alter_sys=True)
+"""
 
 
 def emit(obj: dict) -> None:
@@ -798,6 +847,7 @@ def phase_train() -> dict:
         raise RuntimeError(f"train losses {train_l}, val losses {val_l}")
     steady = [e["step_s"] for e in steps[1:]]
     end = events[-1]
+    shutil.rmtree(os.path.dirname(outdir), ignore_errors=True)
     out = {"phase": "train", "arch": "resnet18", "image_size": TRAIN_PX,
            "batch": TRAIN_B, "dtype": "bfloat16", "wall_s": wall_s,
            "train_steps": n, "fused_norm_launches": launches,
@@ -812,7 +862,8 @@ def phase_train() -> dict:
                e["compute_s"] for e in steps[1:]),
            "run_end": {k: end[k] for k in ("wall_s", "productive_s",
                                            "goodput", "compile_s",
-                                           "data_wait_s", "eval_s")}}
+                                           "data_wait_s", "eval_s",
+                                           "checkpoint_s")}}
     emit(out)
     return out
 
@@ -1021,16 +1072,22 @@ DDP_LINE = ("=> data-parallel: world 1, backend nccl, DDP (buffers averaged "
             "after the step)")
 
 
-def _launch_trainer(args: list[str], what: str, timeout: float = 300.0):
-    """``python -m tpudist_torch.launch -n 1 -- python -m tpudist_torch
-    --distributed ARGS --telemetry``: its output (printed) and a summary
-    of its rank-0 events (each validated). The wrappers' launch counters
-    start at 0 in the rank's process; the trainer reports them in
-    ``run_end``."""
-    outdir = os.path.join(tempfile.mkdtemp(prefix="tpudist_torch_ddp_"),
-                          "run")
-    cmd = [sys.executable, "-m", "tpudist_torch.launch", "-n", "1", "--",
-           sys.executable, "-m", "tpudist_torch", "--distributed", *args,
+def _launch_trainer(args: list[str], what: str, timeout: float = 300.0, *,
+                    outdir: str | None = None, trainer: list | None = None,
+                    launch_args: tuple = ()):
+    """``python -m tpudist_torch.launch -n 1 [LAUNCH_ARGS] -- python -m
+    tpudist_torch --distributed ARGS --telemetry``: its output (printed), a
+    summary of its rank-0 events (each validated) and the events. The
+    wrappers' launch counters start at 0 in the rank's process; the trainer
+    reports them in ``run_end``. ``trainer`` replaces ``-m tpudist_torch``
+    (a script); the run dir is removed after unless ``outdir`` is given."""
+    own = outdir is None
+    if own:
+        outdir = os.path.join(tempfile.mkdtemp(prefix="tpudist_torch_ddp_"),
+                              "run")
+    cmd = [sys.executable, "-m", "tpudist_torch.launch", "-n", "1",
+           *launch_args, "--", sys.executable,
+           *(trainer or ["-m", "tpudist_torch"]), "--distributed", *args,
            "--telemetry", "--seed", "0", "--outpath", outdir]
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(
@@ -1067,6 +1124,8 @@ def _launch_trainer(args: list[str], what: str, timeout: float = 300.0):
     if not train_l or not all(np.isfinite(train_l + val_l)):
         raise RuntimeError(f"{what}: losses {train_l}, {val_l}")
     steps = [e for e in events if e["type"] == "step"]
+    if own:
+        shutil.rmtree(os.path.dirname(outdir), ignore_errors=True)
     return text, {
         "wall_s": wall_s, "train_steps": len(steps), "train_loss": train_l,
         "val_loss": val_l, "launches": end["kernel_launches"],
@@ -1074,8 +1133,11 @@ def _launch_trainer(args: list[str], what: str, timeout: float = 300.0):
         "backend": start["backend"],
         "host_step_s_p50": (statistics.median(e["step_s"] for e in steps[1:])
                             if len(steps) > 1 else None),
-        "run_end": {k: end[k] for k in ("wall_s", "productive_s", "goodput",
-                                        "init_s", "compile_s", "eval_s")}}
+        "launcher_lines": [ln for ln in err.splitlines()
+                           if ln.startswith("[tpudist_torch.launch]")],
+        "run_end": {k: end[k] for k in (
+            "wall_s", "productive_s", "goodput", "init_s", "compile_s",
+            "eval_s", "checkpoint_s")}}, events
 
 
 def phase_train_ddp() -> dict:
@@ -1083,7 +1145,7 @@ def phase_train_ddp() -> dict:
     at 224 px, 1000 classes, global batch 256, bf16, --fused-bn on, two
     epochs of 8 steps, world 1 over NCCL; every train step launches the
     fused-norm kernels 9/8/9/8 times and validation none."""
-    text, row = _launch_trainer(
+    text, row, _ = _launch_trainer(
         ["-a", "resnet18", "--use_amp", "--fused-bn", "on", "-b",
          str(TRAIN_B), "--synthetic", "--image-size", str(TRAIN_PX),
          "--num-classes", "1000", "--epochs", "2", "--synthetic-size",
@@ -1110,7 +1172,7 @@ def phase_train_syncbn_ddp() -> dict:
     """``--sync_batchnorm`` at world 1, two steps: the statistics go
     through the all-reduce and the epilogue is the plain one, as tpudist's
     (0 fused-norm launches)."""
-    text, row = _launch_trainer(
+    text, row, _ = _launch_trainer(
         ["-a", "resnet18", "--use_amp", "--fused-bn", "on",
          "--sync_batchnorm", "-b", str(TRAIN_B), "--synthetic",
          "--image-size", str(TRAIN_PX), "--num-classes", "1000",
@@ -1134,12 +1196,12 @@ def phase_train_vit_ddp() -> dict:
     """ViT-B/16 at 224 px, batch 128, bf16, --flash on, AdamW under DDP at
     world 1, two steps and one validation batch: 12 of each flash kernel
     a train step and 12 forwards a validation batch."""
-    text, row = _launch_trainer(
+    text, row, _ = _launch_trainer(
         ["-a", "vit_b_16", "--use_amp", "--flash", "on", "--optimizer",
          "adamw", "--lr", "1e-3", "--weight-decay", "0.05", "-b",
          str(VIT_B), "--synthetic", "--image-size", "224", "--num-classes",
          "1000", "--epochs", "1", "--synthetic-size", str(2 * VIT_B), "-p",
-         "1"], "the DDP ViT-B/16 run")
+         "1", "--keep-checkpoints", "0"], "the DDP ViT-B/16 run")
     n, val = row["train_steps"], 1
     want = {"flash_fwd": LAYERS * (n + val), "flash_bwd_dq": LAYERS * n,
             "flash_bwd_dkv": LAYERS * n}
@@ -1205,6 +1267,456 @@ def phase_ddp_vs_plain() -> dict:
         out["breakdown"] = phase_train_breakdown(ddp=True)
     finally:
         dist_lib.shutdown()
+    return out
+
+
+# -- phase 7: checkpoints, resume and serving from a checkpoint ---------------
+
+CKPT_R18_ARGS = ["-a", "resnet18", "--use_amp", "--fused-bn", "on", "-b",
+                 str(TRAIN_B), "--synthetic", "--image-size", str(TRAIN_PX),
+                 "--num-classes", "1000", "--epochs", "3", "--synthetic-size",
+                 "2048", "--step", "1", "-p", "4"]
+CKPT_VIT_ARGS = ["--synthetic", "-a", "vit_b_16", "--image-size", "224",
+                 "--num-classes", "1000", "-b", str(VIT_B), "--use_amp",
+                 "--flash", "on", "--optimizer", "adamw", "--lr", "1e-3",
+                 "--weight-decay", "0.05", "--model-ema-decay", "0.999",
+                 "--telemetry", "--seed", "0", "--synthetic-size",
+                 str(VIT_SYNTHETIC), "--step", "1", "-p", "4",
+                 "--keep-checkpoints", "0"]
+R18_PER_STEP = {"bn_act_fwd": 9, "bn_act_fwd_res": 8, "bn_act_bwd": 9,
+                "bn_act_bwd_res": 8}
+RESUMED_RE = re.compile(r"=> resumed from '([^']*)' \(epoch (\d+), "
+                        r"best_acc1 ")
+
+
+def _rss_bytes() -> int:
+    with open("/proc/self/status") as f:
+        for ln in f:
+            if ln.startswith("VmRSS:"):
+                return int(ln.split()[1]) * 1024
+    return 0
+
+
+@contextlib.contextmanager
+def _rss_of_checkpoint_io():
+    """While active, each ``save_checkpoint``,
+    ``load_checkpoint_with_fallback`` and ``restore`` (onto the model,
+    optimizer and EMA) of this process records its seconds, the host RSS
+    before it and the peak RSS above that during it (polled every 5 ms)."""
+    records = []
+    originals = {n: getattr(ckpt_lib, n) for n in
+                 ("save_checkpoint", "load_checkpoint_with_fallback",
+                  "restore")}
+
+    def watched(name, fn_):
+        def call(*a, **k):
+            base = _rss_bytes()
+            peak, stop = [base], threading.Event()
+
+            def poll():
+                while not stop.wait(0.005):
+                    peak[0] = max(peak[0], _rss_bytes())
+            t = threading.Thread(target=poll, daemon=True)
+            t.start()
+            t0 = time.perf_counter()
+            try:
+                return fn_(*a, **k)
+            finally:
+                seconds = time.perf_counter() - t0
+                stop.set()
+                t.join()
+                records.append({
+                    "fn": name, "seconds": seconds,
+                    "rss_before_gb": base / 1e9,
+                    "rss_peak_above_before_gb":
+                        (max(peak[0], _rss_bytes()) - base) / 1e9})
+        return call
+
+    for name, fn_ in originals.items():
+        setattr(ckpt_lib, name, watched(name, fn_))
+    try:
+        yield records
+    finally:
+        for name, fn_ in originals.items():
+            setattr(ckpt_lib, name, fn_)
+
+
+def _host_io_rates(root: str, mb: int = 512) -> dict:
+    """MB/s of what a checkpoint's save and restore are made of, on this
+    host: sha256, a write of ``mb`` MB to ``root`` and its read back (the
+    page cache, as a save and the restore after it see it), and a pageable
+    copy of ``mb`` MB from the card to the host and back."""
+    data = np.random.default_rng(0).integers(0, 255, mb << 20, np.uint8)
+    path = os.path.join(root, "io_probe.bin")
+    out = {}
+    t0 = time.perf_counter()
+    hashlib.sha256(memoryview(data)).hexdigest()
+    out["sha256_mb_s"] = mb / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    with open(path, "wb") as f:
+        f.write(memoryview(data))
+    out["write_mb_s"] = mb / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    with open(path, "rb") as f:
+        f.read()
+    out["read_mb_s"] = mb / (time.perf_counter() - t0)
+    os.remove(path)
+    dev = torch.from_numpy(data).cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev.cpu()
+    out["d2h_pageable_mb_s"] = mb / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    torch.from_numpy(data).cuda()
+    torch.cuda.synchronize()
+    out["h2d_pageable_mb_s"] = mb / (time.perf_counter() - t0)
+    return out
+
+
+def _leaves_of(node, path=""):
+    if isinstance(node, dict):
+        for k, v in node.items():
+            yield from _leaves_of(v, f"{path}/{k}")
+    elif isinstance(node, torch.Tensor):
+        yield path, node.view(torch.int16).numpy()      # bfloat16 bits
+    elif isinstance(node, (np.ndarray, np.generic)):
+        yield path, np.asarray(node)
+
+
+def _compare_parts(ta: dict, tb: dict, parts: dict) -> dict:
+    """Per part of two checkpoint trees (``parts``: name → path of keys):
+    bit-equal or not, and the largest absolute difference of a leaf."""
+    out = {}
+    for name, keys in parts.items():
+        a, b = ta, tb
+        for k in keys:
+            a, b = a[k], b[k]
+        la, lb = dict(_leaves_of(a)), dict(_leaves_of(b))
+        if set(la) != set(lb) or not la:
+            raise RuntimeError(f"checkpoint part {name}: leaves differ "
+                               f"({len(la)} vs {len(lb)})")
+        equal, diff = True, 0.0
+        for k, x in la.items():
+            y = lb[k]
+            if x.shape != y.shape or x.dtype != y.dtype:
+                raise RuntimeError(f"{name}{k}: {x.shape} {x.dtype} vs "
+                                   f"{y.shape} {y.dtype}")
+            equal = equal and x.tobytes() == y.tobytes()
+            if x.size:
+                diff = max(diff, float(np.abs(x.astype(np.float64)
+                                              - y.astype(np.float64)).max()))
+        out[name] = {"bit_equal": equal, "max_abs_diff": diff,
+                     "leaves": len(la)}
+    return out
+
+
+def _resumed_vs_straight(ta: dict, tb: dict, parts: dict, rerun) -> dict:
+    """The final trees of a straight and a resumed run must be bit-equal.
+    If they are not, ``rerun()`` gives a second straight run's tree: when
+    two straight runs differ too (a nondeterministic op), the resumed run
+    is held within 3x that run-to-run spread, part by part."""
+    cmp = _compare_parts(ta, tb, parts)
+    out = {"resumed_vs_straight": cmp,
+           "bit_equal": all(c["bit_equal"] for c in cmp.values())}
+    if out["bit_equal"]:
+        return out
+    spread = _compare_parts(ta, rerun(), parts)
+    bound = {k: 3 * v["max_abs_diff"] for k, v in spread.items()}
+    out.update(straight_vs_straight=spread, bound=bound)
+    bad = {k: c for k, c in cmp.items() if not c["bit_equal"]
+           and not c["max_abs_diff"] <= bound[k]}
+    if bad:
+        raise RuntimeError(f"resumed and straight runs differ beyond 3x the "
+                           f"run-to-run spread: {bad}; spread {spread}")
+    return out
+
+
+def _checkpoint_numbers(events: list, path: str) -> dict:
+    saves = [e for e in events if e["type"] == "checkpoint_save"]
+    restores = [e for e in events if e["type"] == "checkpoint_restore"]
+    size = os.path.getsize(path)
+    return {"file_bytes": size,
+            "save_s": [e["seconds"] for e in saves],
+            "restore_s": [e["seconds"] for e in restores],
+            "save_mb_per_s": [size / 1e6 / e["seconds"] for e in saves],
+            "restore_mb_per_s": [size / 1e6 / e["seconds"]
+                                 for e in restores]}
+
+
+def phase_checkpoint_resume(root: str, card: dict) -> dict:
+    """resnet18 at train_ddp's settings for 3 epochs through the launcher:
+    run A straight through; run B with ``--max-restarts 1 --resume auto
+    --overwrite keep`` under CRASH_WRAPPER, whose attempt 0 dies after the
+    first epoch's save. The launcher must restart it once, attempt 1 must
+    resume at epoch 1 or later, B1–B4 must launch 9/8/9/8 times a step in
+    both attempts, and A's and B's final checkpoints must hold the same
+    parameters, BN statistics and momentum, read back with the port's
+    reader."""
+    run_a, run_b = os.path.join(root, "r18_a"), os.path.join(root, "r18_b")
+    _, row_a, ev_a = _launch_trainer(CKPT_R18_ARGS, "the straight resnet18 "
+                                     "run", outdir=run_a)
+    wrapper = os.path.join(root, "crash_after_epoch_1.py")
+    with open(wrapper, "w") as f:
+        f.write(CRASH_WRAPPER)
+    text_b, row_b, ev_b = _launch_trainer(
+        CKPT_R18_ARGS + ["--resume", "auto", "--overwrite", "keep"],
+        "the interrupted resnet18 run", outdir=run_b, trainer=[wrapper],
+        launch_args=("--max-restarts", "1"))
+    crash = json.loads(next(ln for ln in text_b.splitlines()
+                            if ln.startswith("CRASH ")).split(" ", 1)[1])
+    resumed = RESUMED_RE.search(text_b)
+    steps_a = sum(e["type"] == "step" for e in ev_a)
+    steps_b1 = sum(e["type"] == "step" and e["attempt"] == 1 for e in ev_b)
+    want = {"a": {k: v * steps_a for k, v in R18_PER_STEP.items()},
+            "b0": {k: v * crash["step"] for k, v in R18_PER_STEP.items()},
+            "b1": {k: v * steps_b1 for k, v in R18_PER_STEP.items()}}
+    got = {"a": {k: row_a["launches"][k] for k in fn.KERNELS},
+           "b0": {k: crash["launches"][k] for k in fn.KERNELS},
+           "b1": {k: row_b["launches"][k] for k in fn.KERNELS}}
+    if not any("restart 1/1" in ln for ln in row_b["launcher_lines"]) \
+            or resumed is None or int(resumed.group(2)) < 1 \
+            or steps_a != 24 or crash["step"] != 8 or steps_b1 != 16 \
+            or got != want:
+        raise RuntimeError(
+            f"checkpoint_resume: launcher {row_b['launcher_lines']}, resumed "
+            f"{resumed and resumed.group(0)}, steps A {steps_a}, B attempt 0 "
+            f"{crash['step']}, attempt 1 {steps_b1}; launches {got}, want "
+            f"{want}")
+    parts = {"params": ("state", "params"),
+             "batch_stats": ("state", "batch_stats"),
+             "momentum": ("state", "opt_state", "inner_state", "1", "trace"),
+             "step": ("state", "step")}
+    tree_a, tree_b = (ckpt_lib.load_checkpoint(d) for d in (run_a, run_b))
+
+    def rerun():
+        again = os.path.join(root, "r18_a2")
+        _launch_trainer(CKPT_R18_ARGS, "the second straight resnet18 run",
+                        outdir=again)
+        tree = ckpt_lib.load_checkpoint(again)
+        shutil.rmtree(again, ignore_errors=True)
+        return tree
+    held = _resumed_vs_straight(tree_a, tree_b, parts, rerun)
+    live = os.path.join(run_a, ckpt_lib.CKPT_NAME)
+    out = {"phase": "checkpoint_resume", "arch": "resnet18",
+           "batch": TRAIN_B, "dtype": "bfloat16", "epochs": 3,
+           "card": card["nvidia_smi"],
+           "files_equal": open(live + ".sha256").read().split()[0]
+           == open(os.path.join(run_b, ckpt_lib.CKPT_NAME)
+                   + ".sha256").read().split()[0],
+           **held, "resumed_line": resumed.group(0),
+           "launcher_lines": row_b["launcher_lines"],
+           "fused_norm_launches": got,
+           "steps": {"a": steps_a, "b_attempt0": crash["step"],
+                     "b_attempt1": steps_b1},
+           "a": {**_checkpoint_numbers(ev_a, live),
+                 "run_end": row_a["run_end"], "wall_s": row_a["wall_s"]},
+           "b": {**_checkpoint_numbers(ev_b, os.path.join(
+               run_b, ckpt_lib.CKPT_NAME)),
+                 "run_end": row_b["run_end"], "wall_s": row_b["wall_s"]},
+           "run_dir": run_a}
+    emit(out)
+    return out
+
+
+def _train_in_process(argv: list, what: str, val_batches: int):
+    """``python -m tpudist_torch ARGV`` in this process: its output
+    (printed), this run's events (validated) and the flash launches, which
+    must be 12 of each kernel a train step and 12 forwards a validation
+    batch."""
+    outdir = argv[argv.index("--outpath") + 1]
+    path = telemetry_lib.events_path(outdir, 0)
+    skip = 0
+    if os.path.exists(path):
+        with open(path) as f:
+            skip = sum(1 for _ in f)
+    fa.reset_counts()
+    fn.reset_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = train_cli.main(argv)
+    wall_s = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    if rc != 0 or not text.splitlines()[-1].startswith("best_acc1="):
+        raise RuntimeError(f"{what} exited {rc}")
+    with open(path) as f:
+        events = [json.loads(ln) for ln in f][skip:]
+    for ev in events:
+        telemetry_lib.validate_event(ev)
+    n = sum(e["type"] == "step" for e in events)
+    want = {"flash_fwd": LAYERS * (n + val_batches),
+            "flash_bwd_dq": LAYERS * n, "flash_bwd_dkv": LAYERS * n}
+    if launches != want or any(fn.LAUNCHES.values()):
+        raise RuntimeError(f"{what}: flash launches {launches} for {n} "
+                           f"steps and {val_batches} validation batches; "
+                           f"want {want}")
+    return text, events, launches, wall_s
+
+
+def phase_checkpoint_vit(root: str, card: dict) -> dict:
+    """ViT-B/16 at 224 px, batch 128, bf16, --flash on, AdamW,
+    --model-ema-decay 0.999, 1024 images, --keep-checkpoints 0: two epochs
+    straight through against one epoch and a --resume for the second. The
+    final params, AdamW moments, EMA and step must be bit-equal (or within
+    3x the run-to-run spread). Each save and restore is timed, with the
+    host RSS it adds."""
+    straight = os.path.join(root, "vit_straight")
+    resumed = os.path.join(root, "vit_resumed")
+    val = math.ceil(VIT_SYNTHETIC // 2 / VIT_B)
+    runs = {}
+    host_rates = _host_io_rates(root)
+    with _rss_of_checkpoint_io() as io_records:
+        for name, out, epochs, extra, val_batches in (
+                ("straight", straight, "2", [], 2 * val),
+                ("first_epoch", resumed, "1", [], val),
+                ("resumed", resumed, "2",
+                 ["--resume", "auto", "--overwrite", "keep"], val)):
+            text, events, launches, wall_s = _train_in_process(
+                CKPT_VIT_ARGS + ["--epochs", epochs, "--outpath", out]
+                + extra, f"the ViT-B/16 {name} run", val_batches)
+            live = os.path.join(out, ckpt_lib.CKPT_NAME)
+            runs[name] = {"wall_s": wall_s, "flash_launches": launches,
+                          "train_steps": sum(e["type"] == "step"
+                                             for e in events),
+                          **_checkpoint_numbers(events, live),
+                          "run_end": {k: events[-1][k] for k in (
+                              "wall_s", "productive_s", "goodput",
+                              "compile_s", "eval_s", "checkpoint_s")},
+                          "io": list(io_records)}
+            io_records.clear()
+            if name == "straight":
+                tree_s = ckpt_lib.load_checkpoint(straight)
+                shutil.rmtree(straight, ignore_errors=True)
+            if name == "resumed":
+                resumed_line = RESUMED_RE.search(text)
+    if resumed_line is None or int(resumed_line.group(2)) != 1 \
+            or "=> checkpoint has no EMA copy" in text:
+        raise RuntimeError(f"the resumed ViT run did not resume the EMA "
+                           f"checkpoint of epoch 1: "
+                           f"{resumed_line and resumed_line.group(0)}")
+    parts = {"params": ("state", "params"),
+             "mu": ("state", "opt_state", "inner_state", "0", "mu"),
+             "nu": ("state", "opt_state", "inner_state", "0", "nu"),
+             "ema": ("state", "ema_params", "params"),
+             "step": ("state", "step"),
+             "adam_count": ("state", "opt_state", "inner_state", "0",
+                            "count")}
+    tree_r = ckpt_lib.load_checkpoint(resumed)
+
+    def rerun():
+        again = os.path.join(root, "vit_straight2")
+        _train_in_process(CKPT_VIT_ARGS + ["--epochs", "2", "--outpath",
+                                           again],
+                          "the second straight ViT-B/16 run", 2 * val)
+        tree = ckpt_lib.load_checkpoint(again)
+        shutil.rmtree(again, ignore_errors=True)
+        return tree
+    held = _resumed_vs_straight(tree_s, tree_r, parts, rerun)
+    del tree_s, tree_r
+    out = {"phase": "checkpoint_vit", "arch": "vit_b_16", "batch": VIT_B,
+           "dtype": "bfloat16", "optimizer": "adamw", "ema_decay": 0.999,
+           "card": card["nvidia_smi"], **held,
+           "resumed_line": resumed_line.group(0), "runs": runs,
+           "host_io_mb_s": host_rates,
+           "launches_per_train_step": {k: LAYERS for k in fa.KERNELS},
+           "run_dir": resumed}
+    emit(out)
+    return out
+
+
+def _rebuilt_logits(tree: dict, arch: str, images: np.ndarray,
+                    ema: bool) -> np.ndarray:
+    """An eval forward, in bf16 on the card, of ``arch`` holding a
+    checkpoint tree's EMA (or live) weights, rebuilt without the serving
+    code."""
+    state = tree["state"]
+    v = state["ema_params"] if ema else state
+    kw = dict(image_size=224, flash=True) if arch.startswith("vit") else {}
+    model = create_model(arch, dtype=torch.bfloat16, **kw)
+    model.load_state_dict(state_dict_from_jax(arch, v["params"],
+                                              v["batch_stats"]))
+    model.cuda().eval()
+    with torch.inference_mode():
+        return model(torch.from_numpy(images).cuda()).float().cpu().numpy()
+
+
+def _serve_run(argv: list, what: str):
+    outdir = tempfile.mkdtemp(prefix="tpudist_torch_serve_ckpt_")
+    fa.reset_counts()
+    fn.reset_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_cli.main(argv + ["--telemetry", "--outpath", outdir])
+    launches = {**fa.LAUNCHES, **fn.LAUNCHES}
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    summary = json.loads(next(ln for ln in text.splitlines()
+                              if ln.startswith("SERVE_SUMMARY "))
+                         .split(" ", 1)[1])
+    with open(telemetry_lib.events_path(outdir, 0)) as f:
+        events = [json.loads(ln) for ln in f]
+    shutil.rmtree(outdir, ignore_errors=True)
+    for ev in events:
+        telemetry_lib.validate_event(ev)
+    if rc != 0 or summary.get("n_errors", 1) != 0 \
+            or not summary.get("n_requests"):
+        raise RuntimeError(f"{what}: exit {rc}, {summary}")
+    calls = sum(e["type"] in ("serve_batch", "compile") for e in events)
+    return text, summary, launches, calls
+
+
+def phase_serve_checkpoint(vit_dir: str, r18_dir: str, card: dict) -> dict:
+    """``python -m tpudist_torch.serve --checkpoint``: ViT-B/16 from the
+    checkpoint_vit run (the log must say the EMA weights are served; the
+    flash forward launches 12 times a bucket call) and resnet18 from
+    checkpoint_resume's run A (no kernel in eval). The served logits of a
+    fixed batch must equal, within the serve bound, an eval forward of
+    the model rebuilt from the same file (the EMA weights for the ViT),
+    and differ from the ViT's live weights' by more."""
+    rng = np.random.default_rng(0)
+    images = rng.standard_normal((8, 224, 224, 3)).astype(np.float32)
+    out = {"phase": "serve_checkpoint", "card": card["nvidia_smi"]}
+    for arch, run_dir, buckets in (("vit_b_16", vit_dir, BUCKETS),
+                                   ("resnet18", r18_dir, (1, 8))):
+        text, summary, launches, calls = _serve_run(
+            ["-a", arch, "--image-size", "224", "--buckets",
+             ",".join(map(str, buckets)), "--flash", "on", "--checkpoint",
+             run_dir, "--load-rate", "20", "--load-duration", "3",
+             "--seed", "0"], f"serving {arch} from its checkpoint")
+        vit = arch.startswith("vit")
+        ema_line = "=> serving the EMA weights" in text
+        want = {k: 0 for k in launches}
+        if vit:
+            want["flash_fwd"] = LAYERS * calls
+        if launches != want or ema_line != vit:
+            raise RuntimeError(f"serving {arch} from {run_dir}: launches "
+                               f"{launches} for {calls} bucket calls (want "
+                               f"{want}), EMA line {ema_line}")
+        model = load_serve_state(arch, run_dir, flash="on")
+        served = ServeEngine(model, image_size=224, buckets=(8,)).infer(
+            images)
+        del model
+        tree = ckpt_lib.load_checkpoint(run_dir)
+        want_l = _rebuilt_logits(tree, arch, images, ema=vit)
+        scale = max(1.0, float(np.abs(want_l).max()))
+        diff = float(np.abs(served - want_l).max())
+        row = {"summary": summary, "launches": launches,
+               "bucket_calls": calls, "ema_served": ema_line,
+               "logits_vs_rebuilt_max_abs": diff,
+               "logits_tol": LOGITS_TOL * scale}
+        if vit:
+            live = _rebuilt_logits(tree, arch, images, ema=False)
+            row["logits_vs_live_weights_max_abs"] = float(
+                np.abs(served - live).max())
+        del tree
+        if not np.isfinite(served).all() or served.shape != (8, 1000) \
+                or not diff <= LOGITS_TOL * scale or (
+                    vit and not row["logits_vs_live_weights_max_abs"] > diff):
+            raise RuntimeError(f"serving {arch} from its checkpoint: {row}")
+        out[arch] = row
+    emit(out)
     return out
 
 
@@ -1350,7 +1862,7 @@ def phase_train_vit() -> dict:
             "--use_amp", "--flash", "on", "--optimizer", "adamw", "--lr",
             "1e-3", "--weight-decay", "0.05", "--telemetry", "--seed", "0",
             "--synthetic-size", str(VIT_SYNTHETIC), "--step", "1", "-p", "4",
-            "--outpath", outdir]
+            "--keep-checkpoints", "0", "--outpath", outdir]
     buf = io.StringIO()
     fa.reset_counts()
     fn.reset_counts()
@@ -1391,6 +1903,7 @@ def phase_train_vit() -> dict:
             np.isfinite(train_l + val_l)):
         raise RuntimeError(f"train losses {train_l}, val losses {val_l}")
     end = events[-1]
+    shutil.rmtree(os.path.dirname(outdir), ignore_errors=True)
     out = {"phase": "train_vit", "arch": "vit_b_16", "image_size": 224,
            "batch": VIT_B, "dtype": "bfloat16", "optimizer": "adamw",
            "wall_s": wall_s, "train_steps": n, "val_batches": val_batches,
@@ -1407,7 +1920,8 @@ def phase_train_vit() -> dict:
                e["compute_s"] for e in steps[1:]),
            "run_end": {k: end[k] for k in ("wall_s", "productive_s",
                                            "goodput", "compile_s",
-                                           "data_wait_s", "eval_s")}}
+                                           "data_wait_s", "eval_s",
+                                           "checkpoint_s")}}
     emit(out)
     return out
 
@@ -1649,7 +2163,25 @@ def phase_vit_train_step_breakdown() -> dict:
     return out
 
 
-def _bwd_kernel_entries(bwd: dict, vit: dict, ddp: dict,
+def _checkpoint_launches(ck: dict, name: str) -> dict:
+    """A kernel's launches on each checkpoint path (counted from 0 just
+    before each run)."""
+    out = {}
+    r18 = ck["checkpoint_resume"]["fused_norm_launches"]
+    if name in r18["a"]:
+        out.update({"checkpoint_resume_a": r18["a"][name],
+                    "checkpoint_resume_b_attempt0": r18["b0"][name],
+                    "checkpoint_resume_b_attempt1": r18["b1"][name]})
+    for run, row in ck["checkpoint_vit"]["runs"].items():
+        if name in row["flash_launches"]:
+            out[f"checkpoint_vit_{run}"] = row["flash_launches"][name]
+    served = ck["serve_checkpoint"]["vit_b_16"]["launches"]
+    if name == "flash_fwd":
+        out["serve_checkpoint"] = served[name]
+    return out
+
+
+def _bwd_kernel_entries(bwd: dict, vit: dict, ddp: dict, ck: dict,
                         card: dict) -> list:
     """The dQ and dKV entries of the kernels line: the main row is ViT-B/16's
     training shape; ``step_ms`` is the kernel's time over one train step's
@@ -1670,7 +2202,8 @@ def _bwd_kernel_entries(bwd: dict, vit: dict, ddp: dict,
             "launches": vit["flash_launches"][name],
             "launches_by_path": {
                 "train_vit": vit["flash_launches"][name],
-                "train_vit_ddp": ddp["train_vit_ddp"]["launches"][name]},
+                "train_vit_ddp": ddp["train_vit_ddp"]["launches"][name],
+                **_checkpoint_launches(ck, name)},
             "max_abs_err": max(c[name]["max_abs_err"] for c in bwd["cases"]),
             "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"],
             "plain_ms": main["plain_ms"], "bound_ms": r["bound_ms"],
@@ -1698,7 +2231,7 @@ def _mma_ptxas(card: dict, library: str) -> dict:
             if "_mma<" in k}
 
 
-def _norm_kernel_entries(norm: dict, train: dict, ddp: dict,
+def _norm_kernel_entries(norm: dict, train: dict, ddp: dict, ck: dict,
                          card: dict) -> list:
     """The four fused-norm entries of the kernels line: the main row is
     the largest main-path shape of each kernel (the stem for the plain
@@ -1734,7 +2267,8 @@ def _norm_kernel_entries(norm: dict, train: dict, ddp: dict,
             "launches_by_path": {
                 "train": train["fused_norm_launches"][name],
                 "train_ddp": ddp["train_ddp"]["launches"][name],
-                "train_syncbn_ddp": ddp["train_syncbn_ddp"]["launches"][name]},
+                "train_syncbn_ddp": ddp["train_syncbn_ddp"]["launches"][name],
+                **_checkpoint_launches(ck, name)},
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main["kernel_ms"], "kernel_ms": main["kernel_ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
@@ -1781,6 +2315,15 @@ def main(argv=None) -> int:
            "train_syncbn_ddp": phase_train_syncbn_ddp(),
            "train_vit_ddp": phase_train_vit_ddp()}
     phase_ddp_vs_plain()
+    root = tempfile.mkdtemp(prefix="tpudist_torch_ckpt_")
+    try:
+        ck = {"checkpoint_resume": phase_checkpoint_resume(root, card),
+              "checkpoint_vit": phase_checkpoint_vit(root, card)}
+        ck["serve_checkpoint"] = phase_serve_checkpoint(
+            ck["checkpoint_vit"]["run_dir"],
+            ck["checkpoint_resume"]["run_dir"], card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
     fwd_rows = [r for r in kern["cases"] if r["case"].startswith(
         ("serve_", "train_"))]
@@ -1795,7 +2338,8 @@ def main(argv=None) -> int:
         "launches_by_path": {
             "serve": serve["flash_launches"],
             "train_vit": vit["flash_launches"]["flash_fwd"],
-            "train_vit_ddp": ddp["train_vit_ddp"]["launches"]["flash_fwd"]},
+            "train_vit_ddp": ddp["train_vit_ddp"]["launches"]["flash_fwd"],
+            **_checkpoint_launches(ck, "flash_fwd")},
         "max_abs_err": max(r["o_max_abs_err"] for r in kern["cases"]),
         "ms": main_row["kernel_ms"], "kernel_ms": main_row["kernel_ms"],
         "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
@@ -1808,8 +2352,9 @@ def main(argv=None) -> int:
         "o_not_bit_equal_share": {r["case"]: r["o_not_bit_equal_share"]
                                   for r in kern["cases"]},
         "ptxas": _mma_ptxas(card, "flash_fwd"),
-        "card": card["nvidia_smi"]}] + _bwd_kernel_entries(bwd, vit, ddp, card)
-        + _norm_kernel_entries(norm, train, ddp, card)})
+        "card": card["nvidia_smi"]}]
+        + _bwd_kernel_entries(bwd, vit, ddp, ck, card)
+        + _norm_kernel_entries(norm, train, ddp, ck, card)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

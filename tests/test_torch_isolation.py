@@ -1,8 +1,9 @@
 """The port stands alone and never falls back.
 
 - Every module of ``tpudist_torch`` and ``chip_smoke`` imports with
-  ``jax*``, ``flax*``, ``optax`` and ``tpudist``/``tpudist.*`` refused by an
-  import hook (``tpudist_torch`` itself stays importable).
+  ``jax*``, ``flax*``, ``optax``, ``msgpack`` (absent on the card) and
+  ``tpudist``/``tpudist.*`` refused by an import hook (``tpudist_torch``
+  itself stays importable), and a checkpoint round trip runs there.
 - Without a CUDA card, ``resolve_device()`` and the serve CLI without
   ``--device cpu`` fail loudly instead of running on the CPU.
 - ``flash_attention`` on a CPU tensor runs the plain version and counts no
@@ -30,7 +31,8 @@ import importlib, pkgutil, sys
 class Refuse:
     def find_spec(self, name, path=None, target=None):
         root = name.split(".")[0]
-        if root.startswith(("jax", "flax")) or root in ("optax", "tpudist"):
+        if root.startswith(("jax", "flax")) or root in ("optax", "tpudist",
+                                                        "msgpack"):
             raise ImportError(f"the port must not import {name}")
         return None
 
@@ -41,9 +43,16 @@ mods = [m.name for m in pkgutil.walk_packages(tpudist_torch.__path__,
 for name in mods:
     importlib.import_module(name)
 import chip_smoke
+import tempfile
+import numpy as np
+from tpudist_torch import checkpoint
+with tempfile.TemporaryDirectory() as d:
+    checkpoint.save_checkpoint({"epoch": 1, "w": np.ones(3, np.float32)},
+                               True, d, keep=1)
+    assert checkpoint.load_checkpoint(d)["w"].tolist() == [1.0, 1.0, 1.0]
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0].startswith(("jax", "flax"))
-                or m.split(".")[0] in ("optax", "tpudist"))
+                or m.split(".")[0] in ("optax", "tpudist", "msgpack"))
 assert not leaked, leaked
 print("IMPORTED", len(mods))
 """

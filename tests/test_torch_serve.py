@@ -6,10 +6,13 @@ stream makes exactly one warm-up ``compile`` event per bucket (all
 ``phase="serve_aot"``), and the events file validates under the port's
 schema and is read by tpudist's own ``summarize``. The CLI serves its
 default arch, tpudist's ``resnet18``, and a served resnet18 gives
-tpudist's logits for the same weights.
+tpudist's logits for the same weights, fresh or read from a checkpoint
+tpudist wrote (with an EMA copy, the EMA weights are served, as tpudist's
+export serves them).
 """
 
 import json
+import shutil
 
 import numpy as np
 import pytest
@@ -181,6 +184,68 @@ def test_served_resnet18_matches_tpudists_export():
     assert got.shape == want.shape == (4, 8)
     err = float(np.abs(got - want).max())
     assert err <= 1e-4 * (1 + float(np.abs(want).max())), err
+
+
+@pytest.mark.parametrize("ema", [False, True], ids=["live", "ema"])
+def test_served_checkpoint_matches_tpudists_export_of_the_file(tmp_path,
+                                                               ema):
+    """A checkpoint tpudist wrote (resnet18, 8 classes, running statistics
+    drawn away from 0 and 1; the EMA copy, when there is one, differs
+    from the live weights): the port serves the weights tpudist's export
+    takes from the same file, and f32 eval logits agree within the bound
+    of ``tests/test_torch_resnet.py``."""
+    jax = pytest.importorskip("jax")
+    jnp = pytest.importorskip("jax.numpy")
+    from tpudist import checkpoint as jax_ckpt
+    from tpudist.config import Config
+    from tpudist.models import create_model as jax_create
+    from tpudist.serve.export import load_serve_state as jax_load
+    from tpudist.train import create_train_state
+    from tpudist_torch.serve.export import load_serve_state
+    cfg = Config(arch="resnet18", num_classes=8, image_size=32,
+                 use_amp=False, model_ema_decay=0.9 if ema else 0.0)
+    state = jax.device_get(create_train_state(
+        jax.random.PRNGKey(0), jax_create("resnet18", num_classes=8), cfg,
+        input_shape=(1, 32, 32, 3)))
+    rng = np.random.default_rng(0)
+
+    def drawn(tree, scale):
+        return jax.tree_util.tree_map_with_path(
+            lambda path, v: (rng.uniform(0.5, 1.5, v.shape) if path[-1].key
+                             == "var" else scale * rng.standard_normal(
+                                 v.shape)).astype(np.float32), tree)
+    state = state.replace(batch_stats=drawn(state.batch_stats, 0.1))
+    if ema:
+        state = state.replace(ema_params={
+            "params": jax.tree_util.tree_map(lambda v: 0.5 * v,
+                                             state.params),
+            "batch_stats": drawn(state.batch_stats, 0.2)})
+    jax_ckpt.save_checkpoint(jax_ckpt.state_to_dict(
+        state, "resnet18", epoch=4, best_acc1=33.0), True, str(tmp_path))
+    logs, jax_logs = [], []
+    jm, variables = jax_load("resnet18", str(tmp_path), num_classes=8,
+                             image_size=32, dtype=jnp.float32,
+                             log=jax_logs.append)
+    images = _images(4)
+    want = np.asarray(jm.apply(variables, jnp.asarray(images), train=False))
+    model = load_serve_state("resnet18", str(tmp_path / "model_best.msgpack"),
+                             num_classes=8, image_size=32,
+                             dtype=torch.float32, device="cpu",
+                             log=logs.append)
+    got = ServeEngine(model, image_size=32, buckets=(4,),
+                      device="cpu").infer(images)
+    assert got.shape == want.shape == (4, 8)
+    err = float(np.abs(got - want).max())
+    assert err <= 1e-4 * (1 + float(np.abs(want).max())), err
+    served_ema = [m for m in logs if m.startswith("=> serving the EMA")]
+    assert served_ema == [m for m in jax_logs
+                          if m.startswith("=> serving the EMA")]
+    assert bool(served_ema) == ema
+    assert any("(epoch 5, best_acc1 33.000)" in m for m in logs)
+    with pytest.raises(ValueError, match="trained as 'resnet18'"):
+        load_serve_state("resnet34", str(tmp_path), num_classes=8,
+                         image_size=32, device="cpu")
+    shutil.rmtree(tmp_path)          # two 85 MB files
 
 
 @pytest.mark.parametrize("flag,missing", [

@@ -19,6 +19,7 @@
 
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -137,7 +138,7 @@ def test_cli_trains_vit_through_flash_with_adamw(tmp_path, capsys,
                    "--epochs", "1", "--synthetic-size", "8", "-p", "1",
                    "--flash", "on", "--optimizer", "adamw", "--lr", "1e-3",
                    "--weight-decay", "0.05", "--telemetry", "--seed", "0",
-                   "--outpath", str(out)])
+                   "--keep-checkpoints", "0", "--outpath", str(out)])
     lines = capsys.readouterr().out.splitlines()
     assert rc == 0 and lines[-1].startswith("best_acc1=")
     assert ("=> attention dispatch: flash attention (mode on, forced: the "
@@ -154,6 +155,9 @@ def test_cli_trains_vit_through_flash_with_adamw(tmp_path, capsys,
     assert (disp["kernel"], disp["mode"], disp["source"]) == ("flash", "on",
                                                               "forced")
     assert [e["type"] for e in events].count("step") == 2
+    # ViT-B/16's weights and AdamW moments make a 1 GB checkpoint.
+    assert os.path.getsize(out / "checkpoint.msgpack") > 1e9
+    shutil.rmtree(out)
 
 
 def test_events_validate_and_tpudist_summarize_reads_them(cli_run, capsys):
@@ -230,11 +234,11 @@ def test_flag_surface_is_tpudists():
     (["--cutmix-alpha", "1.0"], "--cutmix-alpha"),
     (["-a", "vit_b_16", "--flash", "auto"], "--flash auto"),
     (["--accum-steps", "2"], "--accum-steps"),
-    (["--model-ema-decay", "0.99"], "--model-ema-decay"),
+    (["--model-ema-decay", "1.5"], "--model-ema-decay"),
     (["--amp-dtype", "float16"], "--amp-dtype"),
-    (["--keep-checkpoints", "3"], "--keep-checkpoints"),
+    (["--checkpoint-backend", "orbax"], "--checkpoint-backend orbax"),
     (["--remat"], "--remat"),
-    (["--resume", "x.msgpack"], "--resume"),
+    (["--torch_checkpoints"], "--torch_checkpoints"),
     (["--doctor"], "--doctor"),
     (["--fused-bn", "auto"], "--fused-bn auto"),
     (["--flash", "on"], "--flash on"),

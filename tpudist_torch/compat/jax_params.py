@@ -1,4 +1,4 @@
-"""tpudist's flax ``params`` (and ``batch_stats``) trees → the port's
+"""tpudist's flax ``params`` (and ``batch_stats``) trees ↔ the port's
 ``state_dict``.
 
 The trees come as nested dicts of numpy arrays (what
@@ -15,11 +15,19 @@ so each leaf maps by name with at most a transpose:
   ``pos_embedding`` as they are;
 - ResNet: BatchNorm ``scale``/``bias`` and the ``batch_stats``
   ``mean``/``var`` keep their names.
+
+``jax_tree`` goes the other way, for the checkpoint writer: ``weight``
+``(out, in, kh, kw)`` → HWIO ``kernel``, ``(out, in)`` → ``(in, out)``
+``kernel``, a 1-D ``weight`` (the ViT's LayerNorm) → ``scale``. Its leaves
+are transposed torch views of the port's tensors, on whatever device they
+live; ``serialization`` copies each to the host in its logical C order
+when it writes it (a 1x1 conv's channels_last weight included), so no
+tree is copied whole.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Sequence
 
 import numpy as np
 import torch
@@ -83,3 +91,39 @@ def _kernel(arr: np.ndarray, path: tuple) -> np.ndarray:
 def _tensor(arr: np.ndarray) -> torch.Tensor:
     # np.array copies: a writable, C-ordered f32 array torch can own.
     return torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
+
+
+def state_dict_from_jax(arch: str, params: Mapping,
+                        batch_stats: Mapping | None = None
+                        ) -> dict[str, torch.Tensor]:
+    """The converter for ``arch``: ``vit*`` or the ResNet family (a ViT
+    has no ``batch_stats``)."""
+    if arch.startswith("vit"):
+        return vit_state_dict_from_jax(params)
+    return resnet_state_dict_from_jax(params, batch_stats or {})
+
+
+def jax_tree(named: Mapping[str, torch.Tensor] | Sequence) -> dict:
+    """Port names → the nested flax tree (the inverse of the converters
+    above): ``layer1_0.conv1.weight`` is ``{"layer1_0": {"conv1":
+    {"kernel": HWIO}}}``. ``named`` maps (or lists) names to tensors: a
+    model's parameters, its float buffers, or per-parameter optimizer
+    state keyed the same way."""
+    tree: dict = {}
+    for name, t in (named.items() if isinstance(named, Mapping) else named):
+        *mods, leaf = name.split(".")
+        if leaf == "weight":
+            if t.ndim == 4:                       # conv → HWIO
+                t, leaf = t.permute(2, 3, 1, 0), "kernel"
+            elif t.ndim == 2:                     # Dense → (in, out)
+                t, leaf = t.t(), "kernel"
+            elif t.ndim == 1:                     # LayerNorm
+                leaf = "scale"
+            else:
+                raise ValueError(f"unexpected weight rank {t.ndim} at "
+                                 f"{name}")
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = t
+    return tree

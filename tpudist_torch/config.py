@@ -3,9 +3,9 @@
 The port's copy of ``tpudist/config.py``: the same flag names and
 defaults (``build_parser``), so one command line means the same thing to
 both trainers, plus ``--device {cuda,cpu}`` (default cuda; nothing falls
-back to the CPU). Two defaults differ until the port has the pieces
-behind them: ``--fused-bn`` is ``on`` (the dispatch layer behind ``auto``,
-``ops/norm_dispatch``, is not ported) and checkpoints are not written.
+back to the CPU). One default differs until the port has the piece
+behind it: ``--fused-bn`` is ``on`` (the dispatch layer behind ``auto``,
+``ops/norm_dispatch``, is not ported).
 
 Every flag the port does not support yet is refused at startup by
 ``refuse_unsupported``, with a message that names it, rather than ignored.
@@ -165,7 +165,6 @@ _NOT_YET = {
     "pretrained_path": ("--pretrained-path", "torchvision weights (compat/)"),
     "accum_steps": ("--accum-steps", "gradient accumulation"),
     "microbatches": ("--microbatches", "pipeline parallelism"),
-    "model_ema_decay": ("--model-ema-decay", "the parameter EMA"),
     "mixup_alpha": ("--mixup-alpha", "ops/mixup.mix_batch"),
     "cutmix_alpha": ("--cutmix-alpha", "ops/mixup.mix_batch"),
     "auto_augment": ("--auto-augment", "the ImageFolder transforms"),
@@ -173,10 +172,8 @@ _NOT_YET = {
     "amp_dtype": ("--amp-dtype", "float16 loss scaling (bfloat16 is ported)"),
     "remat": ("--remat", "block checkpointing"),
     "compile_cache": ("--compile-cache", "a persistent compile cache"),
-    "resume": ("--resume", "checkpoint.py (the msgpack format)"),
-    "torch_checkpoints": ("--torch_checkpoints", "checkpoint.py"),
-    "checkpoint_backend": ("--checkpoint-backend", "checkpoint.py"),
-    "keep_checkpoints": ("--keep-checkpoints", "checkpoint.py"),
+    "torch_checkpoints": ("--torch_checkpoints", "the reference .pth.tar "
+                          "format (tpudist/compat/torch_checkpoint.py)"),
     "inject": ("--inject", "fault injection (faults.py)"),
     "data_retries": ("--data-retries", "the loader's retry path"),
     "data_retry_backoff": ("--data-retry-backoff", "the loader's retry path"),
@@ -232,6 +229,12 @@ def refuse_unsupported(cfg: Config) -> None:
     if not vit and cfg.flash == "on":
         bad.append(f"--flash on (it applies to attention archs (vit*); got "
                    f"'{cfg.arch}')")
+    if cfg.checkpoint_backend == "orbax":
+        bad.append("--checkpoint-backend orbax (orbax is not on the card; "
+                   "the port writes tpudist's msgpack checkpoints)")
+    if not 0.0 <= cfg.model_ema_decay < 1.0:
+        bad.append(f"--model-ema-decay {cfg.model_ema_decay} (a decay lies "
+                   f"in [0, 1); 0 is off)")
     if cfg.data and not cfg.synthetic:
         bad.append("--data (ImageFolder data is not in the port yet; pass "
                    "--synthetic)")
@@ -295,7 +298,7 @@ def build_parser() -> argparse.ArgumentParser:
     add("--optimizer", default=d.optimizer, choices=("sgd", "adamw"), help="optimizer: sgd, or adamw (decay on tensors of 2 or more dims only)")
     add("--warmup-epochs", default=d.warmup_epochs, type=int, dest="warmup_epochs", help="linear lr warmup epochs")
     add("--label-smoothing", default=d.label_smoothing, type=float, dest="label_smoothing", help="cross-entropy label smoothing (train only)")
-    add("--model-ema-decay", default=d.model_ema_decay, type=float, dest="model_ema_decay", help=not_yet)
+    add("--model-ema-decay", default=d.model_ema_decay, type=float, dest="model_ema_decay", help="per-step EMA decay of the parameters and BN buffers; validation and best use the EMA copy, which the checkpoint carries (0 = off)")
     add("--mixup-alpha", default=d.mixup_alpha, type=float, dest="mixup_alpha", help=not_yet)
     add("--cutmix-alpha", default=d.cutmix_alpha, type=float, dest="cutmix_alpha", help=not_yet)
     add("--auto-augment", default=d.auto_augment, choices=("", "ra", "ta_wide"), dest="auto_augment", help=not_yet)
@@ -303,10 +306,10 @@ def build_parser() -> argparse.ArgumentParser:
     add("--synthetic-size", default=d.synthetic_size, type=int, dest="synthetic_size", help="synthetic train-set size (0 = auto; val set is half)")
     add("--val-resize", default=d.val_resize, type=int, dest="val_resize", help="val shorter-edge resize before the center crop")
     add("--gamma", default=d.gamma, type=float, metavar="gamma", help="lr decay factor")
-    add("--resume", default=d.resume, help=not_yet)
-    _bool_flag(p, "torch_checkpoints", d.torch_checkpoints, not_yet)
-    add("--checkpoint-backend", default=d.checkpoint_backend, choices=["msgpack", "orbax"], dest="checkpoint_backend", help="no checkpoint is written by the port yet; orbax is " + not_yet)
-    add("--keep-checkpoints", default=d.keep_checkpoints, type=int, dest="keep_checkpoints", help=not_yet)
+    add("--resume", default=d.resume, help="resume from a checkpoint.msgpack, a run dir, or 'auto' (this outpath's checkpoint if there is one, else start fresh; with python -m tpudist_torch.launch --max-restarts and --overwrite keep a relaunch continues)")
+    _bool_flag(p, "torch_checkpoints", d.torch_checkpoints, "also write the reference's .pth.tar files; " + not_yet)
+    add("--checkpoint-backend", default=d.checkpoint_backend, choices=["msgpack", "orbax"], dest="checkpoint_backend", help="msgpack: tpudist's checkpoint.msgpack every epoch; orbax is " + not_yet)
+    add("--keep-checkpoints", default=d.keep_checkpoints, type=int, dest="keep_checkpoints", help="keep the newest N per-epoch checkpoint-epXXXXX.msgpack copies (and N quarantined files) for the fallback walk; 0 = live file only")
     add("--inject", default=d.inject, help=not_yet)
     add("--data-retries", default=d.data_retries, type=int, dest="data_retries", help=not_yet)
     add("--data-retry-backoff", default=d.data_retry_backoff, type=float, dest="data_retry_backoff", help=not_yet)

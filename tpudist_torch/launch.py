@@ -14,8 +14,11 @@ and supervises them: the first rank to exit non-zero tears the others
 down (SIGTERM to each rank's process group, SIGKILL after a grace
 period, which also reaches a rank blocked in a collective), and that
 rank's exit code is the launcher's. ``--max-restarts K`` relaunches every
-rank, on a fresh coordinator port, up to K times; each relaunch starts
-fresh (resuming comes with the port's checkpoints).
+rank, on a fresh coordinator port, up to K times (torchrun's
+``--max-restarts``): with the trainer's ``--resume auto --overwrite keep``
+each relaunch continues from the last completed epoch's checkpoint in the
+outpath (the live file, or the newest valid history copy when that one is
+torn); the first attempt, finding none, starts fresh and says so.
 
 tpudist's other launcher flags (the elastic gang, fault injection,
 launcher telemetry, metrics, straggler and collective watchdogs,
@@ -26,6 +29,8 @@ name and refused when set::
         --distributed -a resnet18 --use_amp --fused-bn on -b 256 --synthetic
     python -m tpudist_torch.launch -n 2 -- python -m tpudist_torch \\
         --distributed --device cpu --synthetic -a resnet18 -b 16 ...
+    python -m tpudist_torch.launch -n 1 --max-restarts 2 -- python -m \\
+        tpudist_torch --distributed ... --resume auto --overwrite keep
 """
 
 from __future__ import annotations
@@ -103,7 +108,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "127.0.0.1:<a free port>, fresh for each attempt)")
     p.add_argument("--max-restarts", type=int, default=0,
                    help="after a failure tears the job down, relaunch all "
-                        "ranks up to N times (each relaunch starts fresh)")
+                        "ranks up to N times; with the trainer's --resume "
+                        "auto --overwrite keep a relaunch continues from the "
+                        "last completed epoch")
     for dest, (flag, what) in _NOT_YET.items():
         kw = ({"action": "store_const", "const": True}
               if dest == "elastic" else {})

@@ -7,9 +7,12 @@ warms its bucket set, starts the continuous batcher and drives itself
 with synthetic open-loop traffic (``--load-rate``/``--load-duration``);
 a zero rate just warms up and reports.
 
+``--checkpoint FILE|RUN_DIR`` serves a training checkpoint (tpudist's or
+the port's; its EMA copy when it has one); without it the weights are
+fresh from ``--seed``.
+
 Not in the port yet, each refused with a message that names it:
-``--flash auto``, ``--compile-cache``, ``--metrics-port`` and a non-empty
-``--checkpoint``.
+``--flash auto``, ``--compile-cache`` and ``--metrics-port``.
 """
 
 from __future__ import annotations
@@ -28,8 +31,9 @@ def build_parser() -> argparse.ArgumentParser:
                     "continuous batching + telemetry")
     p.add_argument("-a", "--arch", default="resnet18")
     p.add_argument("--checkpoint", default="",
-                   help="'' = fresh init weights from --seed (bench/smoke); "
-                        "loading a checkpoint is not in the port yet")
+                   help="checkpoint.msgpack or a run dir (the EMA weights "
+                        "when the checkpoint carries them); '' = fresh init "
+                        "weights from --seed (bench/smoke)")
     p.add_argument("--num-classes", type=int, default=1000,
                    dest="num_classes")
     p.add_argument("--image-size", type=int, default=224, dest="image_size")
@@ -85,10 +89,9 @@ def main(argv=None) -> int:
     if args.metrics_port >= 0:
         parser.error("--metrics-port: the port has no metrics endpoint "
                      "(obs/server.py) yet")
-    if args.checkpoint:
-        parser.error("--checkpoint: the port cannot read tpudist .msgpack "
-                     "checkpoints yet; serve fresh weights with "
-                     "--checkpoint ''")
+    if args.checkpoint and not os.path.exists(args.checkpoint):
+        parser.error(f"--checkpoint {args.checkpoint}: no such file or run "
+                     f"dir")
 
     import numpy as np
     import torch

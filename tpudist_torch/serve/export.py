@@ -2,23 +2,28 @@
 ``tpudist_torch.serve``).
 
 Counterpart of ``tpudist/serve/export.py``. The model computes in the
-compute dtype (bf16 by default) from fresh f32 weights on the device, drawn
-from ``seed`` (the bench/smoke path, where serving performance is the
-measured quantity and the weights are irrelevant). ``image_size`` and
-``flash`` reach a ViT (its position embedding and attention) as the
-reference's do; the conv nets take neither, and in eval mode their
-BatchNorm epilogues are plain, so a served resnet runs no kernel of the
-port.
+compute dtype (bf16 by default) from f32 weights on the device: those of a
+training checkpoint (a ``.msgpack`` file or a run dir, read by the port's
+``checkpoint`` module, so tpudist's files serve too), the EMA copy when
+the checkpoint carries one (the weights ``best`` was measured on), or
+fresh weights drawn from ``seed`` (the bench/smoke path, where serving
+performance is the measured quantity and the weights are irrelevant).
+``image_size`` and ``flash`` reach a ViT (its position embedding and
+attention) as the reference's do; the conv nets take neither, and in eval
+mode their BatchNorm epilogues are plain, so a served resnet runs no
+kernel of the port.
 
 Not yet in the port: ``--flash auto`` (the measurement-honest dispatch of
-``ops/attention_dispatch``) and loading a checkpoint.
+``ops/attention_dispatch``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from tpudist_torch import checkpoint as ckpt_lib
 from tpudist_torch._device import resolve_device
+from tpudist_torch.compat.jax_params import state_dict_from_jax
 from tpudist_torch.models import create_model
 
 
@@ -35,24 +40,56 @@ def resolve_serve_flash(mode: str) -> bool:
     raise ValueError(f"--flash must be on, off or auto, got {mode!r}")
 
 
+def serving_variables(ckpt: dict, log=None) -> dict:
+    """``{"params", "batch_stats"}`` of a checkpoint tree, the EMA copy
+    when it carries one (``_extract_serving_variables``: a
+    ``--model-ema-decay`` run measured its best_acc1 on the EMA)."""
+    state = ckpt.get("state") or {}
+    params = state.get("params")
+    if params is None:
+        raise ValueError("checkpoint has no state.params — not a tpudist "
+                         "training checkpoint")
+    batch_stats = state.get("batch_stats") or {}
+    ema = state.get("ema_params")
+    if isinstance(ema, dict) and ema.get("params"):
+        if log is not None:
+            log("=> serving the EMA weights (checkpoint carries "
+                "ema_params — the copy 'best' was measured on)")
+        params = ema["params"]
+        batch_stats = ema.get("batch_stats") or batch_stats
+    return {"params": params, "batch_stats": batch_stats}
+
+
 def load_serve_state(arch: str, checkpoint: str = "", *,
                      num_classes: int = 1000, image_size: int = 224,
                      flash: str = "on", dtype=torch.bfloat16, seed: int = 0,
                      device=None, log=None) -> torch.nn.Module:
     """Build the serving model: ``arch`` in ``dtype`` on ``device`` (the
-    CUDA card unless the caller passes ``"cpu"``), weights drawn from a
-    ``torch.Generator`` seeded by ``seed``, in eval mode."""
+    CUDA card unless the caller passes ``"cpu"``), in eval mode, with the
+    weights of ``checkpoint`` (a file or a run dir; a checkpoint of
+    another arch is refused) or, when it is empty, drawn from a
+    ``torch.Generator`` seeded by ``seed``."""
     dev = resolve_device(device)
-    if checkpoint:
-        raise NotImplementedError(
-            "--checkpoint: the port cannot read tpudist .msgpack "
-            "checkpoints yet (it needs its own msgpack reader); serve "
-            "fresh weights with --checkpoint ''")
     kw = dict(num_classes=num_classes, dtype=dtype, device="meta")
     if arch.startswith("vit"):
         kw.update(image_size=image_size, flash=resolve_serve_flash(flash))
     model = create_model(arch, **kw)
     model = model.to_empty(device=dev)
+    if checkpoint:
+        ckpt = ckpt_lib.load_checkpoint(checkpoint)
+        if ckpt.get("arch") and ckpt["arch"] != arch:
+            raise ValueError(
+                f"checkpoint was trained as '{ckpt['arch']}' but serving "
+                f"was asked for '{arch}' — refusing to apply mismatched "
+                f"weights")
+        v = serving_variables(ckpt, log=log)
+        model.load_state_dict(state_dict_from_jax(
+            arch, v["params"], v["batch_stats"]), strict=True)
+        if log is not None:
+            log(f"=> exported '{arch}' from {checkpoint} "
+                f"(epoch {ckpt.get('epoch', '?')}, "
+                f"best_acc1 {float(ckpt.get('best_acc1', 0.0)):.3f})")
+        return model.eval()
     model.reset_parameters(torch.Generator().manual_seed(seed))
     if log is not None:
         log(f"=> serving fresh-init '{arch}' weights on {dev} (no "

@@ -31,6 +31,8 @@ SCHEMA: dict[str, tuple[str, ...]] = {
     "compile": ("seconds", "phase"),
     "epoch": ("epoch", "seconds"),
     "eval": ("epoch", "seconds"),
+    "checkpoint_save": ("seconds", "kind"),
+    "checkpoint_restore": ("seconds", "path"),
     # Which attention backend --flash resolved to. One per ViT trainer.
     "attention_dispatch": ("kernel", "mode", "source"),
     # Which BN epilogue --fused-bn resolved to. One per trainer.
@@ -122,6 +124,7 @@ class Telemetry:
         self._t0 = time.time()
         # goodput buckets (seconds)
         self.compile_s = 0.0
+        self.checkpoint_s = 0.0
         self.eval_s = 0.0
         self.productive_s = 0.0
         self.data_s = 0.0
@@ -154,6 +157,16 @@ class Telemetry:
     def note_compile(self, seconds: float, phase: str, **extra) -> None:
         self.compile_s += seconds
         self.emit("compile", seconds=round(seconds, 6), phase=phase, **extra)
+
+    def note_checkpoint(self, seconds: float, kind: str, **extra) -> None:
+        self.checkpoint_s += seconds
+        self.emit("checkpoint_save", seconds=round(seconds, 6), kind=kind,
+                  **extra)
+
+    def note_restore(self, seconds: float, path: str, **extra) -> None:
+        self.checkpoint_s += seconds
+        self.emit("checkpoint_restore", seconds=round(seconds, 6), path=path,
+                  **extra)
 
     def note_eval(self, seconds: float, epoch: int, **extra) -> None:
         self.eval_s += seconds
@@ -241,7 +254,7 @@ class Telemetry:
             productive_s=round(self.productive_s, 3),
             goodput=round(min(1.0, self.productive_s / wall), 4),
             init_s=round(self.init_s, 3), compile_s=round(self.compile_s, 3),
-            checkpoint_s=0.0, eval_s=round(self.eval_s, 3),
+            checkpoint_s=round(self.checkpoint_s, 3), eval_s=round(self.eval_s, 3),
             data_wait_s=round(self.data_s, 3), h2d_s=round(self.h2d_s, 3),
             drain_s=round(self.drain_s, 3),
             **({"prefetch_s": round(self.prefetch_s, 3)}

@@ -29,7 +29,13 @@ one card a rank.
   is f32. No ``torch.autocast`` (it would move the rounding points) and no
   loss scaling (bf16 has f32's exponent range).
 
-Accumulation, EMA, fp16 loss scaling, the doctor guard and gradient
+- The parameter EMA (``--model-ema-decay d``, ``update_ema``) lives in a
+  second module of the same arch, in eval mode without gradients: after
+  each optimizer step (and the data-parallel buffer average, so every
+  rank holds the same EMA) ``e = d·e + (1−d)·x`` over the parameters and
+  the float BN buffers, tpudist's ``update_ema``.
+
+Accumulation, fp16 loss scaling, the doctor guard and gradient
 compression are not in the port yet.
 """
 
@@ -127,16 +133,41 @@ def average_buffers(model: torch.nn.Module) -> None:
         flat.split([b.numel() for b in bufs]), bufs)])
 
 
+def make_ema(model: torch.nn.Module, build: Callable[[], torch.nn.Module]
+             ) -> torch.nn.Module:
+    """The EMA module: ``build()`` (the same arch, and for a ViT the same
+    ``flash``) on ``model``'s device, holding ``model``'s weights, in eval
+    mode and without gradients."""
+    ema = build().to(next(model.parameters()).device)
+    ema.load_state_dict(model.state_dict())
+    return ema.requires_grad_(False).eval()
+
+
+@torch.no_grad()
+def update_ema(ema: torch.nn.Module, model: torch.nn.Module,
+               decay: float) -> None:
+    """``e = d·e + (1−d)·x`` over the parameters and float buffers, in
+    tpudist's association (two products, then their sum; ``lerp`` rounds
+    differently)."""
+    ema_t, src = ([*m.parameters(), *(b for b in m.buffers()
+                                      if b.is_floating_point())]
+                  for m in (ema, model))
+    torch._foreach_mul_(ema_t, decay)
+    torch._foreach_add_(ema_t, torch._foreach_mul(src, 1.0 - decay))
+
+
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-                    cfg) -> Callable:
+                    cfg, ema: torch.nn.Module | None = None) -> Callable:
     """``step(images, labels, lr) → {"loss", "acc1"}``: forward in train
     mode (BN statistics update the running buffers), f32 CE loss,
-    backward, SGD update. The metrics stay 0-D device tensors. A
-    ``DistributedDataParallel`` model (``data_parallel``) takes the
-    data-parallel step: its buffers and metrics are averaged across
-    ranks."""
+    backward, SGD update, and with ``ema`` the EMA update. The metrics
+    stay 0-D device tensors. A ``DistributedDataParallel`` model
+    (``data_parallel``) takes the data-parallel step: its buffers and
+    metrics are averaged across ranks."""
     smoothing = float(getattr(cfg, "label_smoothing", 0.0))
     ddp = isinstance(model, DistributedDataParallel)
+    net = model.module if ddp else model
+    decay = float(getattr(cfg, "model_ema_decay", 0.0))
 
     def step(images: torch.Tensor, labels: torch.Tensor, lr: float) -> dict:
         for group in optimizer.param_groups:
@@ -151,19 +182,23 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
             metrics = {"loss": loss.detach(),
                        "acc1": accuracy(logits, labels, topk=1)}
             if ddp:
-                average_buffers(model.module)
+                average_buffers(net)
                 metrics = _mean_over_ranks(metrics)
+            if ema is not None:
+                update_ema(ema, net, decay)
         return metrics
 
     return step
 
 
-def make_eval_step(model: torch.nn.Module, cfg) -> Callable:
+def make_eval_step(model: torch.nn.Module, cfg,
+                   over_ranks: bool | None = None) -> Callable:
     """``step(images, labels) → {"loss", "acc1"}`` with the running BN
-    statistics and no gradient; under DDP the metrics are averaged across
-    ranks."""
+    statistics and no gradient; under DDP (or ``over_ranks``, for the EMA
+    module beside a DDP model) the metrics are averaged across ranks."""
     ddp = isinstance(model, DistributedDataParallel)
     net = model.module if ddp else model
+    ddp = ddp if over_ranks is None else over_ranks
 
     def step(images: torch.Tensor, labels: torch.Tensor) -> dict:
         net.eval()

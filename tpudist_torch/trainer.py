@@ -23,17 +23,29 @@ The hot loop keeps tpudist's two overlaps:
 It logs which attention a ViT takes and which epilogue the BN workloads
 take, as ``_resolve_attention_dispatch`` and
 ``_resolve_fused_norm_dispatch`` do, and on the card the kernel launches
-its first train step made. Checkpoints, the doctor, fault injection
-and the profiler window come later; ``fit`` says once that it writes no
-checkpoint.
+its first train step made.
+
+Checkpoints are tpudist's (``checkpoint.py``): after each epoch's
+validation the primary rank writes ``checkpoint.msgpack`` (with the
+history copies and ``model_best.msgpack``), a ``checkpoint_save`` event
+on every rank. ``--resume PATH`` (a file or a run dir) loads on every
+rank before the first step: an explicit file is verified and never
+substituted; the run's own outpath, and ``--resume auto``, walk
+``load_checkpoint_with_fallback``. So ``python -m tpudist_torch.launch
+--max-restarts K`` with ``--resume auto --overwrite keep`` continues from
+the last completed epoch. With ``--model-ema-decay`` the EMA module is
+what validation (and so ``best``) measures. The doctor, fault injection,
+the preemption drain and the profiler window come later.
 """
 
 from __future__ import annotations
 
+import os
 import time
 
 import torch
 
+from tpudist_torch import checkpoint as ckpt_lib
 from tpudist_torch import dist as dist_lib
 from tpudist_torch import telemetry as telemetry_lib
 from tpudist_torch._device import resolve_device
@@ -44,7 +56,7 @@ from tpudist_torch.data.loader import to_device
 from tpudist_torch.models import create_model
 from tpudist_torch.ops import flash_attention, fused_norm
 from tpudist_torch.train import (compute_dtype, data_parallel, lr_for_epoch,
-                                 make_eval_step, make_optimizer,
+                                 make_ema, make_eval_step, make_optimizer,
                                  make_train_step)
 from tpudist_torch.utils import (AverageMeter, ProgressMeter, get_logger,
                                  output_process)
@@ -143,12 +155,26 @@ class Trainer:
         self.model.reset_parameters(torch.Generator().manual_seed(seed))
         self.model.to(self.device)
         self.log(f"=> creating model '{cfg.arch}'")
+        self.ema = (make_ema(self.model, lambda: create_model(cfg.arch, **kw))
+                    if cfg.model_ema_decay > 0 else None)
         if on_gpu:
             self._build_kernels()
         self.attention_decision = (self._resolve_attention_dispatch()
                                    if self.is_vit else None)
         self.fused_norm_decision = self._resolve_fused_norm_dispatch()
         self.optimizer = make_optimizer(self.model, cfg)
+        self.best_acc1 = 0.0
+        self.start_epoch = cfg.start_epoch
+        self.global_step = 0
+        self._train_dispatched = False
+        resume = cfg.resume
+        if resume == "auto":
+            resume = ckpt_lib.find_resumable(cfg.outpath)
+            if not resume:
+                self.log("=> --resume auto: no checkpoint in outpath, "
+                         "starting fresh")
+        if resume:
+            self.load(resume)
         step_model = self.model
         if self.distributed:
             step_model = data_parallel(self.model, self.device)
@@ -156,12 +182,12 @@ class Trainer:
                      f"{dist_lib.backend()}, DDP (buffers averaged after "
                      f"the step)" + (", SyncBN" if cfg.sync_batchnorm
                                      and not self.is_vit else ""))
-        self.train_step = make_train_step(step_model, self.optimizer, cfg)
-        self.eval_step = make_eval_step(step_model, cfg)
-        self.best_acc1 = 0.0
-        self.start_epoch = cfg.start_epoch
-        self.global_step = 0
-        self._train_dispatched = False
+        self.train_step = make_train_step(step_model, self.optimizer, cfg,
+                                          ema=self.ema)
+        # --model-ema-decay: validation (and so 'best') measures the EMA.
+        self.eval_step = (make_eval_step(step_model, cfg) if self.ema is None
+                          else make_eval_step(self.ema, cfg,
+                                              over_ranks=self.distributed))
 
     def _build_kernels(self) -> None:
         """Compile the kernel sources this run launches (one ``nvcc`` each,
@@ -260,6 +286,62 @@ class Trainer:
         if self.logger is not None:
             self.logger.info(msg)
 
+    # -- checkpointing ----------------------------------------------------
+
+    def save(self, epoch: int, is_best: bool) -> None:
+        """The primary rank writes the epoch's checkpoint; every rank
+        emits ``checkpoint_save`` with the seconds it spent."""
+        t0 = time.time()
+        try:
+            if self.primary:
+                cfg = self.cfg
+                state = ckpt_lib.state_to_dict(
+                    self.model, self.optimizer, arch=cfg.arch, epoch=epoch,
+                    best_acc1=self.best_acc1, step=self.global_step,
+                    ema=self.ema, topology=ckpt_lib.topology_tag(
+                        self.world, cfg.per_device_batch_size,
+                        cfg.batch_size))
+                ckpt_lib.save_checkpoint(state, is_best, cfg.outpath,
+                                         keep=cfg.keep_checkpoints)
+        finally:
+            if self.telemetry is not None:
+                self.telemetry.note_checkpoint(time.time() - t0,
+                                               kind="epoch", epoch=epoch)
+
+    def load(self, path: str) -> None:
+        """Resume from ``path`` on this rank: the start epoch, best_acc1,
+        step count, weights, optimizer state and EMA."""
+        t0 = time.time()
+        try:
+            self._load(path)
+        finally:
+            if self.telemetry is not None:
+                self.telemetry.note_restore(time.time() - t0, path=str(path),
+                                            epoch=self.start_epoch)
+
+    def _load(self, path: str) -> None:
+        cfg = self.cfg
+        live = os.path.join(cfg.outpath, ckpt_lib.CKPT_NAME)
+        if os.path.abspath(path) in (os.path.abspath(live),
+                                     os.path.abspath(cfg.outpath)):
+            # This run's own outpath (--resume auto, a launcher restart):
+            # a torn or corrupt live file falls back to the history.
+            ckpt, path = ckpt_lib.load_checkpoint_with_fallback(
+                cfg.outpath, log=self.log, keep=cfg.keep_checkpoints)
+        else:
+            # An explicit file: the user named these bytes.
+            ckpt = ckpt_lib.load_checkpoint(path)
+        try:
+            self.global_step = ckpt_lib.restore(
+                ckpt, self.model, self.optimizer, self.ema, arch=cfg.arch,
+                world=self.world, log=self.log)
+        except (ValueError, RuntimeError) as e:
+            raise ValueError(f"cannot resume from '{path}': {e}") from e
+        self.best_acc1 = float(ckpt.get("best_acc1", 0.0))
+        self.start_epoch = int(ckpt.get("epoch", 0))
+        self.log(f"=> resumed from '{path}' (epoch {self.start_epoch}, "
+                 f"best_acc1 {self.best_acc1:.3f})")
+
     def train_epoch(self, loader, epoch: int, lr: float):
         cfg = self.cfg
         batch_time = AverageMeter("Time", ":6.3f")
@@ -357,8 +439,6 @@ class Trainer:
         try:
             if cfg.evaluate:
                 return self.validate(val_loader, epoch=-1)
-            self.log("=> no checkpoint is written: the port has no "
-                     "checkpoint format yet (checkpoint.py is queued)")
             total_time = 0.0
             for epoch in range(self.start_epoch, cfg.epochs):
                 t0 = time.time()
@@ -371,10 +451,12 @@ class Trainer:
                 if self.telemetry is not None:
                     self.telemetry.note_eval(time.time() - t_v, epoch=epoch,
                                              acc1=float(acc1))
-                if acc1 > self.best_acc1:
+                is_best = acc1 > self.best_acc1
+                if is_best:
                     self.best_acc1 = float(acc1)
                     self.log(f"best_acc1={self.best_acc1:.3f}, "
                              f"epoch={epoch}")
+                self.save(epoch, is_best)
                 epoch_time = time.time() - t0
                 total_time += epoch_time
                 peak = self._peak_memory_gb()

@@ -56,11 +56,16 @@ class ProgressMeter:
 def get_logger(save_path: str,
                logger_name: str = "tpudist_torch") -> logging.Logger:
     """``experiment.log`` (timestamped) + bare stdout lines, INFO level;
-    rebuilt when the experiment dir changes."""
+    rebuilt when the experiment dir changes. A run in the same dir (a
+    resume in this process) keeps the file and writes to the current
+    ``sys.stdout``."""
     logger = logging.getLogger(logger_name)
     target = os.path.abspath(os.path.join(save_path, "experiment.log"))
     for h in list(logger.handlers):
         if isinstance(h, logging.FileHandler) and h.baseFilename == target:
+            for other in logger.handlers:
+                if type(other) is logging.StreamHandler:
+                    other.setStream(sys.stdout)
             return logger
         logger.removeHandler(h)
         h.close()
