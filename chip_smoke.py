@@ -80,8 +80,26 @@ line and raising on failure:
    from the file. Where a straight and a resumed run are not bit-equal,
    a second straight run measures the run-to-run spread and the resumed
    run is held within 3x of it;
-8. one ``{"kernels": [...]}`` line;
-9. last, ``{"ok": true, "device": {...}}``.
+8. ImageFolder data: ``image_decode`` prints what the host offers for
+   decoding (PIL, torchvision, ``jpeglib.h``, ``libjpeg.so``, nvJPEG,
+   the cores, ``g++``) and the data path the port takes there, building
+   the native host kernels (``tpudist_torch/data/csrc``, g++);
+   ``imagefolder_corpus`` writes 8 classes × 160 train and 32 val JPEGs
+   at 384 px with ``benchmarks/make_synth_imagefolder.py`` (a subprocess)
+   and cuts one train JPEG to half its bytes; ``native_vs_plain_host``
+   holds the native train and val transforms against the numpy bilinear
+   reference and the PIL stack on those images and times each one thread;
+   ``loader_rates`` runs the train loader alone at batch 256, 224 px,
+   ``-j`` = the cores (at most 32) on the card's path, the PIL stack and
+   the PIL stack with ``--auto-augment ra --random-erase 0.25``, and the
+   val loader, beside the device-resident resnet18 rate;
+   ``train_imagefolder`` trains resnet18 (two epochs) and ViT-B/16 (one,
+   ``--auto-augment ta_wide --random-erase 0.25``) from the tree through
+   the launcher with ``--data-skip-budget 1``: B1–B4 9/8/9/8 and B5–B7
+   12/12/12 a step, the truncated JPEG skipped once an epoch and logged,
+   the share of the wall spent waiting for data;
+9. one ``{"kernels": [...]}`` line;
+10. last, ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, without a CUDA card or without the
 rest of the repository. ``python3 chip_smoke.py --mutations`` runs only
@@ -118,11 +136,15 @@ import torch.nn.functional as F
 from tpudist_torch import __main__ as train_cli
 from tpudist_torch import checkpoint as ckpt_lib
 from tpudist_torch import config as config_lib
+from tpudist_torch import data as data_lib
 from tpudist_torch import dist as dist_lib
 from tpudist_torch import launch as launch_lib
 from tpudist_torch import telemetry as telemetry_lib
 from tpudist_torch import train as train_lib
 from tpudist_torch.compat.jax_params import state_dict_from_jax
+from tpudist_torch.data import autoaugment as data_aa
+from tpudist_torch.data import native as data_native
+from tpudist_torch.data import transforms as data_tf
 from tpudist_torch.models import create_model
 from tpudist_torch.ops import _build
 from tpudist_torch.ops import flash_attention as fa
@@ -2163,9 +2185,467 @@ def phase_vit_train_step_breakdown() -> dict:
     return out
 
 
+# -- phase 8: ImageFolder data on the card's host ------------------------------
+
+# benchmarks/make_synth_imagefolder.py's arguments: 8 classes of stationary
+# textures at 384 px, about ImageNet's mean edge.
+CORPUS_ARGS = ["--classes", "8", "--train-per-class", "160",
+               "--val-per-class", "32", "--size", "384"]
+CORPUS_TRAIN, CORPUS_VAL = 8 * 160, 8 * 32
+TRUNCATED = os.path.join("train", "class_003", "00077.jpg")
+HOST_IMAGES = 32                 # images of the single-thread host check
+# tests/test_native.py's tolerances: the native kernel against the numpy
+# bilinear reference of the same box (:49), and a native path against the
+# PIL stack (:131-132; mean and max |Δ| in normalized units).
+NATIVE_REF_TOL = 1e-4
+NATIVE_PIL_TOL = {"mean": 0.05, "max": 0.5}
+
+
+def _first_line(cmd: list) -> str:
+    try:
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=60)
+    except OSError as e:
+        return f"not found ({e})"
+    lines = (r.stdout or r.stderr).strip().splitlines()
+    return lines[0] if lines else f"exit {r.returncode}"
+
+
+def phase_image_decode() -> dict:
+    """What the card's host offers for decoding images, and the data path
+    the port takes on it: PIL's version, torchvision or not, ``jpeglib.h``,
+    ``libjpeg.so`` and nvJPEG, the cores and the compiler; the native
+    libraries are built here (``g++``, at first use)."""
+    import ctypes.util
+    import glob
+    import importlib.util
+
+    import PIL
+    t0 = time.perf_counter()
+    native_ok = data_native.available()
+    jpeg_ok = data_native.jpeg_available()
+    build_s = time.perf_counter() - t0
+    cuda = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    nvjpeg = sorted(glob.glob(os.path.join(cuda, "include", "nvjpeg.h"))
+                    + glob.glob(os.path.join(cuda, "lib64", "libnvjpeg.so*"))
+                    + glob.glob(os.path.join(cuda, "targets", "*", "lib",
+                                             "libnvjpeg.so*")))
+
+    def paths(**kw):
+        return {split: f"{p} ({why})" for split, (p, why) in
+                data_lib.choose_paths(config_lib.Config(data="DIR", **kw))
+                .items()}
+
+    out = {"phase": "image_decode", "pil": PIL.__version__,
+           "torchvision": importlib.util.find_spec("torchvision")
+           is not None,
+           "jpeglib_h": data_native.jpeg_header(),
+           "libjpeg_so": ctypes.util.find_library("jpeg"),
+           "nvjpeg": nvjpeg, "cpu_count": os.cpu_count(),
+           "cpu_affinity": len(os.sched_getaffinity(0)),
+           "gxx": _first_line([data_native.compiler() or "g++",
+                               "--version"]),
+           "native_transforms": native_ok, "native_jpeg": jpeg_ok,
+           "native_build_s": build_s,
+           "data_path": paths(),
+           "data_path_with_augments": paths(auto_augment="ra",
+                                            random_erase=0.25)}
+    emit(out)
+    if not native_ok:
+        raise RuntimeError("csrc/transforms.cc was not built on the card's "
+                           "host: no g++")
+    return out
+
+
+def phase_imagefolder_corpus(root: str) -> dict:
+    """A JPEG tree from ``benchmarks/make_synth_imagefolder.py``, run as a
+    subprocess; one train JPEG is then cut to half its bytes (a corrupt
+    sample for the skip path)."""
+    import glob
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "benchmarks", "make_synth_imagefolder.py")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, script, "--root", root,
+                        *CORPUS_ARGS], capture_output=True, text=True,
+                       timeout=900)
+    seconds = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise RuntimeError(f"make_synth_imagefolder.py exited "
+                           f"{r.returncode}: {r.stderr[-2000:]}")
+    counts = {split: len(glob.glob(os.path.join(root, split, "*", "*.jpg")))
+              for split in ("train", "val")}
+    if counts != {"train": CORPUS_TRAIN, "val": CORPUS_VAL}:
+        raise RuntimeError(f"the corpus holds {counts}")
+    sizes = [os.path.getsize(f) for f in glob.glob(
+        os.path.join(root, "*", "*", "*.jpg"))]
+    bad = os.path.join(root, TRUNCATED)
+    with open(bad, "rb") as f:
+        data = f.read()
+    with open(bad, "wb") as f:
+        f.write(data[:len(data) // 2])
+    out = {"phase": "imagefolder_corpus", "seconds": seconds,
+           "files": sum(counts.values()), **counts,
+           "mean_kb": statistics.mean(sizes) / 1024,
+           "truncated": {"file": TRUNCATED, "bytes": len(data) // 2,
+                         "of": len(data)},
+           "script_said": r.stdout.strip()}
+    emit(out)
+    return out
+
+
+def _bilinear_ref(src: np.ndarray, box, out_size: int, flip: bool):
+    """numpy reference of ``crop_resize_normalize`` (tpudist's
+    ``tests/test_native.py::_bilinear_ref``), in float64."""
+    x0, y0, cw, ch = box
+    h, w = src.shape[:2]
+    oy, ox = np.meshgrid(np.arange(out_size), np.arange(out_size),
+                         indexing="ij")
+    fy = (oy + 0.5) * (ch / out_size) - 0.5 + y0
+    fx = (ox + 0.5) * (cw / out_size) - 0.5 + x0
+    y1, x1 = np.floor(fy).astype(int), np.floor(fx).astype(int)
+    wy, wx = (fy - y1)[..., None], (fx - x1)[..., None]
+    y1c, y2c = np.clip(y1, 0, h - 1), np.clip(y1 + 1, 0, h - 1)
+    x1c, x2c = np.clip(x1, 0, w - 1), np.clip(x1 + 1, 0, w - 1)
+    s = src.astype(np.float64)
+    top = s[y1c, x1c] + (s[y1c, x2c] - s[y1c, x1c]) * wx
+    bot = s[y2c, x1c] + (s[y2c, x2c] - s[y2c, x1c]) * wx
+    out = top + (bot - top) * wy
+    if flip:
+        out = out[:, ::-1]
+    return (out / 255.0 - data_tf.IMAGENET_MEAN) / data_tf.IMAGENET_STD
+
+
+def _per_image_ms(fn, items) -> float:
+    fn(items[0])
+    t0 = time.perf_counter()
+    for it in items:
+        fn(it)
+    return (time.perf_counter() - t0) / len(items) * 1e3
+
+
+def _threaded_rate(fn, items, threads: int) -> float:
+    """Items a second through ``fn`` from ``threads`` threads."""
+    it, lock = iter(items), threading.Lock()
+
+    def work():
+        while True:
+            with lock:
+                item = next(it, None)
+            if item is None:
+                return
+            fn(item)
+
+    pool = [threading.Thread(target=work) for _ in range(threads)]
+    t0 = time.perf_counter()
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join()
+    return len(items) / (time.perf_counter() - t0)
+
+
+def _diff(a, b) -> tuple[float, float]:
+    d = np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))
+    return float(d.mean()), float(d.max())
+
+
+def _val_box(w: int, h: int, size: int, resize: int) -> tuple:
+    """The source box ``val_resize_crop_normalize`` crops (its float32
+    arithmetic, rounded half away from zero)."""
+    f = np.float32
+    scale = f(min(w, h)) / f(resize)
+    crop = f(size) * scale
+    return tuple(int(math.floor(float(v) + 0.5)) for v in (
+        (f(w) - crop) * f(0.5), (f(h) - crop) * f(0.5), crop, crop))
+
+
+def _off_reference(got, ref) -> float:
+    """``got``'s largest distance from ``ref``, or raise past 1e-4 + 1e-4
+    |ref| (tests/test_native.py:49, :79)."""
+    d = np.abs(got - ref)
+    if not np.all(d <= NATIVE_REF_TOL + NATIVE_REF_TOL * np.abs(ref)):
+        raise RuntimeError(f"a native transform is {d.max()} off its numpy "
+                           f"bilinear reference")
+    return float(d.max())
+
+
+def phase_native_vs_plain_host(root: str) -> dict:
+    """The port's native train and val transforms against the numpy
+    reference and its PIL stack, on the corpus's images, one thread, at
+    224 px (val resized to 256):
+
+    - each native transform equals the numpy bilinear reference of its
+      box (train: the box and flip its generator draws) within 1e-4;
+    - on the same box and flip, PIL's crop-resize is within 0.05 mean and
+      0.5 max |Δ| of it where the crop grows or keeps its size; where the
+      image shrinks (train crops larger than 224 px, and val's resize to
+      256) PIL filters over a wider support (antialiasing) and the native
+      kernel samples two pixels a side, so only the mean is held, the max
+      reported;
+    - ms per image for PIL decode, each native transform and each PIL
+      transform (and the native JPEG decode where it was built).
+
+    tpudist's native and PIL train paths draw the crop offset in another
+    order (x first; y first), so for one generator they crop different
+    windows; the port keeps both orders, and the difference of the two
+    whole transforms is reported, not held."""
+    import glob
+
+    from PIL import Image
+    files = sorted(f for f in glob.glob(os.path.join(root, "train", "*",
+                                                     "*.jpg"))
+                   if not f.endswith(TRUNCATED))
+    files = files[::len(files) // HOST_IMAGES][:HOST_IMAGES]
+    raw = []
+    for f in files:
+        with open(f, "rb") as fh:
+            raw.append(fh.read())
+    imgs = [Image.open(io.BytesIO(b)).convert("RGB") for b in raw]
+    size, resize = TRAIN_PX, 256
+    ref_err = {"train": 0.0, "val": 0.0}
+    errs = {"train_same_box_grow": [], "train_same_box_shrink": [],
+            "val": [], "whole_train": []}
+    for i, img in enumerate(imgs):
+        arr = np.asarray(img)
+        w, h = img.size
+        got = data_native.train_transform(img, size,
+                                          np.random.default_rng(i))
+        rng = np.random.default_rng(i)
+        box = data_native.sample_rrc_box(w, h, rng)
+        flip = bool(rng.random() < 0.5)
+        ref_err["train"] = max(ref_err["train"], _off_reference(
+            got, _bilinear_ref(arr, box, size, flip)))
+        x0, y0, cw, ch = box
+        pil = img.resize((size, size), Image.BILINEAR,
+                         box=(x0, y0, x0 + cw, y0 + ch))
+        if flip:
+            pil = pil.transpose(0)
+        key = "train_same_box_" + ("grow" if max(cw, ch) <= size
+                                   else "shrink")
+        errs[key].append(_diff(got, data_tf.to_normalized_array(pil)))
+        val = data_native.val_transform(img, size, resize)
+        ref_err["val"] = max(ref_err["val"], _off_reference(
+            val, _bilinear_ref(arr, _val_box(w, h, size, resize), size,
+                               False)))
+        errs["val"].append(_diff(val, data_tf.val_transform(img, size,
+                                                            resize)))
+        errs["whole_train"].append(_diff(got, data_tf.train_transform(
+            img, size, np.random.default_rng(i))))
+    summary = {k: {"n": len(v), "mean": max((m for m, _ in v), default=0.0),
+                   "max": max((x for _, x in v), default=0.0)}
+               for k, v in errs.items()}
+    bad = [k for k in ("train_same_box_grow", "train_same_box_shrink",
+                       "val") if summary[k]["mean"] >= NATIVE_PIL_TOL["mean"]]
+    if summary["train_same_box_grow"]["max"] > NATIVE_PIL_TOL["max"]:
+        bad.append("train_same_box_grow (max)")
+    ms = {"pil_decode": _per_image_ms(
+              lambda b: Image.open(io.BytesIO(b)).convert("RGB"), raw),
+          "native_train": _per_image_ms(
+              lambda im: data_native.train_transform(
+                  im, size, np.random.default_rng(0)), imgs),
+          "pil_train": _per_image_ms(
+              lambda im: data_tf.train_transform(
+                  im, size, np.random.default_rng(0)), imgs),
+          "pil_train_ra_erase": _per_image_ms(
+              lambda im: data_tf.train_transform(
+                  im, size, np.random.default_rng(0),
+                  aa=data_aa.build("ra"), random_erase=0.25), imgs),
+          "native_val": _per_image_ms(
+              lambda im: data_native.val_transform(im, size, resize), imgs),
+          "pil_val": _per_image_ms(
+              lambda im: data_tf.val_transform(im, size, resize), imgs)}
+    # How far each stage of a sample scales over the loader's threads: PIL
+    # decode, the uint8 copy, the native crop (the GIL released), all of it.
+    workers = min(os.cpu_count() or 1, 32)
+    arrs = [np.asarray(im) for im in imgs]
+    stages = {
+        "pil_decode": (lambda b: Image.open(io.BytesIO(b)).convert("RGB"),
+                       raw),
+        "to_uint8": (lambda im: np.asarray(im, dtype=np.uint8), imgs),
+        "native_crop": (lambda a: data_native.crop_resize_normalize(
+            a, (24, 24, 336, 336), size, False), arrs),
+        "decode_and_native_train": (
+            lambda b: data_native.train_transform(
+                Image.open(io.BytesIO(b)).convert("RGB"), size,
+                np.random.default_rng(0)), raw)}
+    scaling = {name: {f"j{n}": _threaded_rate(fn, items * 4, n)
+                      for n in (1, workers)}
+               for name, (fn, items) in stages.items()}
+    if data_native.jpeg_available():
+        ms["native_jpeg_train"] = _per_image_ms(
+            lambda b: data_native.decode_train_transform(
+                b, size, np.random.default_rng(0)), raw)
+    else:
+        ms["native_jpeg_train"] = "not measured: no jpeglib.h on this host"
+    out = {"phase": "native_vs_plain_host", "images": len(imgs),
+           "image_px": list(imgs[0].size), "size": size,
+           "val_resize": resize,
+           "tolerance": {"reference": NATIVE_REF_TOL, **NATIVE_PIL_TOL},
+           "reference_max_abs_err": ref_err, "against_pil": summary,
+           "ms_per_image_one_thread": ms,
+           "images_per_s_by_threads": scaling,
+           "cpu_count": os.cpu_count()}
+    emit(out)
+    if bad:
+        raise RuntimeError(f"native against the PIL stack out of bounds: "
+                           f"{bad}")
+    return out
+
+
+def _loader_rate(loader, epochs: int = 2) -> dict:
+    """Images/s of ``loader`` alone (nothing consumes the batches):
+    over each whole epoch, and 256 over the median time between batches."""
+    per_epoch, gaps, skipped = [], [], []
+    for epoch in range(epochs):
+        loader.set_epoch(epoch)
+        n = 0
+        t0 = t_prev = time.perf_counter()
+        for images, _ in loader:
+            now = time.perf_counter()
+            gaps.append((now - t_prev, len(images)))
+            t_prev = now
+            n += len(images)
+            if not np.isfinite(images).all():
+                raise RuntimeError("a loader yielded a non-finite image")
+        per_epoch.append(n / (time.perf_counter() - t0))
+        skipped.append(loader.samples_skipped)
+    gap, n = sorted(gaps)[len(gaps) // 2]
+    return {"images_per_s_epoch": per_epoch,
+            "images_per_s_median_batch": n / gap,
+            "samples_skipped": skipped}
+
+
+def phase_loader_rates(root: str, step: dict) -> dict:
+    """The port's loaders alone at batch 256, 224 px, ``-j`` = the host's
+    cores (at most 32): the card's train path (and at ``-j 1``, which says
+    how far the worker threads scale), the PIL stack, the PIL stack with
+    ``--auto-augment ra --random-erase 0.25`` and the val loader, beside
+    the device-resident resnet18 rate of ``train_step_breakdown``."""
+    workers = min(os.cpu_count() or 1, 32)
+    base = dict(data=root, image_size=TRAIN_PX, batch_size=TRAIN_B,
+                workers=workers, seed=0, data_skip_budget=1)
+    rows = {}
+    for name, kw, native_on, epochs in (
+            ("train_card_path", {}, True, 2),
+            ("train_card_path_j1", dict(workers=1), True, 1),
+            ("train_pil_stack", {}, False, 1),
+            ("train_pil_ra_erase", dict(auto_augment="ra",
+                                        random_erase=0.25), False, 1)):
+        train, val = data_lib.build_train_val_loaders(
+            config_lib.Config(**{**base, **kw}).finalize(1),
+            use_native=native_on)
+        rows[name] = {"path": list(train.data_path), "workers":
+                      train.num_workers, **_loader_rate(train, epochs)}
+        if rows[name]["samples_skipped"] != [1] * epochs:
+            raise RuntimeError(f"{name}: samples_skipped "
+                               f"{rows[name]['samples_skipped']} a epoch; "
+                               f"the truncated JPEG is one")
+        if name == "train_card_path":
+            rows["val"] = {"path": list(val.data_path),
+                           **_loader_rate(val)}
+    device = step["images_per_s"]
+    for row in rows.values():
+        row["share_of_device_rate"] = (row["images_per_s_median_batch"]
+                                       / device)
+    out = {"phase": "loader_rates", "batch": TRAIN_B, "size": TRAIN_PX,
+           "workers": workers, "cpu_count": os.cpu_count(), **rows,
+           "device_resident_resnet18_images_per_s": device}
+    emit(out)
+    return out
+
+
+def _imagefolder_run(args: list, what: str, path_line: str) -> dict:
+    text, row, events = _launch_trainer(args, what, timeout=600)
+    if path_line not in text.splitlines():
+        raise RuntimeError(f"{what}: the trainer did not log {path_line!r}")
+    epochs = [e for e in events if e["type"] == "epoch"]
+    skipped = [e.get("samples_skipped", 0) for e in epochs]
+    retried = [e.get("samples_retried", 0) for e in epochs]
+    data_lines = [ln for ln in text.splitlines()
+                  if ln.startswith("||==> Data: Epoch[")]
+    if skipped != [1] * len(epochs) or len(data_lines) != len(epochs):
+        raise RuntimeError(f"{what}: samples_skipped {skipped} a epoch "
+                           f"and Data lines {data_lines}; the truncated "
+                           f"JPEG is one sample")
+    best = float(text.splitlines()[-1].split("=")[1])
+    if not math.isfinite(best):
+        raise RuntimeError(f"{what}: best_acc1 {best}")
+    steps = [e for e in events if e["type"] == "step"]
+    end = events[-1]
+    b = TRAIN_B if "resnet18" in args else VIT_B
+    # With --device_prefetch the wait for the loader's next batch falls in
+    # the staging call (``prefetch_s``), not in ``data_s``.
+    step_s = sum(e["step_s"] for e in steps[1:])
+    wait_s = sum(e["data_s"] + (e.get("prefetch_s") or 0.0)
+                 for e in steps[1:])
+    prefetch_s = sum(e.get("prefetch_s") or 0.0 for e in steps)
+    return {**row, "best_acc1": best, "samples_skipped": skipped,
+            "samples_retried": retried, "data_lines": data_lines,
+            "images_per_s": b * (len(steps) - 1) / step_s,
+            "host_data_s_p50": statistics.median(
+                e["data_s"] for e in steps[1:]),
+            "host_compute_s_p50": statistics.median(
+                e["compute_s"] for e in steps[1:]),
+            "host_prefetch_s_p50": statistics.median(
+                e.get("prefetch_s") or 0.0 for e in steps[1:]),
+            "data_wait_s": end["data_wait_s"], "wall_s": end["wall_s"],
+            "data_wait_share": end["data_wait_s"] / end["wall_s"],
+            "prefetch_share": prefetch_s / end["wall_s"],
+            "loader_wait_share_of_steps": wait_s / step_s}
+
+
+def phase_train_imagefolder(root: str) -> dict:
+    """``python -m tpudist_torch --data DIR`` through the launcher (world 1
+    over NCCL): resnet18 (batch 256, bf16, --fused-bn on, two epochs of 5
+    steps, ``--data-skip-budget 1``) launches B1–B4 9/8/9/8 times a step,
+    skips the truncated JPEG once an epoch and logs it; then ViT-B/16
+    (batch 128, bf16, --flash on, AdamW, one epoch of 10 steps, the train
+    split on the PIL stack under ``--auto-augment ta_wide --random-erase
+    0.25``) launches B5–B7 12/12/12 a step and B5 12 a val batch."""
+    workers = str(min(os.cpu_count() or 1, 32))
+    paths = data_lib.choose_paths(config_lib.Config(data=root))
+    line = "=> data path: " + "; ".join(
+        f"{s} {p} ({why})" for s, (p, why) in paths.items())
+    r18 = _imagefolder_run(
+        ["-a", "resnet18", "--use_amp", "--fused-bn", "on", "-b",
+         str(TRAIN_B), "--data", root, "--image-size", str(TRAIN_PX),
+         "--num-classes", "1000", "--epochs", "2", "--step", "1", "-p", "1",
+         "--data-skip-budget", "1", "-j", workers],
+        "the ImageFolder resnet18 run", line)
+    n = r18["train_steps"]
+    want = {"bn_act_fwd": 9 * n, "bn_act_fwd_res": 8 * n,
+            "bn_act_bwd": 9 * n, "bn_act_bwd_res": 8 * n}
+    r18["launches"] = {k: r18["launches"][k] for k in fn.KERNELS}
+    if n != 2 * CORPUS_TRAIN // TRAIN_B or r18["launches"] != want:
+        raise RuntimeError(f"ImageFolder resnet18: fused-norm launches "
+                           f"{r18['launches']} for {n} steps; want {want}")
+    aug = data_lib.choose_paths(config_lib.Config(
+        data=root, auto_augment="ta_wide", random_erase=0.25))
+    vit = _imagefolder_run(
+        ["-a", "vit_b_16", "--use_amp", "--flash", "on", "--optimizer",
+         "adamw", "--lr", "1e-3", "--weight-decay", "0.05", "-b",
+         str(VIT_B), "--data", root, "--image-size", str(TRAIN_PX),
+         "--num-classes", "1000", "--epochs", "1", "-p", "1",
+         "--auto-augment", "ta_wide", "--random-erase", "0.25",
+         "--keep-checkpoints", "0", "--data-skip-budget", "1", "-j",
+         workers],
+        "the ImageFolder ViT-B/16 run", "=> data path: " + "; ".join(
+            f"{s} {p} ({why})" for s, (p, why) in aug.items()))
+    n, val = vit["train_steps"], -(-CORPUS_VAL // VIT_B)
+    want = {"flash_fwd": LAYERS * (n + val), "flash_bwd_dq": LAYERS * n,
+            "flash_bwd_dkv": LAYERS * n}
+    vit["launches"] = {k: vit["launches"][k] for k in fa.KERNELS}
+    if n != CORPUS_TRAIN // VIT_B or vit["launches"] != want:
+        raise RuntimeError(f"ImageFolder ViT-B/16: flash launches "
+                           f"{vit['launches']} for {n} steps; want {want}")
+    out = {"phase": "train_imagefolder", "workers": int(workers),
+           "cpu_count": os.cpu_count(), "resnet18": r18, "vit_b_16": vit}
+    emit(out)
+    return out
+
+
 def _checkpoint_launches(ck: dict, name: str) -> dict:
-    """A kernel's launches on each checkpoint path (counted from 0 just
-    before each run)."""
+    """A kernel's launches on each checkpoint path and each ImageFolder
+    run (counted from 0 in each run's process)."""
     out = {}
     r18 = ck["checkpoint_resume"]["fused_norm_launches"]
     if name in r18["a"]:
@@ -2178,6 +2658,11 @@ def _checkpoint_launches(ck: dict, name: str) -> dict:
     served = ck["serve_checkpoint"]["vit_b_16"]["launches"]
     if name == "flash_fwd":
         out["serve_checkpoint"] = served[name]
+    images = ck["train_imagefolder"]
+    for run, key in (("resnet18", "train_imagefolder"),
+                     ("vit_b_16", "train_imagefolder_vit")):
+        if name in images[run]["launches"]:
+            out[key] = images[run]["launches"][name]
     return out
 
 
@@ -2307,7 +2792,7 @@ def main(argv=None) -> int:
     phase_serve_resnet()
     train = phase_train()
     phase_fused_vs_plain()
-    phase_train_breakdown()
+    step = phase_train_breakdown()
     vit = phase_train_vit()
     phase_flash_vs_plain_train()
     phase_vit_train_step_breakdown()
@@ -2324,6 +2809,17 @@ def main(argv=None) -> int:
             ck["checkpoint_resume"]["run_dir"], card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    root = tempfile.mkdtemp(prefix="tpudist_torch_images_")
+    try:
+        phase_image_decode()
+        tree = os.path.join(root, "imagefolder")
+        phase_imagefolder_corpus(tree)
+        phase_native_vs_plain_host(tree)
+        phase_loader_rates(tree, step)
+        images = phase_train_imagefolder(tree)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    ck["train_imagefolder"] = images
 
     fwd_rows = [r for r in kern["cases"] if r["case"].startswith(
         ("serve_", "train_"))]

@@ -3,7 +3,9 @@
 - Every module of ``tpudist_torch`` and ``chip_smoke`` imports with
   ``jax*``, ``flax*``, ``optax``, ``msgpack`` (absent on the card) and
   ``tpudist``/``tpudist.*`` refused by an import hook (``tpudist_torch``
-  itself stays importable), and a checkpoint round trip runs there.
+  itself stays importable), and a checkpoint round trip and the
+  ImageFolder pipeline (its native and PIL paths, with auto-augment) run
+  there.
 - Without a CUDA card, ``resolve_device()`` and the serve CLI without
   ``--device cpu`` fail loudly instead of running on the CPU.
 - ``flash_attention`` on a CPU tensor runs the plain version and counts no
@@ -26,7 +28,7 @@ pytestmark = pytest.mark.torch_port
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _HOOK = r"""
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys
 
 class Refuse:
     def find_spec(self, name, path=None, target=None):
@@ -50,6 +52,24 @@ with tempfile.TemporaryDirectory() as d:
     checkpoint.save_checkpoint({"epoch": 1, "w": np.ones(3, np.float32)},
                                True, d, keep=1)
     assert checkpoint.load_checkpoint(d)["w"].tolist() == [1.0, 1.0, 1.0]
+from PIL import Image
+from tpudist_torch.config import Config
+from tpudist_torch.data import build_train_val_loaders
+with tempfile.TemporaryDirectory() as d:
+    rng = np.random.default_rng(0)
+    for split in ("train", "val"):
+        for c in ("a", "b"):
+            os.makedirs(os.path.join(d, split, c))
+            for i in range(3):
+                Image.fromarray(rng.integers(0, 256, (40, 48, 3), np.uint8)
+                                ).save(os.path.join(d, split, c, f"{i}.jpg"))
+    for aa in ("", "ra"):
+        for use_native in (True, False):
+            cfg = Config(data=d, image_size=16, val_resize=20, batch_size=2,
+                         workers=2, auto_augment=aa).finalize(1)
+            for loader in build_train_val_loaders(cfg, use_native=use_native):
+                images, labels = next(iter(loader))
+                assert images.shape == (2, 16, 16, 3), images.shape
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0].startswith(("jax", "flax"))
                 or m.split(".")[0] in ("optax", "tpudist", "msgpack"))

@@ -242,7 +242,7 @@ def test_flag_surface_is_tpudists():
     (["--doctor"], "--doctor"),
     (["--fused-bn", "auto"], "--fused-bn auto"),
     (["--flash", "on"], "--flash on"),
-    (["--data", "/imagenet", "--no-synthetic"], "--data"),
+    (["--metrics-port", "9100"], "--metrics-port"),
     (["-a", "vit_b_16"], "-a vit_b_16"),
     (["--mesh-shape", "2"], "--mesh-shape"),
     (["--compress-grads", "int8"], "--compress-grads"),
@@ -251,6 +251,43 @@ def test_unsupported_flags_are_refused_by_name(tmp_path, flags, named):
     with pytest.raises(ValueError, match="unsupported in tpudist_torch") as e:
         cli.main(TINY + flags + ["--outpath", str(tmp_path / "o")])
     assert named in str(e.value)
+    assert not (tmp_path / "o").exists()
+
+
+def test_data_flags_are_accepted_and_the_rest_still_refused():
+    """The ImageFolder flags are the port's now; every other flag the port
+    lacks is still refused by name."""
+    cfg = port_config.Config(data="d", auto_augment="ra", random_erase=0.25,
+                             data_retries=4, data_retry_backoff=0.1,
+                             data_skip_budget=3)
+    port_config.refuse_unsupported(cfg)
+    for name, (flag, _) in port_config._NOT_YET.items():
+        assert not flag.startswith(("--data", "--auto-augment",
+                                    "--random-erase"))
+        value = getattr(port_config.Config(), name)
+        if isinstance(value, bool):
+            value = not value
+        elif isinstance(value, (int, float)):
+            value += 1
+        else:                     # a string, a list, or None
+            value = "x" if isinstance(value, str) else [2]
+        bad = port_config.Config(**{name: value})
+        with pytest.raises(ValueError, match=flag):
+            port_config.refuse_unsupported(bad)
+
+
+@pytest.mark.parametrize("missing", ["train", "val"])
+def test_data_without_a_split_fails_naming_it(tmp_path, missing):
+    """``--data DIR`` without ``DIR/train`` or ``DIR/val`` fails before the
+    outpath is made, naming the missing directory."""
+    root = tmp_path / "imagenet"
+    for split in ("train", "val"):
+        if split != missing:
+            (root / split / "c0").mkdir(parents=True)
+    with pytest.raises(FileNotFoundError) as e:
+        cli.main(["--device", "cpu", "--data", str(root), "-a", "resnet18",
+                  "--outpath", str(tmp_path / "o")])
+    assert str(root / missing) in str(e.value)
     assert not (tmp_path / "o").exists()
 
 

@@ -8,7 +8,9 @@ behind it: ``--fused-bn`` is ``on`` (the dispatch layer behind ``auto``,
 ``ops/norm_dispatch``, is not ported).
 
 Every flag the port does not support yet is refused at startup by
-``refuse_unsupported``, with a message that names it, rather than ignored.
+``refuse_unsupported``, with a message that names it, rather than ignored;
+``--data DIR`` without ``DIR/train`` or ``DIR/val`` fails in ``finalize``,
+before the run directory is made.
 ``write_settings`` keeps tpudist's ``settings.log`` format.
 """
 
@@ -149,6 +151,14 @@ class Config:
                 f"then center-crops image_size)")
         if isinstance(self.step, str):
             self.step = parse_milestones(self.step)
+        if self.data and not self.synthetic:
+            for split in ("train", "val"):
+                root = os.path.join(self.data, split)
+                if not os.path.isdir(root):
+                    raise FileNotFoundError(
+                        f"--data {self.data}: no {split} directory at "
+                        f"{root} (an ImageFolder root holds train/<class>/"
+                        f"<image> and val/<class>/<image>)")
         return self
 
     def asdict(self) -> dict[str, Any]:
@@ -167,17 +177,12 @@ _NOT_YET = {
     "microbatches": ("--microbatches", "pipeline parallelism"),
     "mixup_alpha": ("--mixup-alpha", "ops/mixup.mix_batch"),
     "cutmix_alpha": ("--cutmix-alpha", "ops/mixup.mix_batch"),
-    "auto_augment": ("--auto-augment", "the ImageFolder transforms"),
-    "random_erase": ("--random-erase", "the ImageFolder transforms"),
     "amp_dtype": ("--amp-dtype", "float16 loss scaling (bfloat16 is ported)"),
     "remat": ("--remat", "block checkpointing"),
     "compile_cache": ("--compile-cache", "a persistent compile cache"),
     "torch_checkpoints": ("--torch_checkpoints", "the reference .pth.tar "
                           "format (tpudist/compat/torch_checkpoint.py)"),
     "inject": ("--inject", "fault injection (faults.py)"),
-    "data_retries": ("--data-retries", "the loader's retry path"),
-    "data_retry_backoff": ("--data-retry-backoff", "the loader's retry path"),
-    "data_skip_budget": ("--data-skip-budget", "the loader's skip path"),
     "metrics_port": ("--metrics-port", "the metrics endpoint (obs/server.py)"),
     "telemetry_max_mb": ("--telemetry-max-mb", "event-file rotation"),
     "profile": ("--profile", "the trace window"),
@@ -235,9 +240,6 @@ def refuse_unsupported(cfg: Config) -> None:
     if not 0.0 <= cfg.model_ema_decay < 1.0:
         bad.append(f"--model-ema-decay {cfg.model_ema_decay} (a decay lies "
                    f"in [0, 1); 0 is off)")
-    if cfg.data and not cfg.synthetic:
-        bad.append("--data (ImageFolder data is not in the port yet; pass "
-                   "--synthetic)")
     if bad:
         raise ValueError("unsupported in tpudist_torch: " + "; ".join(bad))
 
@@ -266,7 +268,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="ImageNet training on a CUDA card (tpudist_torch)")
     add = p.add_argument
     not_yet = "not in the port yet: refused unless left at its default"
-    add("--data", metavar="DIR", default=d.data, help="ImageFolder root; " + not_yet)
+    add("--data", metavar="DIR", default=d.data, help="path to dataset (ImageFolder root with train/ and val/); empty => synthetic data")
     add("-a", "--arch", metavar="ARCH", default=d.arch, help="model architecture (tpudist_torch.models registry)")
     add("-j", "--workers", default=d.workers, type=int, metavar="N", help="data-loading worker threads")
     add("--epochs", default=d.epochs, type=int, metavar="N", help="number of total epochs to run")
@@ -301,8 +303,8 @@ def build_parser() -> argparse.ArgumentParser:
     add("--model-ema-decay", default=d.model_ema_decay, type=float, dest="model_ema_decay", help="per-step EMA decay of the parameters and BN buffers; validation and best use the EMA copy, which the checkpoint carries (0 = off)")
     add("--mixup-alpha", default=d.mixup_alpha, type=float, dest="mixup_alpha", help=not_yet)
     add("--cutmix-alpha", default=d.cutmix_alpha, type=float, dest="cutmix_alpha", help=not_yet)
-    add("--auto-augment", default=d.auto_augment, choices=("", "ra", "ta_wide"), dest="auto_augment", help=not_yet)
-    add("--random-erase", default=d.random_erase, type=float, dest="random_erase", help=not_yet)
+    add("--auto-augment", default=d.auto_augment, choices=("", "ra", "ta_wide"), dest="auto_augment", help="train-time auto-augment policy: RandAugment or TrivialAugmentWide (moves the train split onto the PIL stack)")
+    add("--random-erase", default=d.random_erase, type=float, dest="random_erase", help="RandomErasing probability on the train stack (0 = off; moves the train split onto the PIL stack)")
     add("--synthetic-size", default=d.synthetic_size, type=int, dest="synthetic_size", help="synthetic train-set size (0 = auto; val set is half)")
     add("--val-resize", default=d.val_resize, type=int, dest="val_resize", help="val shorter-edge resize before the center crop")
     add("--gamma", default=d.gamma, type=float, metavar="gamma", help="lr decay factor")
@@ -311,9 +313,9 @@ def build_parser() -> argparse.ArgumentParser:
     add("--checkpoint-backend", default=d.checkpoint_backend, choices=["msgpack", "orbax"], dest="checkpoint_backend", help="msgpack: tpudist's checkpoint.msgpack every epoch; orbax is " + not_yet)
     add("--keep-checkpoints", default=d.keep_checkpoints, type=int, dest="keep_checkpoints", help="keep the newest N per-epoch checkpoint-epXXXXX.msgpack copies (and N quarantined files) for the fallback walk; 0 = live file only")
     add("--inject", default=d.inject, help=not_yet)
-    add("--data-retries", default=d.data_retries, type=int, dest="data_retries", help=not_yet)
-    add("--data-retry-backoff", default=d.data_retry_backoff, type=float, dest="data_retry_backoff", help=not_yet)
-    add("--data-skip-budget", default=d.data_skip_budget, type=int, dest="data_skip_budget", help=not_yet)
+    add("--data-retries", default=d.data_retries, type=int, dest="data_retries", help="retries per failing sample read/decode before skip-and-count")
+    add("--data-retry-backoff", default=d.data_retry_backoff, type=float, dest="data_retry_backoff", help="linear backoff between sample-load retries (seconds)")
+    add("--data-skip-budget", default=d.data_skip_budget, type=int, dest="data_skip_budget", help="skipped samples tolerated per epoch before the loader fails loudly (0 = strict)")
     _bool_flag(p, "telemetry", d.telemetry, "write events.<rank>.jsonl + heartbeats (python -m tpudist.summarize <outpath> reads them)")
     _bool_flag(p, "telemetry_mfu", d.telemetry_mfu, "per-step MFU: the port reports none yet (no compiled cost analysis)")
     add("--metrics-port", default=d.metrics_port, type=int, dest="metrics_port", help=not_yet)

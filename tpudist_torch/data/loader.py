@@ -1,10 +1,11 @@
 """Batched, prefetching data loader and the device prefetcher.
 
 ``DataLoader`` is the port's copy of ``tpudist/data/loader.py``: a thread
-pool assembles each batch into one numpy buffer (numpy's generators and
-PIL release the GIL), and a bounded queue lets batch N+1 assemble while
-step N trains. The retry/skip path for failing samples comes with the
-ImageFolder data.
+pool assembles each batch into one numpy buffer (PIL's decode and the
+native kernels release the GIL), and a bounded queue lets batch N+1
+assemble while step N trains. A failing sample is retried, then skipped within a
+per-epoch budget, as in tpudist; tpudist's elastic cursor, the doctor's
+skip windows and the injected decode faults are not ported.
 
 ``DevicePrefetcher`` is the counterpart of ``tpudist.dist.DevicePrefetcher``
 (``--device_prefetch``): it hands out batches already on the device, and
@@ -18,7 +19,7 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from typing import Iterator, Optional
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
@@ -26,19 +27,41 @@ import torch
 
 class DataLoader:
     def __init__(self, dataset, batch_size: int, sampler=None,
+                 transform: Optional[Callable] = None,
                  num_workers: int = 4, prefetch: int = 2,
-                 drop_last: bool = True, round_up_to: Optional[int] = None):
-        """``sampler`` yields dataset indices (None = sequential). With
-        ``drop_last=False``, ``round_up_to=k`` pads the final partial batch
-        by wrapping to a multiple of k."""
+                 drop_last: bool = True, round_up_to: Optional[int] = None,
+                 seed: int = 0, retries: int = 2,
+                 retry_backoff: float = 0.05, skip_budget: int = 0):
+        """``transform(sample, rng) -> np.ndarray`` runs in the worker
+        threads, with the per-sample generator ``default_rng((seed, epoch,
+        index))``. ``sampler`` yields dataset indices (None = sequential).
+        With ``drop_last=False``, ``round_up_to=k`` pads the final partial
+        batch by wrapping to a multiple of k.
+
+        A failing read, decode or transform is retried ``retries`` times
+        with linear ``retry_backoff`` seconds, then the sample is skipped:
+        counted in ``samples_skipped`` and its slot refilled with the next
+        loadable sample of the same batch. Past ``skip_budget`` distinct
+        skipped samples in one epoch the loader raises (0 = the first
+        persistent failure raises). ``samples_retried`` counts loads that a
+        retry healed; both meters restart every epoch."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.sampler = sampler
+        self.transform = transform
         self.num_workers = max(1, num_workers)
         self.prefetch = max(1, prefetch)
         self.drop_last = drop_last
         self.round_up_to = round_up_to
+        self.seed = seed
         self.epoch = 0
+        self.retries = max(0, retries)
+        self.retry_backoff = max(0.0, retry_backoff)
+        self.skip_budget = max(0, skip_budget)
+        self.samples_skipped = 0
+        self.samples_retried = 0
+        self._stats_lock = threading.Lock()
+        self._failed_keys: set[int] = set()   # distinct bad samples, per epoch
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
@@ -64,30 +87,84 @@ class DataLoader:
     def __len__(self) -> int:
         return len(self._index_batches())
 
+    def _load_sample(self, ds_index: int):
+        """One sample through read → decode → transform, retried; the last
+        error is re-raised once the retries are spent."""
+        last_err = None
+        for attempt in range(self.retries + 1):
+            try:
+                sample, label = self.dataset[ds_index]
+                if self.transform is not None:
+                    rng = np.random.default_rng(
+                        (self.seed, self.epoch, ds_index))
+                    sample = self.transform(sample, rng)
+                sample = np.asarray(sample, dtype=np.float32)
+                if attempt:
+                    with self._stats_lock:
+                        self.samples_retried += 1
+                return sample, label
+            except Exception as e:           # noqa: BLE001 — re-raised below
+                last_err = e
+                if attempt < self.retries and self.retry_backoff > 0:
+                    time.sleep(self.retry_backoff * (attempt + 1))
+        raise last_err
+
+    def _fill(self, batch_idx: np.ndarray, pos: int):
+        """The sample for slot ``pos``: its own, or else the next loadable
+        one of the batch. Each distinct bad sample is charged to the skip
+        budget once an epoch, and a known-bad one is not loaded again."""
+        last_err = None
+        for k in range(len(batch_idx)):
+            cand = int(batch_idx[(pos + k) % len(batch_idx)])
+            with self._stats_lock:
+                if cand in self._failed_keys:
+                    continue
+            try:
+                return self._load_sample(cand)
+            except Exception as e:           # noqa: BLE001 — counted below
+                last_err = e
+                with self._stats_lock:
+                    if cand not in self._failed_keys:
+                        self._failed_keys.add(cand)
+                        self.samples_skipped += 1
+                    skipped = self.samples_skipped
+                if skipped > self.skip_budget:
+                    raise RuntimeError(
+                        f"data-path corruption budget exceeded: {skipped} "
+                        f"sample(s) still failing after {self.retries} "
+                        f"retries (budget {self.skip_budget}); last error "
+                        f"on sample {cand}: {e}") from e
+        raise RuntimeError(f"no loadable sample in the batch: all "
+                           f"{len(batch_idx)} candidates failed") from last_err
+
     def _assemble(self, batch_idx: np.ndarray):
+        images = None
         labels = np.empty((len(batch_idx),), dtype=np.int64)
-        first, labels[0] = self.dataset[int(batch_idx[0])]
-        images = np.empty((len(batch_idx),) + np.shape(first), np.float32)
-        images[0] = first
-        cursor = iter(range(1, len(batch_idx)))
+        cursor = iter(range(len(batch_idx)))
         lock = threading.Lock()
         errors: list[BaseException] = []
 
         def worker():
+            nonlocal images
             while True:
                 with lock:
                     pos = next(cursor, None)
                 if pos is None or errors:
                     return
                 try:
-                    images[pos], labels[pos] = self.dataset[
-                        int(batch_idx[pos])]
-                except BaseException as e:   # noqa: BLE001 — re-raised below
+                    sample, label = self._fill(batch_idx, pos)
+                except Exception as e:       # noqa: BLE001 — re-raised below
                     errors.append(e)
                     return
+                with lock:
+                    if images is None:
+                        images = np.empty((len(batch_idx),) + sample.shape,
+                                          np.float32)
+                images[pos] = sample
+                labels[pos] = label
 
         threads = [threading.Thread(target=worker)
-                   for _ in range(min(self.num_workers, len(batch_idx) - 1))]
+                   for _ in range(min(self.num_workers, len(batch_idx)))]
         for t in threads:
             t.start()
         for t in threads:
@@ -98,6 +175,9 @@ class DataLoader:
 
     def __iter__(self) -> Iterator:
         batches = self._index_batches()
+        with self._stats_lock:               # the meters are per epoch
+            self.samples_skipped = self.samples_retried = 0
+            self._failed_keys = set()
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 

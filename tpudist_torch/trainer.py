@@ -34,8 +34,13 @@ substituted; the run's own outpath, and ``--resume auto``, walk
 ``load_checkpoint_with_fallback``. So ``python -m tpudist_torch.launch
 --max-restarts K`` with ``--resume auto --overwrite keep`` continues from
 the last completed epoch. With ``--model-ema-decay`` the EMA module is
-what validation (and so ``best``) measures. The doctor, fault injection,
-the preemption drain and the profiler window come later.
+what validation (and so ``best``) measures.
+
+With ``--data DIR`` it logs the path each split's images take
+(``=> data path: ...``) and, after an epoch in which the loader skipped
+or retried a sample, tpudist's ``||==> Data:`` line; the ``epoch`` event
+then carries ``samples_skipped`` and ``samples_retried``. The doctor,
+fault injection, the preemption drain and the profiler window come later.
 """
 
 from __future__ import annotations
@@ -403,6 +408,11 @@ class Trainer:
         drain.drain()
         self.log(f"||==> Train: Epoch[{epoch}]\tLoss {losses.avg:.4e}\t"
                  f"Acc@1 {top1.avg:6.2f}")
+        skipped, retried = _data_meters(loader)
+        if skipped or retried:
+            # Skips spent the corruption budget; retries healed a load.
+            self.log(f"||==> Data: Epoch[{epoch}]\tsamples_skipped {skipped}"
+                     f"\tsamples_retried {retried}")
         return losses.avg, top1.avg
 
     def validate(self, loader, epoch: int) -> float:
@@ -436,6 +446,11 @@ class Trainer:
         if train_loader is None or val_loader is None:
             train_loader, val_loader = build_train_val_loaders(
                 cfg, self.rank, self.world)
+            if cfg.data and not cfg.synthetic:
+                self.log("=> data path: " + "; ".join(
+                    f"{split} {path} ({why})" for split, (path, why) in (
+                        ("train", train_loader.data_path),
+                        ("val", val_loader.data_path))))
         try:
             if cfg.evaluate:
                 return self.validate(val_loader, epoch=-1)
@@ -464,9 +479,14 @@ class Trainer:
                          f"total {total_time:.2f}s"
                          + (f", peak_hbm {peak:.3f}GB" if peak else ""))
                 if self.telemetry is not None:
+                    extra = {"peak_hbm_gb": peak} if peak else {}
+                    skipped, retried = _data_meters(train_loader)
+                    if skipped or retried:
+                        extra.update(samples_skipped=skipped,
+                                     samples_retried=retried)
                     self.telemetry.emit(
                         "epoch", epoch=epoch, seconds=round(epoch_time, 3),
-                        **({"peak_hbm_gb": peak} if peak else {}))
+                        **extra)
             return self.best_acc1
         finally:
             if self.telemetry is not None:
@@ -475,6 +495,13 @@ class Trainer:
                     best_acc1=float(self.best_acc1),
                     kernel_launches={**fused_norm.LAUNCHES,
                                      **flash_attention.LAUNCHES})
+
+
+def _data_meters(loader) -> tuple[int, int]:
+    """The epoch's ``samples_skipped`` and ``samples_retried`` of a loader
+    (0 for one without the meters)."""
+    return (getattr(loader, "samples_skipped", 0),
+            getattr(loader, "samples_retried", 0))
 
 
 def run(cfg: Config) -> float:
