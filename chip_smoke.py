@@ -98,8 +98,28 @@ line and raising on failure:
    the launcher with ``--data-skip-budget 1``: B1–B4 9/8/9/8 and B5–B7
    12/12/12 a step, the truncated JPEG skipped once an epoch and logged,
    the share of the wall spent waiting for data;
-9. one ``{"kernels": [...]}`` line;
-10. last, ``{"ok": true, "device": {...}}``.
+9. preemption, fault injection and the reference's files:
+   ``preempt_resume`` sends SIGTERM to the launcher of a
+   ``checkpoint_resume`` run mid-epoch: the rank drains, writes its
+   emergency checkpoint (a live file whose ``data_cursor`` counts whole
+   steps), exits 75, the launcher 130; the same command continues the
+   epoch at the cursor and ends where the straight run A ended, with
+   9/8/9/8 B1–B4 launches a step in both runs; the emergency save's
+   seconds and the drain's are printed. ``faults_on_card``:
+   ``checkpoint_corrupt`` on a short resnet18 run's second save (the
+   resume quarantines both files, falls back to the history and emits the
+   ``fault`` events), ``bitflip`` refused by name by the trainer and the
+   launcher, and, on the ImageFolder tree, ``decode_fail:p=0.1,fails=1``
+   given to the launcher (retries, no new skip). ``torch_checkpoint``:
+   that run's ``checkpoint.pth.tar`` and ``model_best.pth.tar`` (the EMA)
+   hold the reference's schema and the run's weights, ``--evaluate`` from
+   ``--pretrained-path`` equals ``--evaluate`` from ``--resume``; the
+   ViT-B/16 of ``checkpoint_vit`` goes out to a ``.pth.tar`` and back
+   into a fresh model with bit-equal logits through B5, two ViT-B/16 steps
+   start from that file (B5–B7 12/12/12 a step), and ``--pretrained``
+   with an empty ``$TORCH_HOME`` fails, naming where it searched;
+10. one ``{"kernels": [...]}`` line;
+11. last, ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, without a CUDA card or without the
 rest of the repository. ``python3 chip_smoke.py --mutations`` runs only
@@ -122,6 +142,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -141,6 +162,7 @@ from tpudist_torch import dist as dist_lib
 from tpudist_torch import launch as launch_lib
 from tpudist_torch import telemetry as telemetry_lib
 from tpudist_torch import train as train_lib
+from tpudist_torch.compat import torch_checkpoint as torch_ckpt
 from tpudist_torch.compat.jax_params import state_dict_from_jax
 from tpudist_torch.data import autoaugment as data_aa
 from tpudist_torch.data import native as data_native
@@ -1540,11 +1562,10 @@ def phase_checkpoint_resume(root: str, card: dict) -> dict:
     return out
 
 
-def _train_in_process(argv: list, what: str, val_batches: int):
-    """``python -m tpudist_torch ARGV`` in this process: its output
-    (printed), this run's events (validated) and the flash launches, which
-    must be 12 of each kernel a train step and 12 forwards a validation
-    batch."""
+def _run_cli(argv: list, what: str) -> tuple[str, list, dict]:
+    """``python -m tpudist_torch ARGV`` in this process (the kernel
+    counts set to 0 just before it): its output (printed), this run's
+    events (validated) and the launches it made."""
     outdir = argv[argv.index("--outpath") + 1]
     path = telemetry_lib.events_path(outdir, 0)
     skip = 0
@@ -1554,11 +1575,9 @@ def _train_in_process(argv: list, what: str, val_batches: int):
     fa.reset_counts()
     fn.reset_counts()
     buf = io.StringIO()
-    t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = train_cli.main(argv)
-    wall_s = time.perf_counter() - t0
-    launches = dict(fa.LAUNCHES)
+    launches = {**fn.LAUNCHES, **fa.LAUNCHES}
     text = buf.getvalue()
     print(text, end="", flush=True)
     if rc != 0 or not text.splitlines()[-1].startswith("best_acc1="):
@@ -1567,6 +1586,17 @@ def _train_in_process(argv: list, what: str, val_batches: int):
         events = [json.loads(ln) for ln in f][skip:]
     for ev in events:
         telemetry_lib.validate_event(ev)
+    return text, events, launches
+
+
+def _train_in_process(argv: list, what: str, val_batches: int):
+    """``_run_cli`` of a ViT run, which must launch each flash kernel 12
+    times a train step and the forward 12 times a validation batch: its
+    output, events, flash launches and wall seconds."""
+    t0 = time.perf_counter()
+    text, events, launches = _run_cli(argv, what)
+    wall_s = time.perf_counter() - t0
+    launches = {k: launches[k] for k in fa.KERNELS}
     n = sum(e["type"] == "step" for e in events)
     want = {"flash_fwd": LAYERS * (n + val_batches),
             "flash_bwd_dq": LAYERS * n, "flash_bwd_dkv": LAYERS * n}
@@ -2643,9 +2673,383 @@ def phase_train_imagefolder(root: str) -> dict:
     return out
 
 
+# -- phase 9: preemption, fault injection and the reference's files ---------
+
+# The step of resnet18's epoch 1 (8 steps) at which the launcher is sent
+# SIGTERM: its log line at -p 1. The drain lands a step or two later.
+PREEMPT_AT = "Epoch[1]:\t[2/8]"
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def _runs(events: list) -> list:
+    """The events of each run in an events file, run_start to run_end."""
+    runs = []
+    for e in events:
+        if e["type"] == "run_start":
+            runs.append([])
+        runs[-1].append(e)
+    return runs
+
+
+def _norm_launches(run: list) -> tuple[int, dict, dict]:
+    """A run's train steps, its B1–B4 launches (from run_end) and the
+    9/8/9/8 a step it must have made."""
+    n = sum(e["type"] == "step" for e in run)
+    got = {k: run[-1]["kernel_launches"][k] for k in fn.KERNELS}
+    return n, got, {k: v * n for k, v in R18_PER_STEP.items()}
+
+
+def phase_preempt_resume(root: str, card: dict, run_a: str) -> dict:
+    """resnet18 at checkpoint_resume's settings through ``python -m
+    tpudist_torch.launch -n 1 -- ... --resume auto --overwrite keep``:
+    SIGTERM to the launcher at PREEMPT_AT. The rank must drain (its
+    ``caught SIGTERM`` and ``exiting 75 (resumable)`` lines, a
+    ``preempt`` event, a ``checkpoint_save`` of kind ``emergency``), the
+    launcher exit 130, and the live file verify against its sidecar with
+    a cursor of whole steps in epoch 1. The same command then continues
+    epoch 1 at that cursor and ends where checkpoint_resume's straight
+    run A ended (bit-equal, or within 3x the run-to-run spread), B1–B4
+    launching 9/8/9/8 times a step in both runs."""
+    out = os.path.join(root, "r18_preempt")
+    args = CKPT_R18_ARGS + ["-p", "1", "--resume", "auto", "--overwrite",
+                            "keep"]
+    cmd = [sys.executable, "-m", "tpudist_torch.launch", "-n", "1", "--",
+           sys.executable, "-m", "tpudist_torch", "--distributed", *args,
+           "--telemetry", "--seed", "0", "--outpath", out]
+    proc = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    watchdog = threading.Timer(300, proc.kill)
+    watchdog.start()
+    lines, t_sig = [], None
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith(PREEMPT_AT):
+                proc.send_signal(signal.SIGTERM)
+                t_sig = time.time()
+                break
+        rest, err = proc.communicate(timeout=120)
+    finally:
+        watchdog.cancel()
+    t_exit = time.time()
+    text = "".join(lines) + rest
+    print(text, end="", flush=True)
+    if t_sig is None or proc.returncode != 130 \
+            or "=> caught SIGTERM — draining for preemption" not in text \
+            or "=> emergency checkpoint complete; exiting 75 (resumable)" \
+            not in text:
+        raise RuntimeError(f"preempt_resume: launcher exit "
+                           f"{proc.returncode}, SIGTERM sent {t_sig}: "
+                           f"{err[-3000:]}")
+    live = os.path.join(out, ckpt_lib.CKPT_NAME)
+    tree = ckpt_lib.load_checkpoint(out)
+    cursor = tree.get("data_cursor") or {}
+    consumed = int(cursor.get("consumed", 0))
+    with open(telemetry_lib.events_path(out, 0)) as f:
+        first = [json.loads(ln) for ln in f]
+    for ev in first:
+        telemetry_lib.validate_event(ev)
+    preempt = [e for e in first if e["type"] == "preempt"]
+    saves = [e for e in first if e["type"] == "checkpoint_save"]
+    if not (os.path.exists(live + ".sha256")
+            and ckpt_lib.verify_checkpoint(live)) or tree["epoch"] != 1 \
+            or cursor.get("epoch") != 1 or not 0 < consumed < 2048 \
+            or consumed % TRAIN_B or [e["signal"] for e in preempt] \
+            != ["SIGTERM"] or [e["kind"] for e in saves] \
+            != ["epoch", "emergency"] \
+            or int(tree["state"]["step"]) != 8 + consumed // TRAIN_B:
+        raise RuntimeError(f"preempt_resume: the emergency file: epoch "
+                           f"{tree['epoch']}, cursor {cursor}, step "
+                           f"{tree['state']['step']}, preempt {preempt}, "
+                           f"saves {saves}")
+    emergency = saves[-1]
+    end = first[-1]
+    del tree
+    text_r, row_r, events = _launch_trainer(
+        args, "the resumed resnet18 run", outdir=out)
+    resumed = RESUMED_RE.search(text_r)
+    cont = (f"=> checkpoint carries a mid-epoch sample cursor: epoch 1 "
+            f"continues at global sample {consumed} (no replay, no drop)")
+    runs = _runs(events)
+    counts = {name: _norm_launches(run)
+              for name, run in zip(("preempted", "relaunch"), runs)}
+    if resumed is None or int(resumed.group(2)) != 1 or cont not in text_r \
+            or len(runs) != 2 or any(got != want for _, got, want
+                                     in counts.values()) \
+            or sum(n for n, _, _ in counts.values()) != 24:
+        raise RuntimeError(f"preempt_resume: resumed "
+                           f"{resumed and resumed.group(0)}, cursor line "
+                           f"{cont in text_r}, launches {counts}")
+    parts = {"params": ("state", "params"),
+             "batch_stats": ("state", "batch_stats"),
+             "momentum": ("state", "opt_state", "inner_state", "1", "trace"),
+             "step": ("state", "step")}
+
+    def rerun():
+        again = os.path.join(root, "r18_a3")
+        _launch_trainer(CKPT_R18_ARGS, "another straight resnet18 run",
+                        outdir=again)
+        tree = ckpt_lib.load_checkpoint(again)
+        shutil.rmtree(again, ignore_errors=True)
+        return tree
+    held = _resumed_vs_straight(ckpt_lib.load_checkpoint(run_a),
+                                ckpt_lib.load_checkpoint(out), parts, rerun)
+    shutil.rmtree(out, ignore_errors=True)
+    row = {"phase": "preempt_resume", "arch": "resnet18", "batch": TRAIN_B,
+           "dtype": "bfloat16", "card": card["nvidia_smi"], **held,
+           "cursor": cursor, "steps": {k: n for k, (n, _, _)
+                                       in counts.items()},
+           "fused_norm_launches": {k: got for k, (_, got, _)
+                                   in counts.items()},
+           "emergency_save_s": emergency["seconds"],
+           "sigterm_to_boundary_s": preempt[0]["t"] - t_sig,
+           "sigterm_to_rank_exit_s": end["t"] - t_sig,
+           "sigterm_to_launcher_exit_s": t_exit - t_sig,
+           "resumed_line": resumed.group(0),
+           "relaunch_wall_s": row_r["wall_s"]}
+    emit(row)
+    return row
+
+
+def phase_faults_on_card(root: str, card: dict) -> dict:
+    """``--inject`` on the card. ``checkpoint_corrupt@step=2``: resnet18
+    (batch 256, 2 steps an epoch, 10 classes so that an epoch marks best,
+    ``--model-ema-decay``, ``--torch_checkpoints``) trains 2 epochs, the
+    second save's live file and history copy are flipped after their
+    sidecars; ``--resume auto`` for a third epoch must quarantine both,
+    fall back to the first epoch's history file and emit the ``fault``
+    events. Then ``bitflip`` is refused at startup by name, by the
+    trainer and by the launcher. The run dir is torch_checkpoint's."""
+    out = os.path.join(root, "r18_faults")
+    args = CKPT_R18_ARGS + ["--synthetic-size", "512", "--num-classes", "10",
+                            "--model-ema-decay", "0.9", "--torch_checkpoints",
+                            "--telemetry", "--seed", "0", "--outpath", out]
+    text1, ev1, l1 = _run_cli(args + ["--epochs", "2", "--inject",
+                                      "checkpoint_corrupt@step=2"],
+                              "the corrupted resnet18 run")
+    text2, ev2, l2 = _run_cli(args + ["--epochs", "3", "--resume", "auto",
+                                      "--overwrite", "keep"],
+                              "the fallback resnet18 run")
+    fired = [(e["point"], e.get("step")) for e in ev1 if e["type"] == "fault"]
+    quarantined = [e["path"] for e in ev2 if e["type"] == "fault"
+                   and e["point"] == "checkpoint_quarantine"]
+    resumed = RESUMED_RE.search(text2)
+    counts = {"corrupt_run": _norm_launches(ev1),
+              "fallback_run": _norm_launches(ev2)}
+    if fired != [("checkpoint_corrupt", 2)] \
+            or text1.count("[tpudist.faults] checkpoint_corrupt flipped 64 "
+                           "bytes in") != 2 \
+            or text2.count("fails sha256 verification — quarantined to") != 2 \
+            or sorted(quarantined) != ["checkpoint-ep00002.msgpack.corrupt",
+                                       "checkpoint.msgpack.corrupt"] \
+            or resumed is None or not resumed.group(1).endswith(
+                "checkpoint-ep00001.msgpack") or int(resumed.group(2)) != 1 \
+            or ckpt_lib.load_checkpoint(out)["epoch"] != 3 \
+            or any(got != want for _, got, want in counts.values()):
+        raise RuntimeError(f"faults_on_card: fired {fired}, quarantined "
+                           f"{quarantined}, resumed "
+                           f"{resumed and resumed.group(0)}, launches "
+                           f"{counts}")
+    refused = os.path.join(root, "refused")
+    try:
+        train_cli.main(CKPT_R18_ARGS + ["--inject", "bitflip@step=1",
+                                        "--outpath", refused])
+    except ValueError as e:
+        trainer_msg = str(e)
+    else:
+        raise RuntimeError("faults_on_card: the trainer ran with bitflip")
+    r = subprocess.run([sys.executable, "-m", "tpudist_torch.launch", "-n",
+                        "1", "--inject", "bitflip@step=1", "--",
+                        sys.executable, "-c", "0"], cwd=HERE,
+                       capture_output=True, text=True, timeout=120)
+    name = "bitflip (the doctor is not in the port)"
+    if name not in trainer_msg or os.path.exists(refused) \
+            or r.returncode != 2 or name not in r.stderr:
+        raise RuntimeError(f"faults_on_card: bitflip not refused by name: "
+                           f"{trainer_msg!r}; launcher {r.returncode} "
+                           f"{r.stderr[-500:]!r}")
+    row = {"phase": "faults_on_card", "part": "checkpoint_corrupt",
+           "card": card["nvidia_smi"], "fired": fired,
+           "quarantined": sorted(quarantined),
+           "resumed_line": resumed.group(0),
+           "steps": {k: n for k, (n, _, _) in counts.items()},
+           "fused_norm_launches": {k: got for k, (_, got, _)
+                                   in counts.items()},
+           "bitflip_refused": {"trainer": trainer_msg,
+                               "launcher": r.stderr.strip().splitlines()[-1]},
+           "run_dir": out}
+    emit(row)
+    return row
+
+
+def phase_decode_fail(tree: str, images: dict, card: dict) -> dict:
+    """``--inject decode_fail:p=0.1,fails=1`` given to the launcher: one
+    epoch of train_imagefolder's resnet18 run on its JPEG tree. Each
+    failed load heals on its first retry: ``samples_retried`` > 0, a
+    ``fault`` event each, and ``samples_skipped`` is train_imagefolder's
+    (the truncated JPEG alone)."""
+    workers = str(min(os.cpu_count() or 1, 32))
+    text, row, events = _launch_trainer(
+        ["-a", "resnet18", "--use_amp", "--fused-bn", "on", "-b",
+         str(TRAIN_B), "--data", tree, "--image-size", str(TRAIN_PX),
+         "--num-classes", "1000", "--epochs", "1", "-p", "1",
+         "--data-skip-budget", "1", "-j", workers],
+        "the resnet18 run under decode_fail", timeout=600,
+        launch_args=("--inject", "decode_fail:p=0.1,fails=1"))
+    epoch = [e for e in events if e["type"] == "epoch"]
+    fired = sum(e["type"] == "fault" and e["point"] == "decode_fail"
+                for e in events)
+    n, got, want = _norm_launches(events)
+    skipped = [e.get("samples_skipped", 0) for e in epoch]
+    retried = [e.get("samples_retried", 0) for e in epoch]
+    if skipped != images["resnet18"]["samples_skipped"][:1] \
+            or not retried or not retried[0] > 0 or fired != retried[0] \
+            or got != want:
+        raise RuntimeError(f"decode_fail: skipped {skipped} (without "
+                           f"injection {images['resnet18']['samples_skipped']}"
+                           f"), retried {retried}, fault events {fired}, "
+                           f"launches {got}, want {want}")
+    out = {"phase": "faults_on_card", "part": "decode_fail",
+           "card": card["nvidia_smi"], "samples_skipped": skipped[0],
+           "samples_retried": retried[0], "fault_events": fired,
+           "train_steps": n, "fused_norm_launches": got,
+           "wall_s": row["wall_s"]}
+    emit(out)
+    return out
+
+
+def _state_dicts_equal(a: dict, b: dict) -> bool:
+    return sorted(a) == sorted(b) and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+        and a[k].is_contiguous() and torch.equal(a[k], b[k]) for k in a)
+
+
+def phase_torch_checkpoint(root: str, card: dict, r18_dir: str,
+                           vit_dir: str) -> dict:
+    """The reference's ``.pth.tar`` files on the card. faults_on_card's
+    run wrote ``checkpoint.pth.tar`` (the live weights) and
+    ``model_best.pth.tar`` (the EMA weights): each loads with
+    ``torch.load(weights_only=False)``, holds the reference's four keys
+    and equals the msgpack file's weights in torchvision's names;
+    ``--evaluate`` from ``--pretrained --pretrained-path`` of the first
+    gives the top-1 of ``--resume`` of the msgpack file. ViT-B/16:
+    checkpoint_vit's final tree, exported and imported into a fresh model,
+    gives bit-equal bf16 logits at batch 8 with ``--flash on`` (B5 12 a
+    forward); two training steps from ``--pretrained-path`` of that file
+    launch B5–B7 12/12/12 a step. ``--pretrained`` with an empty
+    ``$TORCH_HOME`` fails, naming the directory it searched."""
+    out = {"phase": "torch_checkpoint", "card": card["nvidia_smi"]}
+    tree = ckpt_lib.load_checkpoint(r18_dir)
+    files = {}
+    for name, src in (("checkpoint.pth.tar", tree["state"]),
+                      ("model_best.pth.tar", ckpt_lib.load_checkpoint(
+                          os.path.join(r18_dir, ckpt_lib.BEST_NAME))[
+                              "state"]["ema_params"])):
+        ref = torch.load(os.path.join(r18_dir, name), map_location="cpu",
+                         weights_only=False)
+        want = torch_ckpt.flax_to_torch_state_dict(
+            src["params"], src["batch_stats"], "resnet18")
+        if sorted(ref) != ["arch", "best_acc1", "epoch", "state_dict"] \
+                or ref["arch"] != "resnet18" \
+                or not _state_dicts_equal(ref["state_dict"], want):
+            raise RuntimeError(f"torch_checkpoint: {name} is not the "
+                               f"reference's file of the run's weights")
+        files[name] = {"epoch": ref["epoch"], "best_acc1": ref["best_acc1"],
+                       "tensors": len(ref["state_dict"]),
+                       "bytes": os.path.getsize(os.path.join(r18_dir, name))}
+    evals = {}
+    for how, extra in (
+            ("resume_msgpack", ["--resume", os.path.join(
+                r18_dir, ckpt_lib.CKPT_NAME)]),
+            ("pretrained_pth", ["--pretrained", "--pretrained-path",
+                                os.path.join(r18_dir, "checkpoint.pth.tar")])):
+        text, _, _ = _run_cli(
+            CKPT_R18_ARGS + ["--synthetic-size", "512", "--num-classes", "10",
+                             "--evaluate", "--telemetry", "--seed", "0",
+                             "--outpath", os.path.join(root, how)] + extra,
+            f"--evaluate from {how}")
+        evals[how] = [ln for ln in text.splitlines()
+                      if ln.startswith("||==> Val: Epoch[-1]")]
+    if len(evals["resume_msgpack"]) != 1 \
+            or evals["resume_msgpack"] != evals["pretrained_pth"]:
+        raise RuntimeError(f"torch_checkpoint: --evaluate differs: {evals}")
+    out["resnet18"] = {"files": files, "evaluate": evals}
+    # ViT-B/16: the round trip through the reference's file.
+    vtree = ckpt_lib.load_checkpoint(vit_dir)
+    kw = dict(image_size=224, flash=True, dtype=torch.bfloat16)
+    live = create_model("vit_b_16", **kw)
+    live.load_state_dict(state_dict_from_jax("vit_b_16",
+                                             vtree["state"]["params"]))
+    live.cuda().eval()
+    path = os.path.join(root, "vit_b_16.pth.tar")
+    t0 = time.perf_counter()
+    torch_ckpt.save_reference_checkpoint(path, live, "vit_b_16",
+                                         int(vtree["epoch"]) - 1,
+                                         float(vtree["best_acc1"]))
+    export_s = time.perf_counter() - t0
+    del vtree
+    fresh = create_model("vit_b_16", **kw).cuda().eval()
+    t0 = time.perf_counter()
+    epoch, best = torch_ckpt.restore_from_torch(fresh, path, "vit_b_16")
+    import_s = time.perf_counter() - t0
+    images = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (8, 224, 224, 3)).astype(np.float32)).cuda()
+    with torch.inference_mode():
+        want = live(images)
+        fa.reset_counts()
+        got = fresh(images)
+        torch.cuda.synchronize()
+        b5 = dict(fa.LAUNCHES)
+    del live, fresh
+    if not torch.equal(got, want) or b5 != {"flash_fwd": LAYERS,
+                                            "flash_bwd_dq": 0,
+                                            "flash_bwd_dkv": 0} \
+            or not torch.isfinite(got).all() or got.shape != (8, 1000):
+        raise RuntimeError(f"torch_checkpoint: the ViT-B/16 round trip: "
+                           f"max |diff| {(got - want).abs().max().item()}, "
+                           f"launches {b5}")
+    vit = {"bytes": os.path.getsize(path), "export_s": export_s,
+           "import_s": import_s, "epoch": epoch, "best_acc1": best,
+           "logits_bit_equal": True, "logits_launches": b5}
+    steps_dir = os.path.join(root, "vit_pretrained")
+    text, events, launches, wall_s = _train_in_process(
+        CKPT_VIT_ARGS + ["--pretrained", "--pretrained-path", path,
+                         "--synthetic-size", str(2 * VIT_B), "--epochs",
+                         "1",
+                         "--outpath", steps_dir],
+        "two ViT-B/16 steps from the reference's file", val_batches=1)
+    steps = sum(e["type"] == "step" for e in events)
+    if steps != 2 or f"=> using pre-trained model 'vit_b_16' (from " \
+            f"{path})" not in text:
+        raise RuntimeError(f"torch_checkpoint: {steps} ViT steps from "
+                           f"{path}")
+    vit.update(train_steps=steps, train_launches=launches,
+               train_wall_s=wall_s)
+    out["vit_b_16"] = vit
+    # --pretrained with nothing on disk.
+    home = os.path.join(root, "empty_torch_home")
+    os.makedirs(home)
+    env = {k: v for k, v in os.environ.items()
+           if k != "TPUDIST_PRETRAINED_DIR"}
+    env["TORCH_HOME"] = home
+    r = subprocess.run(
+        [sys.executable, "-m", "tpudist_torch", *CKPT_R18_ARGS, "--pretrained",
+         "--outpath", os.path.join(root, "no_weights")], cwd=HERE, env=env,
+        capture_output=True, text=True, timeout=300)
+    searched = f"searched ['{os.path.join(home, 'hub', 'checkpoints')}']"
+    if r.returncode == 0 or searched not in r.stderr:
+        raise RuntimeError(f"torch_checkpoint: --pretrained without a file "
+                           f"exited {r.returncode}: {r.stderr[-1000:]}")
+    out["pretrained_missing"] = r.stderr.strip().splitlines()[-1]
+    emit(out)
+    return out
+
+
 def _checkpoint_launches(ck: dict, name: str) -> dict:
-    """A kernel's launches on each checkpoint path and each ImageFolder
-    run (counted from 0 in each run's process)."""
+    """A kernel's launches on each checkpoint path, each ImageFolder run,
+    the preemption and fault runs and the ``.pth.tar`` paths (counted
+    from 0 in each run's process, or set to 0 before each run in this
+    one)."""
     out = {}
     r18 = ck["checkpoint_resume"]["fused_norm_launches"]
     if name in r18["a"]:
@@ -2663,6 +3067,19 @@ def _checkpoint_launches(ck: dict, name: str) -> dict:
                      ("vit_b_16", "train_imagefolder_vit")):
         if name in images[run]["launches"]:
             out[key] = images[run]["launches"][name]
+    for phase in ("preempt_resume", "faults_on_card"):
+        for run, got in ck[phase]["fused_norm_launches"].items():
+            if name in got:
+                out[f"{phase}_{run}"] = got[name]
+    if name in ck["decode_fail"]["fused_norm_launches"]:
+        out["faults_on_card_decode_fail"] = \
+            ck["decode_fail"]["fused_norm_launches"][name]
+    vit = ck["torch_checkpoint"]["vit_b_16"]
+    if name in vit["train_launches"]:
+        out["torch_checkpoint_vit_pretrained_steps"] = \
+            vit["train_launches"][name]
+    if name == "flash_fwd":
+        out["torch_checkpoint_vit_logits"] = vit["logits_launches"][name]
     return out
 
 
@@ -2807,6 +3224,12 @@ def main(argv=None) -> int:
         ck["serve_checkpoint"] = phase_serve_checkpoint(
             ck["checkpoint_vit"]["run_dir"],
             ck["checkpoint_resume"]["run_dir"], card)
+        ck["preempt_resume"] = phase_preempt_resume(
+            root, card, ck["checkpoint_resume"]["run_dir"])
+        ck["faults_on_card"] = phase_faults_on_card(root, card)
+        ck["torch_checkpoint"] = phase_torch_checkpoint(
+            root, card, ck["faults_on_card"]["run_dir"],
+            ck["checkpoint_vit"]["run_dir"])
     finally:
         shutil.rmtree(root, ignore_errors=True)
     root = tempfile.mkdtemp(prefix="tpudist_torch_images_")
@@ -2817,6 +3240,7 @@ def main(argv=None) -> int:
         phase_native_vs_plain_host(tree)
         phase_loader_rates(tree, step)
         images = phase_train_imagefolder(tree)
+        ck["decode_fail"] = phase_decode_fail(tree, images, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     ck["train_imagefolder"] = images

@@ -22,7 +22,8 @@
   ``--resume auto`` for the third; an empty outpath starts fresh and says
   so; a corrupt live file falls back to the history and is quarantined;
   another arch, another optimizer, a ``dynamic_scale`` and a mid-epoch
-  ``data_cursor`` are refused by name.
+  ``data_cursor`` counted over the doctor's excised order (its replay
+  windows) are refused by name.
 - The slow tier runs the launcher's restart: rank 0 of two gloo ranks dies
   after the first epoch's save, the relaunch resumes, and the final file
   equals an uninterrupted run's.
@@ -647,7 +648,8 @@ def test_cli_refuses_a_mismatched_checkpoint_by_name(two_epoch_run, tmp_path,
                                      "'resnet34'"),
         "optimizer": (["--optimizer", "adamw"], "different --optimizer"),
         "dynamic_scale": ([], "dynamic_scale (float16 loss scaling"),
-        "data_cursor": ([], "mid-epoch data_cursor (epoch 1, 16 samples"),
+        "data_cursor": ([], "a --doctor rollback; its data_cursor counts the "
+                            "excised order"),
     }[what]
     path = str(src / ckpt.CKPT_NAME)
     if what == "dynamic_scale":
@@ -656,7 +658,8 @@ def test_cli_refuses_a_mismatched_checkpoint_by_name(two_epoch_run, tmp_path,
     if what == "data_cursor":
         path = _edited(src, tmp_path / "dc", lambda t: t.update(
             data_cursor={"epoch": 1, "consumed": 16, "samples_skipped": 0,
-                         "samples_retried": 0}))
+                         "samples_retried": 0},
+            doctor={"rollbacks": 1, "poison_windows": {"1": [[0, 8]]}}))
     with pytest.raises(ValueError, match="cannot resume from") as e:
         cli.main(CLI + flags + ["--epochs", "3", "--resume", path,
                                 "--outpath", str(tmp_path / "o")])

@@ -268,7 +268,7 @@ def test_max_restarts_relaunches_every_rank_once(tmp_path, heals_at,
 
 @pytest.mark.parametrize("flags", [
     ["--elastic"], ["--min-ranks", "1"], ["--drain-grace", "5"],
-    ["--inject", "rank_exit@step=1"], ["--telemetry-dir", "/tmp/t"],
+    ["--inject", "bitflip@step=1"], ["--telemetry-dir", "/tmp/t"],
     ["--metrics-port", "0"], ["--straggler-factor", "4"],
     ["--evict-stragglers", "2"], ["--scale-up", "2@10"],
     ["--collective-deadline", "30"], ["--incident-keep", "4"],

@@ -3,9 +3,10 @@
 - Every module of ``tpudist_torch`` and ``chip_smoke`` imports with
   ``jax*``, ``flax*``, ``optax``, ``msgpack`` (absent on the card) and
   ``tpudist``/``tpudist.*`` refused by an import hook (``tpudist_torch``
-  itself stays importable), and a checkpoint round trip and the
-  ImageFolder pipeline (its native and PIL paths, with auto-augment) run
-  there.
+  itself stays importable), among them ``faults`` and ``compat/``'s
+  ``torch_checkpoint`` and ``pretrained``; a checkpoint round trip, an
+  armed fault spec, a ``.pth.tar`` round trip and the ImageFolder
+  pipeline (its native and PIL paths, with auto-augment) run there.
 - Without a CUDA card, ``resolve_device()`` and the serve CLI without
   ``--device cpu`` fail loudly instead of running on the CPU.
 - ``flash_attention`` on a CPU tensor runs the plain version and counts no
@@ -44,6 +45,9 @@ mods = [m.name for m in pkgutil.walk_packages(tpudist_torch.__path__,
                                               "tpudist_torch.")]
 for name in mods:
     importlib.import_module(name)
+for name in ("tpudist_torch.faults", "tpudist_torch.compat.torch_checkpoint",
+             "tpudist_torch.compat.pretrained"):
+    assert name in mods, name
 import chip_smoke
 import tempfile
 import numpy as np
@@ -52,6 +56,18 @@ with tempfile.TemporaryDirectory() as d:
     checkpoint.save_checkpoint({"epoch": 1, "w": np.ones(3, np.float32)},
                                True, d, keep=1)
     assert checkpoint.load_checkpoint(d)["w"].tolist() == [1.0, 1.0, 1.0]
+from tpudist_torch import faults
+faults.configure("decode_fail:p=0.5,fails=1;checkpoint_corrupt@step=3")
+assert faults.classify_exit(75).startswith("preempted")
+faults.configure("")
+from tpudist_torch.compat import torch_checkpoint
+from tpudist_torch.models import create_model
+with tempfile.TemporaryDirectory() as d:
+    path = torch_checkpoint.save_reference_checkpoint(
+        os.path.join(d, "c.pth.tar"), create_model("resnet18", width=8),
+        "resnet18", 0, 1.0)
+    assert torch_checkpoint.restore_from_torch(
+        create_model("resnet18", width=8), path, "resnet18") == (1, 1.0)
 from PIL import Image
 from tpudist_torch.config import Config
 from tpudist_torch.data import build_train_val_loaders

@@ -238,7 +238,7 @@ def test_flag_surface_is_tpudists():
     (["--amp-dtype", "float16"], "--amp-dtype"),
     (["--checkpoint-backend", "orbax"], "--checkpoint-backend orbax"),
     (["--remat"], "--remat"),
-    (["--torch_checkpoints"], "--torch_checkpoints"),
+    (["--profile", "1,3"], "--profile"),
     (["--doctor"], "--doctor"),
     (["--fused-bn", "auto"], "--fused-bn auto"),
     (["--flash", "on"], "--flash on"),

@@ -8,7 +8,7 @@ tpudist writes, byte for byte for the same state: flax's msgpack
     {"epoch": e + 1, "arch", "best_acc1", "layout_version": 2,
      "state": {"step", "params", "batch_stats", "opt_state",
                "dynamic_scale": None, "ema_params", "comm_state": None},
-     "topology": {...}}
+     "topology": {...}, "data_cursor": {...}}
 
 with the weights in flax's layout (``compat.jax_params.jax_tree``) and the
 optimizer state in optax's tree: SGD's ``inject_hyperparams(chain(
@@ -26,8 +26,13 @@ pid-unique temporary renamed into place) and its sha256 sidecar after it;
 ``model_best.msgpack`` on a new best. The fallback walk skips a payload
 with no sidecar or stamped ``suspect`` by tpudist's doctor, quarantines
 one that fails its sha256 or does not parse, and takes the newest that
-passes. Not ported: the orbax backend, the doctor's stamping and the
-fault-injection points.
+passes; a quarantine is a ``fault`` event (point
+``checkpoint_quarantine``) on the trainer's stream. An emergency save
+(the preemption drain) carries ``data_cursor``, the interrupted epoch's
+global sample cursor, which ``restore`` accepts. The
+``checkpoint_corrupt`` fault point flips bytes of a save after its
+sidecar is written. Not ported: the orbax backend (there is no orbax on
+the card) and the doctor's stamping.
 
 The writer streams: each leaf is copied to the host when it is written
 and hashed on the way to the disk, so a save holds no copy of the
@@ -47,7 +52,8 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 import torch
 
-from tpudist_torch import serialization
+from tpudist_torch import faults, serialization
+from tpudist_torch import telemetry as telemetry_lib
 from tpudist_torch.compat.jax_params import jax_tree, state_dict_from_jax
 
 CKPT_NAME = "checkpoint.msgpack"
@@ -171,6 +177,13 @@ def quarantine_checkpoint(path: str) -> str:
     for side in (_sidecar_path, _verdict_path):
         if os.path.exists(side(path)):
             os.replace(side(path), side(dest))
+    tel = telemetry_lib.current()
+    if tel is not None:
+        try:
+            tel.emit("fault", point="checkpoint_quarantine",
+                     path=os.path.basename(dest))
+        except Exception:   # noqa: BLE001 — telemetry must not change this
+            pass
     return dest
 
 
@@ -179,23 +192,27 @@ def save_checkpoint(state_dict: dict, is_best: bool, outpath: str,
     """Write ``checkpoint.msgpack`` and its sidecar; with ``keep`` > 0
     also the ``checkpoint-ep%05d.msgpack`` history copy, pruning history
     and quarantines beyond the newest ``keep``; on ``is_best`` copy to
-    ``model_best.msgpack``. The primary rank alone calls it. Returns the
-    live file's path."""
+    ``model_best.msgpack``. The primary rank alone calls it. An armed
+    ``checkpoint_corrupt`` point then flips bytes of the live file and
+    the history copy. Returns the live file's path."""
     filename = os.path.join(outpath, CKPT_NAME)
+    epoch = int(state_dict.get("epoch", 0))
+    written = [filename]
     digest = _write_atomic(filename, serialization.iter_msgpack(state_dict))
     _write_sidecar(filename, digest)
     if keep > 0:
-        epoch = int(state_dict.get("epoch", 0))
         hist = os.path.join(outpath, f"checkpoint-ep{epoch:05d}.msgpack")
         tmp = f"{hist}.tmp.{os.getpid()}"
         shutil.copyfile(filename, tmp)
         os.replace(tmp, hist)
         _write_sidecar(hist, digest)
+        written.append(hist)
         _prune_history(outpath, keep)
     if is_best:
         best = os.path.join(outpath, BEST_NAME)
         shutil.copyfile(filename, best)
         _write_sidecar(best, digest)
+    faults.maybe_corrupt_checkpoint(written, epoch=epoch)
     return filename
 
 
@@ -384,9 +401,12 @@ def _opt_state(model: torch.nn.Module, optimizer, step: int) -> dict:
 def state_to_dict(model: torch.nn.Module, optimizer, *, arch: str,
                   epoch: int, best_acc1: float, step: int,
                   ema: Optional[torch.nn.Module] = None,
-                  topology: Optional[dict] = None) -> dict:
+                  topology: Optional[dict] = None,
+                  data_cursor: Optional[dict] = None) -> dict:
     """tpudist's ``state_to_dict`` of the equivalent ``TrainState``:
-    ``epoch + 1`` is where a resume starts. Leaves are views of the
+    ``epoch + 1`` is where a resume starts. ``data_cursor`` (emergency
+    saves only) is the interrupted epoch's ``{"epoch", "consumed",
+    "samples_skipped", "samples_retried"}``. Leaves are views of the
     model's and optimizer's tensors; ``save_checkpoint`` copies each to
     the host as it writes it."""
     variables = _variables(model)
@@ -402,6 +422,8 @@ def state_to_dict(model: torch.nn.Module, optimizer, *, arch: str,
                      "comm_state": None}}
     if topology is not None:
         out["topology"] = dict(topology)
+    if data_cursor is not None:
+        out["data_cursor"] = dict(data_cursor)
     return out
 
 
@@ -480,7 +502,8 @@ def restore(ckpt: dict, model: torch.nn.Module, optimizer=None,
     """Load a checkpoint tree onto the port's model, optimizer and EMA
     module, with tpudist's rules (``restore_train_state``): a different
     arch, a different optimizer, a ``dynamic_scale`` (float16 loss
-    scaling) and a mid-epoch ``data_cursor`` are refused by name; a
+    scaling) and the doctor's replay windows are refused by name; a
+    mid-epoch ``data_cursor`` is the caller's to apply (``Trainer``); a
     different world is allowed (every leaf is a full host array); an EMA
     copy is dropped when ``ema`` is None and seeded at the restored
     weights when the checkpoint has none; ``comm_state`` is dropped.
@@ -491,13 +514,16 @@ def restore(ckpt: dict, model: torch.nn.Module, optimizer=None,
         raise ValueError(f"checkpoint was trained as '{saved_arch}' but this "
                          f"run is '{arch}' — refusing to load mismatched "
                          f"weights")
-    cursor = ckpt.get("data_cursor")
-    if isinstance(cursor, dict) and int(cursor.get("consumed", 0)) > 0:
+    doctor = ckpt.get("doctor")
+    if isinstance(doctor, dict) and any(
+            (doctor.get("poison_windows") or {}).values()):
+        # A cursor counts positions of the order with these windows cut
+        # out; applied to the whole order it would replay the poison.
         raise ValueError(
-            f"checkpoint carries a mid-epoch data_cursor (epoch "
-            f"{cursor.get('epoch')}, {cursor.get('consumed')} samples "
-            f"consumed: tpudist's emergency save); mid-epoch resume is not in "
-            f"the port yet")
+            f"checkpoint carries the doctor's replay windows "
+            f"{doctor['poison_windows']} (a --doctor rollback; its "
+            f"data_cursor counts the excised order), and the doctor plane "
+            f"is not in the port")
     state = ckpt.get("state")
     if not isinstance(state, dict) or state.get("params") is None:
         raise ValueError("checkpoint has no state.params — not a tpudist "

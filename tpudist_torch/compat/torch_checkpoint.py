@@ -1,0 +1,362 @@
+"""The reference's ``.pth.tar`` files, in and out of the port.
+
+The port's copy of ``tpudist/compat/torch_checkpoint.py`` for the
+families the port has: ``resnet``, ``resnext``, ``wide_resnet`` and
+``vit``. The reference saves ``{"epoch", "arch", "state_dict",
+"best_acc1"}`` with ``torch.save`` (``checkpoint.pth.tar``,
+``model_best.pth.tar``), the ``state_dict`` in torchvision's names and
+layouts. The port's parameter names are flax's paths
+(``compat/jax_params``), so each direction goes through the flax tree
+and applies tpudist's translation to it, which makes the port's file
+tpudist's for the same weights:
+
+- names: ``layer1_0.bn1.scale`` ↔ ``layer1.0.bn1.weight``, ``mean``/
+  ``var`` ↔ ``running_mean``/``running_var``, ``downsample_conv``/
+  ``downsample_bn`` ↔ ``downsample.0``/``.1``; the ViT's
+  ``encoder_layer_N`` ↔ ``encoder.layers.encoder_layer_N``, ``mlp_0``/
+  ``mlp_3`` ↔ ``mlp.0``/``.3``, ``head`` ↔ ``heads.head``,
+  ``pos_embedding`` ↔ ``encoder.pos_embedding``;
+- the ViT's ``in_proj`` is head-major (``[h][q|k|v][head_dim]``),
+  torch's ``in_proj_weight`` qkv-major: ``_vit_inproj_perm`` maps one to
+  the other;
+- ``num_batches_tracked`` is written as 0 and dropped on import;
+- the file holds contiguous tensors in torch's layout whatever the
+  strides of the port's weights (a 1x1 conv's are channels_last).
+
+An import is strict: a missing tensor, an unknown one, or one of another
+shape raises, naming it. Any other family raises, naming these four.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from tpudist_torch.compat.jax_params import jax_tree, state_dict_from_jax
+
+SUPPORTED_FAMILIES = ("resnet", "resnext", "wide_resnet", "vit")
+
+_VIT_TO_FLAX = (
+    (r"^conv_proj$", "conv_proj"),
+    (r"^encoder\.layers\.(encoder_layer_\d+)\.self_attention\.out_proj$",
+     r"\1_self_attention_out_proj"),
+    (r"^encoder\.layers\.(encoder_layer_\d+)\.self_attention$",
+     r"\1_self_attention_in_proj"),        # in_proj_{weight,bias} live here
+    (r"^encoder\.layers\.(encoder_layer_\d+)\.(ln_1|ln_2)$", r"\1_\2"),
+    (r"^encoder\.layers\.(encoder_layer_\d+)\.mlp\.(0|3)$", r"\1_mlp_\2"),
+    (r"^encoder\.ln$", "ln"),
+    (r"^heads\.head$", "head"),
+)
+_VIT_FROM_FLAX = (
+    (r"^conv_proj$", "conv_proj"),
+    (r"^(encoder_layer_\d+)_self_attention_out_proj$",
+     r"encoder.layers.\1.self_attention.out_proj"),
+    (r"^(encoder_layer_\d+)_self_attention_in_proj$",
+     r"encoder.layers.\1.self_attention"),
+    (r"^(encoder_layer_\d+)_(ln_1|ln_2)$", r"encoder.layers.\1.\2"),
+    (r"^(encoder_layer_\d+)_mlp_(0|3)$", r"encoder.layers.\1.mlp.\2"),
+    (r"^ln$", "encoder.ln"),
+    (r"^head$", "heads.head"),
+)
+
+
+def family(arch: str) -> str:
+    """The torchvision family of ``arch``; raises for one the port's
+    interop does not cover."""
+    for fam in SUPPORTED_FAMILIES:
+        if arch.startswith(fam):
+            return fam
+    raise ValueError(
+        f"torch-checkpoint interop in tpudist_torch does not support arch "
+        f"'{arch}'; supported families: {', '.join(SUPPORTED_FAMILIES)}")
+
+
+def _vit_inproj_perm(dim: int, heads: int) -> np.ndarray:
+    """``perm[c]`` is the row of torch's qkv-major ``in_proj_weight``
+    (3D, D) that feeds column ``c`` of the head-major flax kernel (D,
+    3D): kernel = torch_w[perm].T."""
+    hd = dim // heads
+    h = np.arange(3 * dim) // (3 * hd)          # head of each column
+    j = (np.arange(3 * dim) // hd) % 3          # q/k/v of each column
+    d = np.arange(3 * dim) % hd
+    return j * dim + h * hd + d
+
+
+def _apply_rules(rules, name: str) -> Optional[str]:
+    for pat, repl in rules:
+        new, n = re.subn(pat, repl, name)
+        if n:
+            return new
+    return None
+
+
+def _translate_module(fam: str, module: str) -> str:
+    """torch module path → the flax module path joined with ``_``."""
+    if fam == "vit":
+        out = _apply_rules(_VIT_TO_FLAX, module)
+        return out if out is not None else f"<unmapped:{module}>"
+    module = module.replace("downsample.0", "downsample_conv")
+    module = module.replace("downsample.1", "downsample_bn")
+    return module.replace(".", "_")
+
+
+def _untranslate(fam: str, mod: str, arch: str) -> str:
+    """The flax module path joined with ``_`` → torch's module path."""
+    if fam == "vit":
+        out = _apply_rules(_VIT_FROM_FLAX, mod)
+        if out is None:
+            raise ValueError(f"no torch name for module '{mod}' (arch "
+                             f"'{arch}')")
+        return out
+    m = re.match(r"^(layer\d+)_(\d+)_(.*)$", mod)
+    if m:
+        mod = f"{m.group(1)}.{m.group(2)}.{m.group(3)}"
+    mod = mod.replace("downsample_conv", "downsample.0")
+    return mod.replace("downsample_bn", "downsample.1")
+
+
+def _flatten(tree: Any, prefix: Tuple[str, ...] = ()) -> Dict[tuple, Any]:
+    out: Dict[tuple, Any] = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flatten(v, prefix + (str(k),)))
+    else:
+        out[prefix] = tree
+    return out
+
+
+def _unflatten(flat: Dict[tuple, Any]) -> dict:
+    root: dict = {}
+    for path, leaf in flat.items():
+        node = root
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return root
+
+
+def _to_numpy(t) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        return t.detach().cpu().numpy()
+    return np.asarray(t)
+
+
+def _heads(fam: str, heads: Optional[int], arch: str) -> Optional[int]:
+    if fam == "vit" and not heads:
+        raise ValueError(f"'{arch}': the ViT's head count is needed to "
+                         f"reorder its packed qkv")
+    return heads
+
+
+def torch_state_dict_to_flax(state_dict: Dict[str, Any], arch: str,
+                             params_template: Any,
+                             batch_stats_template: Any,
+                             heads: Optional[int] = None
+                             ) -> tuple[dict, dict]:
+    """A torchvision-named ``state_dict`` → ``(params, batch_stats)``
+    flax trees of numpy arrays shaped like the templates (any leaves with
+    a ``shape``); ``heads`` is a ViT's head count. Raises on any missing,
+    unknown or misshapen tensor."""
+    fam = family(arch)
+    heads = _heads(fam, heads, arch)
+    p_flat = _flatten(params_template)
+    s_flat = _flatten(batch_stats_template)
+    p_index = {"_".join(path[:-1]): path for path in p_flat}
+    s_index = {"_".join(path[:-1]): path for path in s_flat}
+    new_p: Dict[tuple, np.ndarray] = {}
+    new_s: Dict[tuple, np.ndarray] = {}
+    for key, tensor in state_dict.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        # A DataParallel/DDP-saved file prefixes "module."; the ViT's
+        # class_token is a root parameter with no module.
+        module, _, param = key.removeprefix("module.").rpartition(".")
+        arr = _to_numpy(tensor)
+        if fam == "vit" and param in ("class_token", "pos_embedding"):
+            path = (param,)
+            template = p_flat.get(path)
+            if template is None:
+                raise ValueError(f"'{key}' maps to {path}, not in the model")
+            if tuple(template.shape) != tuple(arr.shape):
+                raise ValueError(
+                    f"shape mismatch for '{key}': torch {tuple(arr.shape)}, "
+                    f"model wants {tuple(template.shape)}")
+            new_p[path] = arr
+            continue
+        mod = _translate_module(fam, module)
+        if mod not in p_index and mod not in s_index:
+            raise ValueError(
+                f"checkpoint key '{key}' (module '{mod}') does not match any "
+                f"parameter of arch '{arch}' — is the checkpoint for a "
+                f"different architecture or torchvision version?")
+        if param == "running_mean":
+            path = s_index[mod][:-1] + ("mean",)
+            new_s[path] = arr
+        elif param == "running_var":
+            path = s_index[mod][:-1] + ("var",)
+            new_s[path] = arr
+        elif param == "in_proj_weight":                # vit packed qkv
+            perm = _vit_inproj_perm(arr.shape[1], heads)
+            path = p_index[mod][:-1] + ("kernel",)
+            new_p[path] = np.ascontiguousarray(arr[perm].T)
+        elif param == "in_proj_bias":
+            perm = _vit_inproj_perm(arr.shape[0] // 3, heads)
+            path = p_index[mod][:-1] + ("bias",)
+            new_p[path] = arr[perm]
+        elif param == "weight" and arr.ndim == 4:      # conv OIHW → HWIO
+            path = p_index[mod][:-1] + ("kernel",)
+            new_p[path] = arr.transpose(2, 3, 1, 0)
+        elif param == "weight" and arr.ndim == 2:      # linear → (in, out)
+            path = p_index[mod][:-1] + ("kernel",)
+            new_p[path] = arr.T
+        elif param == "weight" and arr.ndim == 1:      # BN / LN affine
+            path = p_index[mod][:-1] + ("scale",)
+            new_p[path] = arr
+        elif param == "bias":
+            path = p_index[mod][:-1] + ("bias",)
+            new_p[path] = arr
+        else:
+            raise ValueError(f"unhandled torch parameter '{key}' "
+                             f"(ndim={arr.ndim})")
+        template = p_flat.get(path) if path in p_flat else s_flat.get(path)
+        if template is None:
+            raise ValueError(f"'{key}' maps to {path}, not in the model")
+        got = new_p.get(path, new_s.get(path))
+        if tuple(template.shape) != tuple(got.shape):
+            raise ValueError(
+                f"shape mismatch for '{key}': torch {tuple(arr.shape)} → "
+                f"{tuple(got.shape)}, model wants {tuple(template.shape)}")
+    missing_p = set(p_flat) - set(new_p)
+    missing_s = set(s_flat) - set(new_s)
+    if missing_p or missing_s:
+        some = sorted("/".join(p) for p in (missing_p | missing_s))[:5]
+        raise ValueError(f"checkpoint is missing "
+                         f"{len(missing_p) + len(missing_s)} parameters, "
+                         f"e.g. {some}")
+    return _unflatten(new_p), _unflatten(new_s)
+
+
+def flax_to_torch_state_dict(params: Any, batch_stats: Any, arch: str,
+                             heads: Optional[int] = None) -> dict:
+    """Flax ``params`` and ``batch_stats`` trees (numpy arrays or torch
+    views) → a torchvision-named ``state_dict`` of contiguous CPU
+    tensors; ``heads`` is a ViT's head count."""
+    fam = family(arch)
+    heads = _heads(fam, heads, arch)
+
+    def tensor(a: np.ndarray) -> torch.Tensor:
+        # A copy: on the CPU the leaves are views of the live weights.
+        return torch.from_numpy(np.array(a, order="C", copy=True))
+
+    out: dict = {}
+    for path, leaf in _flatten(params).items():
+        mod = "_".join(path[:-1])
+        arr = _to_numpy(leaf)
+        kind = path[-1]
+        if fam == "vit":
+            if path == ("class_token",):
+                out["class_token"] = tensor(arr)
+                continue
+            if path == ("pos_embedding",):
+                out["encoder.pos_embedding"] = tensor(arr)
+                continue
+            if mod.endswith("_in_proj"):
+                tmod = _untranslate(fam, mod, arch)
+                dim = arr.shape[0] if kind == "kernel" else arr.shape[0] // 3
+                inv = np.argsort(_vit_inproj_perm(dim, heads))
+                if kind == "kernel":
+                    out[f"{tmod}.in_proj_weight"] = tensor(arr.T[inv])
+                else:
+                    out[f"{tmod}.in_proj_bias"] = tensor(arr[inv])
+                continue
+        tmod = _untranslate(fam, mod, arch)
+        if kind == "kernel" and arr.ndim == 4:
+            out[f"{tmod}.weight"] = tensor(arr.transpose(3, 2, 0, 1))
+        elif kind == "kernel":
+            out[f"{tmod}.weight"] = tensor(arr.T)
+        elif kind == "scale":
+            out[f"{tmod}.weight"] = tensor(arr)
+        elif kind == "bias":
+            out[f"{tmod}.bias"] = tensor(arr)
+        else:
+            raise ValueError(f"unhandled parameter {path}")
+    for path, leaf in _flatten(batch_stats).items():
+        tmod = _untranslate(fam, "_".join(path[:-1]), arch)
+        name = {"mean": "running_mean", "var": "running_var"}[path[-1]]
+        out[f"{tmod}.{name}"] = tensor(_to_numpy(leaf))
+        if path[-1] == "mean":
+            out[f"{tmod}.num_batches_tracked"] = torch.zeros(
+                (), dtype=torch.long)
+    return out
+
+
+def model_trees(model: torch.nn.Module) -> tuple[dict, dict]:
+    """A port model's ``(params, batch_stats)`` as flax trees of torch
+    views."""
+    return (jax_tree(model.named_parameters()),
+            jax_tree([(n, b) for n, b in model.named_buffers()
+                      if b.is_floating_point()]))
+
+
+def export_state_dict(model: torch.nn.Module, arch: str) -> dict:
+    """The model's weights as torchvision's ``state_dict``."""
+    return flax_to_torch_state_dict(*model_trees(model), arch,
+                                    heads=getattr(model, "num_heads", None))
+
+
+def load_torch_state_dict(model: torch.nn.Module, state_dict: dict,
+                          arch: str) -> None:
+    """Load a torchvision-named ``state_dict`` into the port's model,
+    strictly; the model keeps its devices and strides."""
+    params, stats = model_trees(model)
+    p, s = torch_state_dict_to_flax(state_dict, arch, params, stats,
+                                    heads=getattr(model, "num_heads", None))
+    model.load_state_dict(state_dict_from_jax(arch, p, s), strict=True)
+
+
+def load_reference_checkpoint(path: str) -> dict:
+    """``torch.load`` a reference checkpoint: ``{epoch, arch, state_dict,
+    best_acc1}``, or a bare ``state_dict`` file (a torchvision download),
+    read as one at epoch 0."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if "state_dict" not in ckpt:
+        ckpt = {"state_dict": ckpt, "epoch": 0, "arch": None,
+                "best_acc1": 0.0}
+    return ckpt
+
+
+def restore_from_torch(model: torch.nn.Module, path: str, arch: str,
+                       ema: Optional[torch.nn.Module] = None
+                       ) -> tuple[int, float]:
+    """Load a reference ``.pth.tar``'s weights into ``model`` (and seed
+    ``ema`` with them); the optimizer stays at its init (the reference
+    never saved it). Returns ``(epoch, best_acc1)`` as stored: the
+    epoch a resume starts at."""
+    ckpt = load_reference_checkpoint(path)
+    if ckpt.get("arch") and ckpt["arch"] != arch:
+        raise ValueError(f"checkpoint is for arch '{ckpt['arch']}', "
+                         f"trainer is building '{arch}'")
+    load_torch_state_dict(model, ckpt["state_dict"], arch)
+    if ema is not None:
+        ema.load_state_dict(model.state_dict())
+    best = ckpt.get("best_acc1", 0.0)
+    if hasattr(best, "item"):
+        best = best.item()
+    return int(ckpt.get("epoch", 0)), float(best)
+
+
+def save_reference_checkpoint(path: str, model: torch.nn.Module, arch: str,
+                              epoch: int, best_acc1: float) -> str:
+    """Write the reference's schema (``epoch + 1`` is where a resume
+    starts) through a temporary renamed into place, so no torn file is
+    left."""
+    tmp = path + ".tmp"
+    torch.save({"epoch": epoch + 1, "arch": arch,
+                "state_dict": export_state_dict(model, arch),
+                "best_acc1": best_acc1}, tmp)
+    os.replace(tmp, path)
+    return path

@@ -171,8 +171,6 @@ VIT_ARCHS = ("vit_b_16", "vit_b_32", "vit_l_16", "vit_l_32", "vit_h_14")
 # Flags the port does not support yet: a value other than the default is
 # refused at startup, naming the flag and what is missing.
 _NOT_YET = {
-    "pretrained": ("--pretrained", "torchvision weights (compat/)"),
-    "pretrained_path": ("--pretrained-path", "torchvision weights (compat/)"),
     "accum_steps": ("--accum-steps", "gradient accumulation"),
     "microbatches": ("--microbatches", "pipeline parallelism"),
     "mixup_alpha": ("--mixup-alpha", "ops/mixup.mix_batch"),
@@ -180,9 +178,6 @@ _NOT_YET = {
     "amp_dtype": ("--amp-dtype", "float16 loss scaling (bfloat16 is ported)"),
     "remat": ("--remat", "block checkpointing"),
     "compile_cache": ("--compile-cache", "a persistent compile cache"),
-    "torch_checkpoints": ("--torch_checkpoints", "the reference .pth.tar "
-                          "format (tpudist/compat/torch_checkpoint.py)"),
-    "inject": ("--inject", "fault injection (faults.py)"),
     "metrics_port": ("--metrics-port", "the metrics endpoint (obs/server.py)"),
     "telemetry_max_mb": ("--telemetry-max-mb", "event-file rotation"),
     "profile": ("--profile", "the trace window"),
@@ -234,6 +229,9 @@ def refuse_unsupported(cfg: Config) -> None:
     if not vit and cfg.flash == "on":
         bad.append(f"--flash on (it applies to attention archs (vit*); got "
                    f"'{cfg.arch}')")
+    if cfg.pretrained_path and not cfg.pretrained:
+        bad.append(f"--pretrained-path {cfg.pretrained_path} without "
+                   f"--pretrained (it names the file --pretrained loads)")
     if cfg.checkpoint_backend == "orbax":
         bad.append("--checkpoint-backend orbax (orbax is not on the card; "
                    "the port writes tpudist's msgpack checkpoints)")
@@ -282,8 +280,8 @@ def build_parser() -> argparse.ArgumentParser:
     add("--wd", "--weight-decay", default=d.weight_decay, type=float, metavar="W", dest="weight_decay", help="weight decay")
     add("-p", "--print-freq", default=d.print_freq, type=int, metavar="N", dest="print_freq", help="print frequency")
     _bool_flag(p, "evaluate", d.evaluate, "evaluate the model on the validation set only")
-    _bool_flag(p, "pretrained", d.pretrained, not_yet)
-    add("--pretrained-path", default=d.pretrained_path, dest="pretrained_path", help=not_yet)
+    _bool_flag(p, "pretrained", d.pretrained, "start from torchvision's weights, read from disk (never downloaded): --pretrained-path, else $TPUDIST_PRETRAINED_DIR, else $TORCH_HOME/hub/checkpoints")
+    add("--pretrained-path", default=d.pretrained_path, dest="pretrained_path", help="local torchvision checkpoint file/dir for --pretrained (default: the directories above)")
     _bool_flag(p, "use_amp", d.use_amp, "bf16 compute policy (f32 master weights)")
     add("--amp-dtype", default=d.amp_dtype, dest="amp_dtype", choices=("bfloat16", "float16"), help="--use_amp compute dtype; float16 is " + not_yet)
     _bool_flag(p, "sync_batchnorm", d.sync_batchnorm, "SyncBN: BatchNorm statistics averaged across the data-parallel ranks (the plain epilogue, as tpudist)")
@@ -308,11 +306,11 @@ def build_parser() -> argparse.ArgumentParser:
     add("--synthetic-size", default=d.synthetic_size, type=int, dest="synthetic_size", help="synthetic train-set size (0 = auto; val set is half)")
     add("--val-resize", default=d.val_resize, type=int, dest="val_resize", help="val shorter-edge resize before the center crop")
     add("--gamma", default=d.gamma, type=float, metavar="gamma", help="lr decay factor")
-    add("--resume", default=d.resume, help="resume from a checkpoint.msgpack, a run dir, or 'auto' (this outpath's checkpoint if there is one, else start fresh; with python -m tpudist_torch.launch --max-restarts and --overwrite keep a relaunch continues)")
-    _bool_flag(p, "torch_checkpoints", d.torch_checkpoints, "also write the reference's .pth.tar files; " + not_yet)
-    add("--checkpoint-backend", default=d.checkpoint_backend, choices=["msgpack", "orbax"], dest="checkpoint_backend", help="msgpack: tpudist's checkpoint.msgpack every epoch; orbax is " + not_yet)
+    add("--resume", default=d.resume, help="resume from a checkpoint.msgpack (an emergency file continues its epoch mid-way), a reference .pth.tar (its weights, epoch and best_acc1), a run dir, or 'auto' (this outpath's checkpoint if there is one, else start fresh; with python -m tpudist_torch.launch --max-restarts and --overwrite keep a relaunch continues)")
+    _bool_flag(p, "torch_checkpoints", d.torch_checkpoints, "also write the reference's checkpoint.pth.tar (the live weights) and model_best.pth.tar (the EMA copy under --model-ema-decay)")
+    add("--checkpoint-backend", default=d.checkpoint_backend, choices=["msgpack", "orbax"], dest="checkpoint_backend", help="msgpack: tpudist's checkpoint.msgpack every epoch; orbax is not ported (there is no orbax on the card): refused")
     add("--keep-checkpoints", default=d.keep_checkpoints, type=int, dest="keep_checkpoints", help="keep the newest N per-epoch checkpoint-epXXXXX.msgpack copies (and N quarantined files) for the fallback walk; 0 = live file only")
-    add("--inject", default=d.inject, help=not_yet)
+    add("--inject", default=d.inject, help="fault-injection spec, e.g. 'rank_exit@step=7;decode_fail:p=0.01' (tpudist_torch/faults.py; env TPUDIST_INJECT); a point whose plane the port lacks is refused")
     add("--data-retries", default=d.data_retries, type=int, dest="data_retries", help="retries per failing sample read/decode before skip-and-count")
     add("--data-retry-backoff", default=d.data_retry_backoff, type=float, dest="data_retry_backoff", help="linear backoff between sample-load retries (seconds)")
     add("--data-skip-budget", default=d.data_skip_budget, type=int, dest="data_skip_budget", help="skipped samples tolerated per epoch before the loader fails loudly (0 = strict)")

@@ -4,8 +4,11 @@
 pool assembles each batch into one numpy buffer (PIL's decode and the
 native kernels release the GIL), and a bounded queue lets batch N+1
 assemble while step N trains. A failing sample is retried, then skipped within a
-per-epoch budget, as in tpudist; tpudist's elastic cursor, the doctor's
-skip windows and the injected decode faults are not ported.
+per-epoch budget, as in tpudist, and the ``decode_fail`` fault point
+(``faults.decode_should_fail``) fails a load inside that retry loop.
+``set_cursor`` continues an interrupted epoch mid-way (the sampler's
+cursor) with the interrupted attempt's meters. The doctor's skip windows
+are not ported.
 
 ``DevicePrefetcher`` is the counterpart of ``tpudist.dist.DevicePrefetcher``
 (``--device_prefetch``): it hands out batches already on the device, and
@@ -23,6 +26,8 @@ from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
+
+from tpudist_torch import faults
 
 
 class DataLoader:
@@ -62,11 +67,25 @@ class DataLoader:
         self.samples_retried = 0
         self._stats_lock = threading.Lock()
         self._failed_keys: set[int] = set()   # distinct bad samples, per epoch
+        # The meters an interrupted attempt of this epoch had counted:
+        # the next __iter__ starts from them.
+        self._carry_skipped = 0
+        self._carry_retried = 0
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
         if self.sampler is not None:
             self.sampler.set_epoch(epoch)
+
+    def set_cursor(self, consumed: int, samples_skipped: int = 0,
+                   samples_retried: int = 0) -> None:
+        """Continue this epoch at global position ``consumed`` (the
+        sampler's cursor; call after ``set_epoch``), with the meters
+        starting at the interrupted attempt's counts."""
+        if self.sampler is not None:
+            self.sampler.set_cursor(consumed)
+        self._carry_skipped = max(0, int(samples_skipped))
+        self._carry_retried = max(0, int(samples_retried))
 
     def _index_batches(self) -> list[np.ndarray]:
         if self.sampler is not None:
@@ -89,10 +108,14 @@ class DataLoader:
 
     def _load_sample(self, ds_index: int):
         """One sample through read → decode → transform, retried; the last
-        error is re-raised once the retries are spent."""
+        error is re-raised once the retries are spent. An armed
+        ``decode_fail`` point fails the attempt before the read."""
         last_err = None
         for attempt in range(self.retries + 1):
             try:
+                if faults.decode_should_fail(ds_index):
+                    raise IOError(
+                        f"injected decode failure (sample {ds_index})")
                 sample, label = self.dataset[ds_index]
                 if self.transform is not None:
                     rng = np.random.default_rng(
@@ -176,7 +199,9 @@ class DataLoader:
     def __iter__(self) -> Iterator:
         batches = self._index_batches()
         with self._stats_lock:               # the meters are per epoch
-            self.samples_skipped = self.samples_retried = 0
+            self.samples_skipped = self._carry_skipped
+            self.samples_retried = self._carry_retried
+            self._carry_skipped = self._carry_retried = 0
             self._failed_keys = set()
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()

@@ -3,8 +3,16 @@
 
 Pad the index list to a multiple of ``num_replicas`` by repeating from
 the front, shuffle deterministically by (seed, epoch), then each replica
-takes a strided slice. The elastic cursor and the doctor's skip windows
-come with those planes.
+takes a strided slice.
+
+``set_cursor`` is tpudist's mid-epoch continuation: the epoch's global
+order (the permutation before any rank takes its slice) does not depend
+on the world, and global step ``j`` consumes its positions ``[j*B,
+(j+1)*B)`` (B the global batch). So an emergency checkpoint's count of
+consumed positions lets a resumed run, at the same or another world,
+drop them and stride the rest over its ranks: no sample replayed, none
+dropped. ``set_epoch`` clears the cursor. The doctor's skip windows are
+not ported (the doctor plane is not).
 """
 
 from __future__ import annotations
@@ -23,11 +31,21 @@ class ShardedSampler:
         self.seed = seed
         self.pad = pad
         self.epoch = 0
+        self.cursor = 0
         self.num_samples = -(-dataset_len // num_replicas)   # ceil
         self.total_size = self.num_samples * num_replicas
 
     def set_epoch(self, epoch: int) -> None:
+        """Reshuffle for ``epoch``; clears the cursor."""
         self.epoch = epoch
+        self.cursor = 0
+
+    def set_cursor(self, consumed: int) -> None:
+        """Skip the first ``consumed`` positions of this epoch's global
+        order and stride the rest over (rank, num_replicas), which may
+        differ from the world that consumed them. Call after
+        ``set_epoch``."""
+        self.cursor = min(max(0, int(consumed)), self.dataset_len)
 
     def global_order(self) -> np.ndarray:
         """The epoch's world-size-independent global sample order."""
@@ -38,15 +56,18 @@ class ShardedSampler:
         return idx
 
     def indices(self) -> np.ndarray:
-        idx = self.global_order()
+        idx = self.global_order()[self.cursor:]
         if self.pad:
-            if self.total_size > len(idx):
-                idx = np.concatenate([idx, idx[: self.total_size - len(idx)]])
-            return idx[self.rank:self.total_size:self.num_replicas]
+            total = -(-len(idx) // self.num_replicas) * self.num_replicas
+            if total > len(idx):
+                idx = np.concatenate([idx, idx[: total - len(idx)]])
+            return idx[self.rank:total:self.num_replicas]
         return idx[self.rank::self.num_replicas]
 
     def __iter__(self):
         return iter(self.indices())
 
     def __len__(self) -> int:
+        if self.cursor and self.pad:
+            return -(-(self.dataset_len - self.cursor) // self.num_replicas)
         return self.num_samples if self.pad else len(self.indices())

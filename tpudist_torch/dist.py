@@ -22,7 +22,9 @@ behind ``dist.barrier()``. Here:
 - ``reduce_mean`` is the metrics' all-reduce, ``all_reduce_sum`` the
   differentiable one of SyncBN's statistics, ``barrier`` a host barrier
   with tpudist's deadline (``TPUDIST_BARRIER_TIMEOUT``), ``shutdown``
-  destroys the process group at the end of a run.
+  destroys the process group at the end of a run;
+- ``any_rank`` agrees on a host flag (a pending preemption) at a step
+  boundary, so every rank drains at the same step.
 
 Without an initialised process group every query answers for one process
 (rank 0 of 1) and the collectives are identities.
@@ -38,6 +40,8 @@ import time
 
 import torch
 import torch.distributed as dist
+
+from tpudist_torch import faults
 
 
 def initialize_runtime(coordinator_address: str | None = None,
@@ -94,6 +98,9 @@ def initialize_runtime(coordinator_address: str | None = None,
     else:
         kwargs["backend"] = "gloo"
 
+    # An armed init_hang stalls here, before the rendezvous: the peers'
+    # deadline is what ends the job.
+    faults.maybe_init_hang()
     for attempt in range(retries + 1):
         try:
             dist.init_process_group(**kwargs)
@@ -219,7 +226,26 @@ def barrier(tag: str = "tpudist_torch_barrier",
         raise err[0]
 
 
+_host_group = None      # a gloo group for host flags under NCCL
+
+
+def any_rank(flag: bool) -> bool:
+    """True on every rank when ``flag`` is true on any: one all-reduce of
+    a host integer (over gloo, so the card is never waited for). Every
+    rank must call it at the same points. One process answers ``flag``."""
+    global _host_group
+    if not is_initialized() or dist.get_world_size() == 1:
+        return flag
+    if dist.get_backend() != "gloo" and _host_group is None:
+        _host_group = dist.new_group(backend="gloo")
+    t = torch.tensor([int(flag)], dtype=torch.int32)
+    dist.all_reduce(t, group=_host_group)
+    return bool(t.item())
+
+
 def shutdown() -> None:
     """Destroy the process group (the end of a run, on every exit path)."""
+    global _host_group
+    _host_group = None
     if is_initialized():
         dist.destroy_process_group()

@@ -20,10 +20,20 @@ each relaunch continues from the last completed epoch's checkpoint in the
 outpath (the live file, or the newest valid history copy when that one is
 torn); the first attempt, finding none, starts fresh and says so.
 
-tpudist's other launcher flags (the elastic gang, fault injection,
-launcher telemetry, metrics, straggler and collective watchdogs,
-scale-up, incident bundles, and the JAX platform flags) are accepted by
-name and refused when set::
+A signal to the launcher reaches the ranks through the teardown: each
+trainer drains (it finishes the step, writes an emergency checkpoint with
+the epoch's sample cursor and exits 75, ``faults.PREEMPTED_EXIT_CODE``)
+within the grace period, and the launcher exits 130; the same command
+with ``--resume auto --overwrite keep`` continues the epoch where it
+stopped. The restart and exhaustion lines name each exit code's meaning
+(``faults.classify_exit``). ``--inject SPEC`` is parsed once here (a typo,
+or a point whose plane the port lacks, fails at once) and given to every
+rank as ``TPUDIST_INJECT``.
+
+tpudist's other launcher flags (the elastic gang and its
+``--drain-grace``, launcher telemetry, metrics, straggler and collective
+watchdogs, scale-up, incident bundles, and the JAX platform flags) are
+accepted by name and refused when set::
 
     python -m tpudist_torch.launch -n 1 -- python -m tpudist_torch \\
         --distributed -a resnet18 --use_amp --fused-bn on -b 256 --synthetic
@@ -43,6 +53,8 @@ import subprocess
 import sys
 import time
 
+from tpudist_torch import faults
+
 # tpudist's launcher flags the port does not have: (flag, what is
 # missing). A value given for any of them is refused by name.
 _NOT_YET = {
@@ -53,7 +65,6 @@ _NOT_YET = {
     "elastic": ("--elastic", "the elastic gang (tpudist/elastic/)"),
     "min_ranks": ("--min-ranks", "the elastic gang"),
     "drain_grace": ("--drain-grace", "the elastic gang"),
-    "inject": ("--inject", "fault injection (faults.py)"),
     "telemetry_dir": ("--telemetry-dir", "the launcher's telemetry"),
     "metrics_port": ("--metrics-port", "the fleet metrics endpoint"),
     "straggler_factor": ("--straggler-factor", "straggler detection"),
@@ -111,6 +122,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "ranks up to N times; with the trainer's --resume "
                         "auto --overwrite keep a relaunch continues from the "
                         "last completed epoch")
+    p.add_argument("--inject", default=os.environ.get(faults.ENV_SPEC, ""),
+                   help="fault-injection spec given to every rank as "
+                        "TPUDIST_INJECT (tpudist_torch/faults.py), e.g. "
+                        "'rank_exit@step=7@rank=1@attempt=0'")
     for dest, (flag, what) in _NOT_YET.items():
         kw = ({"action": "store_const", "const": True}
               if dest == "elastic" else {})
@@ -122,8 +137,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _rank_env(coordinator: str, rank: int, nprocs: int,
-              attempt: int) -> dict:
+              attempt: int, inject: str = "") -> dict:
     env = dict(os.environ)
+    if inject:
+        env[faults.ENV_SPEC] = inject
     env["TPUDIST_COORDINATOR"] = coordinator
     env["TPUDIST_NUM_PROCESSES"] = str(nprocs)
     env["TPUDIST_PROCESS_ID"] = str(rank)
@@ -156,7 +173,8 @@ def _supervise_once(args, cmd, attempt: int) -> int:
     try:
         for rank in range(args.nprocs):
             procs.append(subprocess.Popen(
-                cmd, env=_rank_env(coordinator, rank, args.nprocs, attempt),
+                cmd, env=_rank_env(coordinator, rank, args.nprocs, attempt,
+                                   args.inject),
                 start_new_session=True))
         while procs:
             for pr in list(procs):
@@ -198,18 +216,26 @@ def main(argv=None) -> int:
     if refused:
         p.error("unsupported in tpudist_torch.launch: "
                 + "; ".join(refused))
+    if args.inject:
+        try:
+            faults.check_spec(args.inject)      # fail fast on a typo
+        except ValueError as e:
+            p.error(f"unsupported in tpudist_torch.launch: --inject "
+                    f"{args.inject!r}: {e}")
     attempt = 0
     while True:
         exit_code = _supervise_once(args, cmd, attempt)
         if exit_code in (0, 130):
             return exit_code
+        why = faults.classify_exit(exit_code)
         if attempt >= args.max_restarts:
-            print(f"[tpudist_torch.launch] job failed (exit {exit_code}) — "
-                  f"restart budget exhausted", file=sys.stderr, flush=True)
+            print(f"[tpudist_torch.launch] job failed (exit {exit_code}: "
+                  f"{why}) — restart budget exhausted", file=sys.stderr,
+                  flush=True)
             return exit_code
         attempt += 1
-        print(f"[tpudist_torch.launch] job failed (exit {exit_code}) — "
-              f"restart {attempt}/{args.max_restarts}", file=sys.stderr,
+        print(f"[tpudist_torch.launch] job failed (exit {exit_code}: {why}) "
+              f"— restart {attempt}/{args.max_restarts}", file=sys.stderr,
               flush=True)
 
 

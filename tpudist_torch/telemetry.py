@@ -33,6 +33,10 @@ SCHEMA: dict[str, tuple[str, ...]] = {
     "eval": ("epoch", "seconds"),
     "checkpoint_save": ("seconds", "kind"),
     "checkpoint_restore": ("seconds", "path"),
+    # One per injected fault that fired, and per quarantined checkpoint.
+    "fault": ("point",),
+    # One per preemption drain: the signal the trainer caught.
+    "preempt": ("signal",),
     # Which attention backend --flash resolved to. One per ViT trainer.
     "attention_dispatch": ("kernel", "mode", "source"),
     # Which BN epilogue --fused-bn resolved to. One per trainer.
@@ -92,6 +96,21 @@ def percentile(xs: Iterable[float], q: float) -> float:
     lo = int(pos)
     hi = min(lo + 1, len(s) - 1)
     return s[lo] + (s[hi] - s[lo]) * (pos - lo)
+
+
+_current: Optional["Telemetry"] = None
+
+
+def set_current(tel: Optional["Telemetry"]) -> None:
+    """The process's live stream (the trainer's), for emitters that hold
+    no handle: the checkpoint quarantine's ``fault`` event. None clears
+    it."""
+    global _current
+    _current = tel
+
+
+def current() -> Optional["Telemetry"]:
+    return _current
 
 
 def env_attempt() -> int:

@@ -39,21 +39,48 @@ what validation (and so ``best``) measures.
 With ``--data DIR`` it logs the path each split's images take
 (``=> data path: ...``) and, after an epoch in which the loader skipped
 or retried a sample, tpudist's ``||==> Data:`` line; the ``epoch`` event
-then carries ``samples_skipped`` and ``samples_retried``. The doctor,
-fault injection, the preemption drain and the profiler window come later.
+then carries ``samples_skipped`` and ``samples_retried``.
+
+Preemption, as tpudist drains it: ``fit`` turns SIGTERM/SIGINT into a
+flag (``_PreemptionGuard``; a second signal kills as usual) that is read
+at each step boundary and each validation batch; under
+``--distributed`` the ranks agree on it there (``dist.any_rank``), so
+every rank stops after the same step. The primary rank then writes an
+emergency checkpoint (``save_emergency``: the live file only, stamped
+``epoch - 1``, with the epoch's global sample cursor), a ``preempt``
+event and a ``checkpoint_save`` event of kind ``emergency`` are emitted,
+and the process exits 75 (``faults.PREEMPTED_EXIT_CODE``), which the
+launcher calls resumable. A resume from that file re-enters the epoch at
+its cursor: the loader skips the consumed positions of the epoch's
+global order, so the rest of the epoch sees tpudist's batches.
+
+``--inject`` (or ``TPUDIST_INJECT``) arms ``faults``: ``rank_exit`` and
+``slow_peer`` at the step boundary, ``decode_fail`` in the loader,
+``checkpoint_corrupt`` after a save; each firing is a ``fault`` event.
+``--resume x.pth.tar`` imports the reference's file (its weights, epoch
+and best_acc1), ``--pretrained`` starts from torchvision's weights on
+disk, and ``--torch_checkpoints`` also writes ``checkpoint.pth.tar`` and
+``model_best.pth.tar`` (``compat/``). The doctor and the profiler window
+are not ported.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
+import signal
 import time
+from typing import Any, Optional
 
 import torch
 
 from tpudist_torch import checkpoint as ckpt_lib
 from tpudist_torch import dist as dist_lib
+from tpudist_torch import faults
 from tpudist_torch import telemetry as telemetry_lib
 from tpudist_torch._device import resolve_device
+from tpudist_torch.compat import pretrained as pretrained_lib
+from tpudist_torch.compat import torch_checkpoint as torch_ckpt
 from tpudist_torch.config import (VIT_ARCHS, Config, refuse_unsupported,
                                   write_settings)
 from tpudist_torch.data import DevicePrefetcher, build_train_val_loaders
@@ -108,6 +135,49 @@ class _MetricDrain:
         self.pending.clear()
 
 
+class PreemptionRequested(Exception):
+    """Raised at the step boundary after SIGTERM/SIGINT: ``fit`` writes
+    the emergency checkpoint and exits ``faults.PREEMPTED_EXIT_CODE``."""
+
+
+class _PreemptionGuard:
+    """SIGTERM/SIGINT → a flag the loops read at their boundaries,
+    instead of dying mid-step. A second signal restores the previous
+    handling and re-raises it, so a trainer wedged in its drain can still
+    be killed."""
+
+    def __init__(self):
+        self.requested: Optional[int] = None
+        self._prev: dict[int, Any] = {}
+
+    def _handler(self, signum, frame):
+        if self.requested is not None:
+            self.uninstall()
+            signal.raise_signal(signum)
+            return
+        self.requested = signum
+
+    def install(self) -> "_PreemptionGuard":
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                self._prev[sig] = signal.signal(sig, self._handler)
+            except ValueError:
+                pass                # not the main thread: nothing to catch
+        return self
+
+    def uninstall(self) -> None:
+        for sig, prev in self._prev.items():
+            try:
+                signal.signal(sig, prev)
+            except ValueError:
+                pass
+        self._prev.clear()
+
+    def check(self) -> None:
+        if self.requested is not None:
+            raise PreemptionRequested(signal.Signals(self.requested).name)
+
+
 class Trainer:
     """Build everything, then ``fit``."""
 
@@ -115,6 +185,8 @@ class Trainer:
         """``init_s``: the seconds ``dist.initialize_runtime`` took (the
         telemetry's init phase)."""
         self.cfg = cfg
+        # Armed before anything can fail: --inject, else TPUDIST_INJECT.
+        faults.configure(cfg.inject or None)
         self.device = resolve_device(cfg.device)
         self.rank, self.world = dist_lib.data_rank_world()
         self.primary = self.rank == 0
@@ -133,6 +205,8 @@ class Trainer:
         if cfg.telemetry:
             self.telemetry = telemetry_lib.Telemetry(
                 cfg.outpath, rank=self.rank, init_s=init_s)
+            telemetry_lib.set_current(self.telemetry)
+            faults.set_observer(self._on_fault)
             self.telemetry.emit(
                 "run_start", platform="gpu" if on_gpu else "cpu",
                 n_devices=self.world, device_kind=(torch.cuda.get_device_name(
@@ -159,7 +233,14 @@ class Trainer:
         self.model = create_model(cfg.arch, **kw)
         self.model.reset_parameters(torch.Generator().manual_seed(seed))
         self.model.to(self.device)
-        self.log(f"=> creating model '{cfg.arch}'")
+        if cfg.pretrained:
+            path = pretrained_lib.resolve_pretrained_path(
+                cfg.arch, cfg.pretrained_path)
+            pretrained_lib.load_pretrained(self.model, cfg.arch, path)
+            self.log(f"=> using pre-trained model '{cfg.arch}' (from "
+                     f"{path})")
+        else:
+            self.log(f"=> creating model '{cfg.arch}'")
         self.ema = (make_ema(self.model, lambda: create_model(cfg.arch, **kw))
                     if cfg.model_ema_decay > 0 else None)
         if on_gpu:
@@ -172,6 +253,13 @@ class Trainer:
         self.start_epoch = cfg.start_epoch
         self.global_step = 0
         self._train_dispatched = False
+        self.preemption: Optional[_PreemptionGuard] = None
+        # The epoch's consumed positions of its global order, counted as
+        # steps are dispatched; an emergency checkpoint's cursor starts
+        # the resumed epoch there.
+        self._epoch_consumed = 0
+        self._epoch_cursor0 = 0
+        self._pending_cursor: Optional[dict] = None
         resume = cfg.resume
         if resume == "auto":
             resume = ckpt_lib.find_resumable(cfg.outpath)
@@ -291,6 +379,27 @@ class Trainer:
         if self.logger is not None:
             self.logger.info(msg)
 
+    def _on_fault(self, point: str, step, info: dict) -> None:
+        """``faults.set_observer``'s sink: each fired injection is a
+        ``fault`` event (the loader's threads call it; emit is locked)."""
+        fields = {k: v for k, v in info.items()
+                  if isinstance(v, (int, float, str))}
+        if step is not None:
+            fields["step"] = step
+        self.telemetry.emit("fault", point=point, **fields)
+
+    def _check_preemption(self) -> None:
+        """At a boundary: raise ``PreemptionRequested`` when this rank,
+        or under --distributed any rank, caught a signal."""
+        if self.preemption is None:
+            return
+        if not self.distributed:
+            self.preemption.check()
+            return
+        if dist_lib.any_rank(self.preemption.requested is not None):
+            self.preemption.check()
+            raise PreemptionRequested("a peer's signal")
+
     # -- checkpointing ----------------------------------------------------
 
     def save(self, epoch: int, is_best: bool) -> None:
@@ -308,10 +417,68 @@ class Trainer:
                         cfg.batch_size))
                 ckpt_lib.save_checkpoint(state, is_best, cfg.outpath,
                                          keep=cfg.keep_checkpoints)
+                if cfg.torch_checkpoints:
+                    self._save_torch(epoch, is_best)
         finally:
             if self.telemetry is not None:
                 self.telemetry.note_checkpoint(time.time() - t0,
                                                kind="epoch", epoch=epoch)
+
+    def _save_torch(self, epoch: int, is_best: bool) -> None:
+        """The reference's files: ``checkpoint.pth.tar`` holds the live
+        weights (what a resume continues), ``model_best.pth.tar`` the
+        weights ``best_acc1`` was measured on (the EMA copy when there is
+        one)."""
+        cfg = self.cfg
+        live = torch_ckpt.save_reference_checkpoint(
+            os.path.join(cfg.outpath, "checkpoint.pth.tar"), self.model,
+            cfg.arch, epoch, self.best_acc1)
+        if not is_best:
+            return
+        best = os.path.join(cfg.outpath, "model_best.pth.tar")
+        if self.ema is None:
+            shutil.copyfile(live, best)
+        else:
+            torch_ckpt.save_reference_checkpoint(best, self.ema, cfg.arch,
+                                                 epoch, self.best_acc1)
+
+    def _data_cursor(self, epoch: int, train_loader) -> dict:
+        """The interrupted epoch's cursor: its consumed positions and the
+        loader's meters, which carry into the resumed epoch."""
+        skipped, retried = _data_meters(train_loader)
+        return {"epoch": epoch, "consumed": int(self._epoch_consumed),
+                "samples_skipped": int(skipped),
+                "samples_retried": int(retried)}
+
+    def save_emergency(self, epoch: int, train_loader) -> None:
+        """The preemption drain's checkpoint. The epoch is not complete,
+        so it is stamped ``epoch - 1`` (a resume re-enters ``epoch``) with
+        the cursor, never marks best, and writes the live file only
+        (``keep=0``: a history copy would overwrite the clean snapshot of
+        the same stored epoch). The card finishes every dispatched step
+        before the weights are read."""
+        self.log(f"=> preemption: writing emergency checkpoint (will "
+                 f"resume at epoch {epoch}, global sample cursor "
+                 f"{self._epoch_consumed})")
+        t0 = time.time()
+        try:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            if self.primary:
+                cfg = self.cfg
+                state = ckpt_lib.state_to_dict(
+                    self.model, self.optimizer, arch=cfg.arch,
+                    epoch=epoch - 1, best_acc1=self.best_acc1,
+                    step=self.global_step, ema=self.ema,
+                    topology=ckpt_lib.topology_tag(
+                        self.world, cfg.per_device_batch_size,
+                        cfg.batch_size),
+                    data_cursor=self._data_cursor(epoch, train_loader))
+                ckpt_lib.save_checkpoint(state, False, cfg.outpath, keep=0)
+        finally:
+            if self.telemetry is not None:
+                self.telemetry.note_checkpoint(time.time() - t0,
+                                               kind="emergency", epoch=epoch)
 
     def load(self, path: str) -> None:
         """Resume from ``path`` on this rank: the start epoch, best_acc1,
@@ -326,6 +493,14 @@ class Trainer:
 
     def _load(self, path: str) -> None:
         cfg = self.cfg
+        if str(path).endswith((".pth", ".pth.tar", ".pt")):
+            # The reference's file: its weights, epoch and best_acc1; the
+            # optimizer starts fresh (the reference never saved it).
+            self.start_epoch, self.best_acc1 = torch_ckpt.restore_from_torch(
+                self.model, path, cfg.arch, ema=self.ema)
+            self.log(f"=> imported torch checkpoint '{path}' (epoch "
+                     f"{self.start_epoch}, best_acc1 {self.best_acc1:.3f})")
+            return
         live = os.path.join(cfg.outpath, ckpt_lib.CKPT_NAME)
         if os.path.abspath(path) in (os.path.abspath(live),
                                      os.path.abspath(cfg.outpath)):
@@ -346,6 +521,13 @@ class Trainer:
         self.start_epoch = int(ckpt.get("epoch", 0))
         self.log(f"=> resumed from '{path}' (epoch {self.start_epoch}, "
                  f"best_acc1 {self.best_acc1:.3f})")
+        cur = ckpt.get("data_cursor")
+        if cur and int(cur.get("consumed", 0)) > 0:
+            # An emergency save: fit() applies it to its epoch.
+            self._pending_cursor = dict(cur)
+            self.log(f"=> checkpoint carries a mid-epoch sample cursor: "
+                     f"epoch {cur.get('epoch')} continues at global sample "
+                     f"{cur.get('consumed')} (no replay, no drop)")
 
     def train_epoch(self, loader, epoch: int, lr: float):
         cfg = self.cfg
@@ -362,49 +544,62 @@ class Trainer:
         pf = DevicePrefetcher(loader, self.device) if cfg.device_prefetch \
             else None
         tel = self.telemetry
+        # Continue from the resumed cursor (fit() sets it), else 0.
+        self._epoch_consumed, self._epoch_cursor0 = self._epoch_cursor0, 0
         end = t_prev = time.time()
-        for i, (images, labels) in enumerate(pf if pf is not None
-                                             else loader):
-            now = time.time()
-            data_time.update(now - end)
-            data_s = now - t_prev
-            t_h = time.time()
-            if pf is None:
-                images, labels = to_device(images, labels, self.device)
-            first_dispatch = not self._train_dispatched
-            self._train_dispatched = True
-            counted = self._first_step_kernels() if first_dispatch else None
-            launches = dict(counted[1].LAUNCHES) if counted else None
-            t_c = time.time()
-            metrics = self.train_step(images, labels, lr)
-            t_done = time.time()
-            h2d_s, compute_s = t_c - t_h, t_done - t_c
-            if counted:
-                self._log_first_step_launches(*counted, launches)
-            prefetch_s = pf.poke() if pf is not None else None
-            drain.push(metrics, n=int(images.shape[0]))
-            drain_ovl_s = None
-            if async_drain:
-                t_do = time.time()
-                drain.drain_ready()
-                drain_ovl_s = time.time() - t_do
-            step_num = self.global_step
-            self.global_step += 1
-            batch_time.update(time.time() - end)
-            end = time.time()
-            drain_s = 0.0
-            if i % cfg.print_freq == 0:
-                t_d = time.time()
-                drain.drain_ready() if async_drain else drain.drain()
-                drain_s = time.time() - t_d
-                self.log(progress.display(i))
-            if tel is not None:
-                tel.step(step=step_num, epoch=epoch, data_s=data_s,
-                         h2d_s=h2d_s, compute_s=compute_s, drain_s=drain_s,
-                         step_s=time.time() - t_prev,
-                         compile_s=compute_s if first_dispatch else 0.0,
-                         prefetch_s=prefetch_s, drain_ovl_s=drain_ovl_s)
-            t_prev = time.time()
+        try:
+            for i, (images, labels) in enumerate(pf if pf is not None
+                                                 else loader):
+                now = time.time()
+                data_time.update(now - end)
+                data_s = now - t_prev
+                # The boundary: every earlier step is dispatched, this one
+                # is not. A pending signal drains here.
+                self._check_preemption()
+                faults.maybe_rank_exit(self.global_step)
+                faults.maybe_slow_peer(self.global_step)
+                t_h = time.time()
+                if pf is None:
+                    images, labels = to_device(images, labels, self.device)
+                first_dispatch = not self._train_dispatched
+                self._train_dispatched = True
+                counted = (self._first_step_kernels() if first_dispatch
+                           else None)
+                launches = dict(counted[1].LAUNCHES) if counted else None
+                t_c = time.time()
+                metrics = self.train_step(images, labels, lr)
+                t_done = time.time()
+                h2d_s, compute_s = t_c - t_h, t_done - t_c
+                self._epoch_consumed += int(images.shape[0]) * self.world
+                if counted:
+                    self._log_first_step_launches(*counted, launches)
+                prefetch_s = pf.poke() if pf is not None else None
+                drain.push(metrics, n=int(images.shape[0]))
+                drain_ovl_s = None
+                if async_drain:
+                    t_do = time.time()
+                    drain.drain_ready()
+                    drain_ovl_s = time.time() - t_do
+                step_num = self.global_step
+                self.global_step += 1
+                batch_time.update(time.time() - end)
+                end = time.time()
+                drain_s = 0.0
+                if i % cfg.print_freq == 0:
+                    t_d = time.time()
+                    drain.drain_ready() if async_drain else drain.drain()
+                    drain_s = time.time() - t_d
+                    self.log(progress.display(i))
+                if tel is not None:
+                    tel.step(step=step_num, epoch=epoch, data_s=data_s,
+                             h2d_s=h2d_s, compute_s=compute_s,
+                             drain_s=drain_s, step_s=time.time() - t_prev,
+                             compile_s=compute_s if first_dispatch else 0.0,
+                             prefetch_s=prefetch_s, drain_ovl_s=drain_ovl_s)
+                t_prev = time.time()
+        except PreemptionRequested:
+            drain.drain()           # every dispatched step's metrics
+            raise
         drain.drain()
         self.log(f"||==> Train: Epoch[{epoch}]\tLoss {losses.avg:.4e}\t"
                  f"Acc@1 {top1.avg:6.2f}")
@@ -424,6 +619,7 @@ class Trainer:
         drain = _MetricDrain({"loss": losses, "acc1": top1})
         end = time.time()
         for i, (images, labels) in enumerate(loader):
+            self._check_preemption()
             images, labels = to_device(images, labels, self.device)
             drain.push(self.eval_step(images, labels), n=int(images.shape[0]))
             batch_time.update(time.time() - end)
@@ -451,13 +647,30 @@ class Trainer:
                     f"{split} {path} ({why})" for split, (path, why) in (
                         ("train", train_loader.data_path),
                         ("val", val_loader.data_path))))
+        epoch = self.start_epoch
         try:
             if cfg.evaluate:
                 return self.validate(val_loader, epoch=-1)
+            self.preemption = _PreemptionGuard().install()
             total_time = 0.0
             for epoch in range(self.start_epoch, cfg.epochs):
                 t0 = time.time()
                 train_loader.set_epoch(epoch)
+                cur, self._pending_cursor = self._pending_cursor, None
+                if cur is not None and int(cur.get("epoch", -1)) == epoch:
+                    # After set_epoch, which clears the cursor: the rest of
+                    # the interrupted epoch's global order, strided over
+                    # this world, with the interrupted attempt's meters.
+                    consumed = int(cur.get("consumed", 0))
+                    train_loader.set_cursor(
+                        consumed,
+                        samples_skipped=int(cur.get("samples_skipped", 0)),
+                        samples_retried=int(cur.get("samples_retried", 0)))
+                    self._epoch_cursor0 = consumed
+                    self.log(f"=> elastic continuation: epoch {epoch} "
+                             f"resumes at global sample {consumed} "
+                             f"({len(train_loader)} steps remain on world "
+                             f"{self.world})")
                 lr = lr_for_epoch(cfg, epoch)
                 self.log(f"self.optimizer={{'lr': {lr}}}")
                 self.train_epoch(train_loader, epoch, lr)
@@ -488,13 +701,28 @@ class Trainer:
                         "epoch", epoch=epoch, seconds=round(epoch_time, 3),
                         **extra)
             return self.best_acc1
+        except PreemptionRequested as sig:
+            # The dispatched steps are in the weights; the cursor counts
+            # them. Save, and exit resumable.
+            self.log(f"=> caught {sig} — draining for preemption")
+            if self.telemetry is not None:
+                self.telemetry.emit("preempt", signal=str(sig), epoch=epoch)
+            self.save_emergency(epoch, train_loader)
+            self.log(f"=> emergency checkpoint complete; exiting "
+                     f"{faults.PREEMPTED_EXIT_CODE} (resumable)")
+            raise SystemExit(faults.PREEMPTED_EXIT_CODE)
         finally:
+            if self.preemption is not None:
+                self.preemption.uninstall()
+                self.preemption = None
             if self.telemetry is not None:
                 # What the card ran: the wrappers count only launches.
                 self.telemetry.close(
                     best_acc1=float(self.best_acc1),
                     kernel_launches={**fused_norm.LAUNCHES,
                                      **flash_attention.LAUNCHES})
+                telemetry_lib.set_current(None)
+                faults.set_observer(None)
 
 
 def _data_meters(loader) -> tuple[int, int]:
@@ -509,6 +737,8 @@ def run(cfg: Config) -> float:
     group first (NCCL on the card, gloo on the CPU) and leave it at the
     end, on every exit path."""
     refuse_unsupported(cfg)
+    # Before the rendezvous, where init_hang fires.
+    faults.configure(cfg.inject or None)
     init_s = 0.0
     if cfg.distributed:
         init_s = dist_lib.initialize_runtime(
