@@ -52,7 +52,20 @@ line and raising on failure:
    three SGD steps under ``--flash on`` and ``off`` (same seed, same
    batches, bf16 and f32) must agree; then one train step is broken down
    by kernel category;
-6. data-parallel training, world 1 over NCCL, through ``python -m
+6. the measurement dispatch, accumulation and mixing: ``dispatch_auto``
+   runs tpudist's own resnet18 and ViT-B/16 commands at full width with
+   ``--fused-bn`` and ``--flash`` at their default, ``auto``, and
+   ``--accum-steps 2 --mixup-alpha 0.2 --cutmix-alpha 1.0``, twice each
+   under a fresh ``TPUDIST_DISPATCH_CACHE``: the first run measures every
+   workload (each verdict printed with the kernel's and the plain side's
+   ms and the margin), the second reads every verdict from the cache; each
+   site that chose the kernel launches it once a microbatch, each that
+   chose plain nothing (the probes' launches are counted apart); then
+   ViT-B/16 is served with no ``--flash`` flag. ``accum_mixup`` holds
+   three steps of two microbatches on mixed batches, kernels on against
+   off (the same draws), to the on/off bounds of phases 4 and 5, at
+   B1–B4 18/16/18/16 and B5–B7 24/24/24 launches a step;
+7. data-parallel training, world 1 over NCCL, through ``python -m
    tpudist_torch.launch -n 1 -- python -m tpudist_torch --distributed``:
    resnet18 at 224 px, batch 256, bf16, ``--fused-bn on`` for two epochs
    of 8 steps (the log and ``run_start`` name backend nccl, the first
@@ -63,7 +76,7 @@ line and raising on failure:
    reports them in ``run_end``. Then, in this process, three steps of the
    world-1 DDP step against the one-card step (bit-equal whenever two
    one-card runs are) and the DDP step's breakdown;
-7. checkpoints: ``checkpoint_resume`` trains resnet18 at ``train_ddp``'s
+8. checkpoints: ``checkpoint_resume`` trains resnet18 at ``train_ddp``'s
    settings for 3 epochs through the launcher, straight through and again
    under ``--max-restarts 1 --resume auto --overwrite keep`` with
    ``CRASH_WRAPPER``, whose attempt 0 dies after the first epoch's save:
@@ -80,12 +93,13 @@ line and raising on failure:
    from the file. Where a straight and a resumed run are not bit-equal,
    a second straight run measures the run-to-run spread and the resumed
    run is held within 3x of it;
-8. ImageFolder data: ``image_decode`` prints what the host offers for
+9. ImageFolder data: ``image_decode`` prints what the host offers for
    decoding (PIL, torchvision, ``jpeglib.h``, ``libjpeg.so``, nvJPEG,
    the cores, ``g++``) and the data path the port takes there, building
    the native host kernels (``tpudist_torch/data/csrc``, g++);
    ``imagefolder_corpus`` writes 8 classes × 160 train and 32 val JPEGs
-   at 384 px with ``benchmarks/make_synth_imagefolder.py`` (a subprocess)
+   at 384 px with ``benchmarks/make_synth_imagefolder.py``'s ``render``
+   (one writer process a host core)
    and cuts one train JPEG to half its bytes; ``native_vs_plain_host``
    holds the native train and val transforms against the numpy bilinear
    reference and the PIL stack on those images and times each one thread;
@@ -98,7 +112,7 @@ line and raising on failure:
    the launcher with ``--data-skip-budget 1``: B1–B4 9/8/9/8 and B5–B7
    12/12/12 a step, the truncated JPEG skipped once an epoch and logged,
    the share of the wall spent waiting for data;
-9. preemption, fault injection and the reference's files:
+10. preemption, fault injection and the reference's files:
    ``preempt_resume`` sends SIGTERM to the launcher of a
    ``checkpoint_resume`` run mid-epoch: the rank drains, writes its
    emergency checkpoint (a live file whose ``data_cursor`` counts whole
@@ -118,8 +132,9 @@ line and raising on failure:
    into a fresh model with bit-equal logits through B5, two ViT-B/16 steps
    start from that file (B5–B7 12/12/12 a step), and ``--pretrained``
    with an empty ``$TORCH_HOME`` fails, naming where it searched;
-10. one ``{"kernels": [...]}`` line;
-11. last, ``{"ok": true, "device": {...}}``.
+11. one ``{"phase_seconds": {...}}`` line, each phase's seconds;
+12. one ``{"kernels": [...]}`` line;
+13. last, ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, without a CUDA card or without the
 rest of the repository. ``python3 chip_smoke.py --mutations`` runs only
@@ -171,6 +186,7 @@ from tpudist_torch.models import create_model
 from tpudist_torch.ops import _build
 from tpudist_torch.ops import flash_attention as fa
 from tpudist_torch.ops import fused_norm as fn
+from tpudist_torch.ops import mixup
 from tpudist_torch.serve import __main__ as serve_cli
 from tpudist_torch.serve.engine import ServeEngine
 from tpudist_torch.serve.export import load_serve_state
@@ -2215,12 +2231,364 @@ def phase_vit_train_step_breakdown() -> dict:
     return out
 
 
+# -- the measurement dispatch, accumulation and mixing ----------------------
+
+# tpudist's own commands at full width: --fused-bn and --flash left at
+# their default, auto; two optimizer steps of two microbatches each.
+DISPATCH_R18 = ["--synthetic", "-a", "resnet18", "--image-size", str(TRAIN_PX),
+                "--num-classes", "1000", "-b", str(TRAIN_B), "--use_amp",
+                "--accum-steps", "2", "--mixup-alpha", "0.2",
+                "--cutmix-alpha", "1.0", "--label-smoothing", "0.1",
+                "--synthetic-size", str(2 * TRAIN_B), "--epochs", "1",
+                "-p", "1", "--keep-checkpoints", "0", "--telemetry",
+                "--seed", "0"]
+DISPATCH_VIT = ["--synthetic", "-a", "vit_b_16", "--image-size",
+                str(TRAIN_PX), "--num-classes", "1000", "-b", str(2 * VIT_B),
+                "--use_amp", "--accum-steps", "2", "--optimizer", "adamw",
+                "--lr", "1e-3", "--weight-decay", "0.05", "--mixup-alpha",
+                "0.2", "--cutmix-alpha", "1.0", "--label-smoothing", "0.1",
+                "--synthetic-size", str(4 * VIT_B), "--epochs", "1", "-p",
+                "1", "--keep-checkpoints", "0", "--telemetry", "--seed", "0"]
+ACCUM = 2
+NORM_VERDICT_RE = re.compile(
+    r"^=>   (m\d+_c\d+_\w+_(plain|res)) \((\d+) sites?\)(?:: cuda "
+    r"([\d.]+) ms vs plain ([\d.]+) ms, margin ([\d.]+)%)? → (cuda|plain) "
+    r"\((\w+)\)$")
+ATTN_VERDICT_RE = re.compile(
+    r"^=> (?:serve )?attention dispatch: (flash|plain) attention \(mode "
+    r"auto, (\w+)(?:: [^;]*)?(?:; (b\S+): flash ([\d.]+) ms vs plain "
+    r"([\d.]+) ms, margin ([\d.]+)%)?\)$")
+LAUNCH_LINE_RE = re.compile(r"^=> (?:fused-norm|flash) kernels launched by "
+                            r"the first train step: \d+ \((.*)\)$")
+PROBE_LINE_RE = re.compile(r"^=> dispatch probes launched \d+ kernels "
+                           r"\((.*)\)$")
+
+
+def _counts(text: str, pattern) -> dict:
+    """``{kernel: n}`` from the first line of ``text`` that ``pattern``
+    matches ("name n, name n"), {} where none does."""
+    for ln in text.splitlines():
+        m = pattern.match(ln)
+        if m:
+            return {k: int(v) for k, v in (kv.rsplit(" ", 1) for kv in
+                                           m.group(1).split(", "))}
+    return {}
+
+
+def _verdicts(text: str, regex) -> list[dict]:
+    rows = []
+    for ln in text.splitlines():
+        m = regex.match(ln)
+        if m:
+            rows.append(m)
+    return rows
+
+
+def _dispatch_run(argv: list, root: str, tag: str, vit: bool) -> dict:
+    """One in-process run of a dispatch command: its verdicts, its probe
+    launches, and its launches a step checked against the verdicts (each
+    site that chose the kernel launches it once a microbatch, each that
+    chose plain nothing; validation launches the forward alone)."""
+    outdir = os.path.join(root, tag)
+    t0 = time.perf_counter()
+    text, events, launches = _run_cli(argv + ["--outpath", outdir], tag)
+    wall_s = time.perf_counter() - t0
+    shutil.rmtree(outdir, ignore_errors=True)
+    n = sum(e["type"] == "step" for e in events)
+    probe = _counts(text, PROBE_LINE_RE)
+    per_step = dict.fromkeys(fa.KERNELS if vit else fn.KERNELS, 0)
+    if vit:
+        rows = [{"key": m.group(3), "kernel": m.group(1),
+                 "source": m.group(2), "flash_ms": float(m.group(4)),
+                 "plain_ms": float(m.group(5)),
+                 "margin": float(m.group(6)) / 100}
+                for m in _verdicts(text, ATTN_VERDICT_RE) if m.group(3)]
+        if len(rows) != 1:
+            raise RuntimeError(f"{tag}: attention verdicts {rows}")
+        fused = rows[0]["kernel"] == "flash"
+        if fused:
+            per_step = dict.fromkeys(fa.KERNELS, LAYERS * ACCUM)
+        val = {"flash_fwd": LAYERS if fused else 0}
+    else:
+        rows = [{"key": m.group(1), "sites": int(m.group(3)),
+                 "cuda_ms": m.group(4) and float(m.group(4)),
+                 "plain_ms": m.group(5) and float(m.group(5)),
+                 "margin": m.group(6) and float(m.group(6)) / 100,
+                 "kernel": m.group(7), "source": m.group(8)}
+                for m in _verdicts(text, NORM_VERDICT_RE)]
+        if len(rows) != 9 or sum(r["sites"] for r in rows) != \
+                SITES_PER_STEP or any(r["cuda_ms"] is None for r in rows):
+            raise RuntimeError(f"{tag}: fused-norm verdicts {rows}")
+        for r in rows:
+            if r["kernel"] == "cuda":
+                res = r["key"].endswith("_res")
+                for k in (("bn_act_fwd_res", "bn_act_bwd_res") if res
+                          else ("bn_act_fwd", "bn_act_bwd")):
+                    per_step[k] += ACCUM * r["sites"]
+        val = {}
+    first = _counts(text, LAUNCH_LINE_RE)
+    want = {k: n * v + val.get(k, 0) + probe.get(k, 0)
+            for k, v in per_step.items()}
+    got = {k: launches[k] for k in per_step}
+    others = {k: v for k, v in launches.items() if k not in per_step and v}
+    if (first or dict.fromkeys(per_step, 0)) != per_step or got != want \
+            or others or n != 2:
+        raise RuntimeError(f"{tag}: launches {launches} over {n} steps "
+                           f"(probes {probe}, first step {first}); the "
+                           f"verdicts {rows} want {per_step} a step")
+    sources = {r["source"] for r in rows}
+    return {"wall_s": wall_s, "steps": n, "verdicts": rows,
+            "sources": sorted(sources), "probe_launches": probe,
+            "launches": got, "launches_per_step": per_step}
+
+
+# A probe's kernel side against this run's event-timed kernels at the same
+# rows or larger: a probe that read the host's pace (PR 11's first design
+# read 0.56-1.9 ms a call whatever the rows) lands far above, a device-timed
+# one at most the kernels plus the probe's own small ops (the fold, a cast
+# and a sum, autograd's fills). And from resnet18's smallest workload (layer4,
+# 3.2 M elements) to its stem (103 M) device time must grow.
+PROBE_KERNEL_FACTOR, PROBE_SLACK_MS, PROBE_GROWTH = 3.0, 0.1, 3.0
+
+
+def _norm_probe_faults(verdicts: list, norm: dict) -> list:
+    """What is wrong with the measured fused-norm verdicts as device
+    times: each kernel side within ``PROBE_KERNEL_FACTOR`` × (B1 + B3 or
+    B2 + B4 at twice its rows, ``fused_norm_vs_plain``) +
+    ``PROBE_SLACK_MS``; both sides of the largest workload
+    ``PROBE_GROWTH`` × those of the smallest."""
+    kms = {(r["kernel"], r["shape"][0], r["shape"][1]): r["kernel_ms"]
+           for r in norm["cases"] if r["dtype"] == "bfloat16"}
+    bad, sized = [], []
+    for r in verdicts:
+        m = re.match(r"m(\d+)_c(\d+)_", r["key"])
+        rows, c = int(m.group(1)), int(m.group(2))
+        res = "_res" if r["key"].endswith("_res") else ""
+        kernels = kms[(f"bn_act_fwd{res}", ACCUM * rows, c)] \
+            + kms[(f"bn_act_bwd{res}", ACCUM * rows, c)]
+        r["kernels_ms_at_batch"] = kernels
+        if r["cuda_ms"] > PROBE_KERNEL_FACTOR * kernels + PROBE_SLACK_MS:
+            bad.append(f"{r['key']}: probe {r['cuda_ms']} ms against its "
+                       f"kernels' {kernels:.4f} ms at {ACCUM * rows} rows")
+        sized.append((rows * c, r))
+    lo, hi = min(sized, key=lambda t: t[0])[1], max(sized,
+                                                     key=lambda t: t[0])[1]
+    for side in ("cuda_ms", "plain_ms"):
+        if hi[side] < PROBE_GROWTH * lo[side]:
+            bad.append(f"{side} {hi[side]} at {hi['key']} is not "
+                       f"{PROBE_GROWTH}x {lo[side]} at {lo['key']}")
+    return bad
+
+
+def _flash_probe_fault(flash_ms: float, kernels_ms: float,
+                       key: str) -> list:
+    """The attention probe's flash side against this run's event-timed
+    B5 (+ B6 + B7) at the same shape."""
+    if flash_ms > PROBE_KERNEL_FACTOR * kernels_ms + PROBE_SLACK_MS:
+        return [f"{key}: probe {flash_ms} ms against its kernels' "
+                f"{kernels_ms:.4f} ms"]
+    return []
+
+
+def _step_ms_by_epilogue(root: str, steps: int = 8) -> dict:
+    """The synchronised wall of one resnet18 step of ``DISPATCH_R18`` (two
+    microbatches, mixed) with the cached ``auto`` verdicts, every site on
+    the kernels (``on``) and none (``off``), on one device batch, in turns
+    auto, on, off, off, on, auto: ms a step (median of ``steps`` after 2)
+    per turn."""
+    from tpudist_torch.trainer import Trainer
+    images, labels = _device_batch(7)
+    out = {}
+    for mode in ("auto", "on", "off", "off", "on", "auto"):
+        argv = [a for a in DISPATCH_R18 if a != "--telemetry"]
+        tr = Trainer(config_lib.from_args(argv + [
+            "--fused-bn", mode, "--outpath", os.path.join(root, "steps"),
+            "--overwrite", "delete"]))
+        times = []
+        for _ in range(steps + 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.train_step(images, labels, 0.1)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out.setdefault(mode, []).append(statistics.median(times[2:]))
+        del tr
+    shutil.rmtree(os.path.join(root, "steps"), ignore_errors=True)
+    return out
+
+
+def phase_dispatch_auto(card: dict, kern: dict, bwd: dict,
+                        norm: dict) -> dict:
+    """``--fused-bn auto`` and ``--flash auto`` (the default) on the card:
+    resnet18 and ViT-B/16 at full width with ``--accum-steps 2`` and
+    mixup/cutmix, twice each under a fresh ``TPUDIST_DISPATCH_CACHE``.
+    The first run measures every workload (each verdict printed with both
+    sides' ms and the margin), the second reads every verdict from the
+    cache and measures nothing. One resnet18 step is then timed under the
+    cached verdicts, all kernels and none (``_step_ms_by_epilogue``), and
+    ViT-B/16 is served with no ``--flash`` flag: the eval workload of the
+    largest bucket. Every measured kernel side must read as device time
+    against the kernels this run timed (``_norm_probe_faults``,
+    ``_flash_probe_fault``)."""
+    fwd = {r["shape"][0]: r["kernel_ms"] for r in kern["cases"]
+           if r["case"].startswith(("serve_", "train_"))}
+    train_flash = fwd[VIT_B] + bwd["cases"][0]["flash_bwd_dq"]["kernel_ms"] \
+        + bwd["cases"][0]["flash_bwd_dkv"]["kernel_ms"]
+    root = tempfile.mkdtemp(prefix="tpudist_torch_dispatch_")
+    prev = os.environ.get("TPUDIST_DISPATCH_CACHE")
+    os.environ["TPUDIST_DISPATCH_CACHE"] = os.path.join(root, "cache")
+    out = {"phase": "dispatch_auto", "card": card["nvidia_smi"],
+           "accum_steps": ACCUM}
+    try:
+        for arch, argv, vit in (("resnet18", DISPATCH_R18, False),
+                                ("vit_b_16", DISPATCH_VIT, True)):
+            first = _dispatch_run(argv, root, f"{arch}_measure", vit)
+            again = _dispatch_run(argv, root, f"{arch}_cached", vit)
+            if first["sources"] != ["measured"] \
+                    or again["sources"] != ["cache"] \
+                    or again["probe_launches"] or not first["probe_launches"] \
+                    or [(r["key"], r["kernel"]) for r in first["verdicts"]] \
+                    != [(r["key"], r["kernel"]) for r in again["verdicts"]]:
+                raise RuntimeError(f"dispatch_auto {arch}: the second run "
+                                   f"did not read the first's verdicts: "
+                                   f"{first} then {again}")
+            rows = first["verdicts"]
+            bad = (_flash_probe_fault(rows[0]["flash_ms"], train_flash,
+                                      rows[0]["key"]) if vit
+                   else _norm_probe_faults(rows, norm))
+            if bad:
+                raise RuntimeError(f"dispatch_auto {arch}: the probe did "
+                                   f"not time the card: {'; '.join(bad)}")
+            out[arch] = {"measure": first, "cached": again}
+        out["resnet18"]["step_ms"] = _step_ms_by_epilogue(root)
+        text, summary, launches, calls = _serve_run(
+            ["-a", "vit_b_16", "--image-size", "224", "--buckets",
+             ",".join(map(str, BUCKETS)), "--load-rate", "20",
+             "--load-duration", "1", "--seed", "0"],
+            "serving ViT-B/16 under --flash auto")
+        m = [m for m in _verdicts(text, ATTN_VERDICT_RE) if m.group(3)]
+        if len(m) != 1 or m[0].group(2) != "measured":
+            raise RuntimeError(f"serve --flash auto verdict: {text[-2000:]}")
+        bad = _flash_probe_fault(float(m[0].group(4)), fwd[max(BUCKETS)],
+                                 m[0].group(3))
+        if bad:
+            raise RuntimeError(f"serve --flash auto: the probe did not time "
+                               f"the card: {bad}")
+        flash = m[0].group(1) == "flash"
+        probe = launches["flash_fwd"] - (LAYERS * calls if flash else 0)
+        # dispatch.measure_ms's calls of one side, one launch each: 2 warm,
+        # then 10 for each of 3 repeats (and 10 for each repeat the host
+        # fell behind).
+        if probe < 32 or (probe - 2) % 10 or launches["flash_bwd_dq"] \
+                or launches["flash_bwd_dkv"]:
+            raise RuntimeError(f"serve --flash auto: launches {launches} "
+                               f"for {calls} bucket calls, verdict "
+                               f"{m[0].group(0)}")
+        out["serve"] = {"key": m[0].group(3), "kernel": m[0].group(1),
+                        "flash_ms": float(m[0].group(4)),
+                        "plain_ms": float(m[0].group(5)),
+                        "margin": float(m[0].group(6)) / 100,
+                        "bucket_calls": calls, "launches": launches,
+                        "probe_launches": probe, "summary": summary}
+    finally:
+        if prev is None:
+            os.environ.pop("TPUDIST_DISPATCH_CACHE", None)
+        else:
+            os.environ["TPUDIST_DISPATCH_CACHE"] = prev
+        shutil.rmtree(root, ignore_errors=True)
+    emit(out)
+    return out
+
+
+def _accum_setup(vit: bool):
+    """``setup(on, dtype)`` for ``compare_on_off``: resnet18 (batch
+    TRAIN_B) or ViT-B/16 (SGD) under ``--accum-steps 2`` with mixup and
+    cutmix, the kernels on or off. The mixing draws are seeded by (seed 0,
+    optimizer step, rank 0), so both runs mix alike."""
+    def setup(on: bool, dtype):
+        common = dict(image_size=TRAIN_PX, accum_steps=ACCUM,
+                      mixup_alpha=0.2, cutmix_alpha=1.0,
+                      label_smoothing=0.1, seed=0)
+        if vit:
+            cfg = config_lib.Config(arch="vit_b_16", batch_size=VIT_CMP_B,
+                                    flash="on" if on else "off", **common)
+            model = create_model("vit_b_16", dtype=dtype, flash=on,
+                                 image_size=TRAIN_PX)
+        else:
+            cfg = config_lib.Config(batch_size=TRAIN_B,
+                                    fused_bn="on" if on else "off",
+                                    **common)
+            model = create_model("resnet18", dtype=dtype, fused_bn=on)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        model.cuda()
+        return model, train_lib.make_train_step(
+            model, train_lib.make_optimizer(model, cfg), cfg)
+    return setup
+
+
+def _blend_ms() -> dict:
+    """The mixup blend on the card at batch TRAIN_B, 224 px: ``apply_mix``
+    (rounded once, through f64) against the same blend in f32 rounded
+    twice, ms a call (CUDA events, median of 25 × 10), and whether the
+    two differ anywhere."""
+    images, labels = _device_batch(11)
+    draw = mixup.MixDraw(torch.randperm(TRAIN_B), True, 0.3711,
+                         (0, 0, 0, 0))
+    lam = float(np.float32(draw.lam))
+    rest = float(np.float32(1.0) - np.float32(draw.lam))
+    perm = draw.perm.cuda()
+
+    def twice():
+        return images * lam + images[perm] * rest
+    once_out = mixup.apply_mix(images, labels, draw)[0]
+    return {"batch": TRAIN_B, "once_f64_ms": time_ms(
+                lambda: mixup.apply_mix(images, labels, draw)),
+            "twice_f32_ms": time_ms(twice),
+            "share_differing": (once_out != twice()).float().mean().item()}
+
+
+def phase_accum_mixup() -> dict:
+    """Optimizer steps of two microbatches on mixed batches, kernels on
+    against kernels off from one seed on the same batches and the same
+    draws, held to the on/off bounds of ``fused_vs_plain_train`` (resnet18)
+    and ``flash_vs_plain_train`` (ViT-B/16); the kernels must launch once a
+    site a microbatch: B1–B4 18/16/18/16 and B5–B7 24/24/24 a step."""
+    out = {"phase": "accum_mixup", "accum_steps": ACCUM, "steps":
+           TRAIN_CMP_STEPS}
+    for arch, vit, batch, lr, tols, kernels, per_mb in (
+            ("resnet18", False, TRAIN_B, 0.1,
+             (TRAIN_LOSS_TOL, TRAIN_STATE_TOL), fn.KERNELS, R18_PER_STEP),
+            ("vit_b_16", True, VIT_CMP_B, VIT_CMP_LR,
+             (VIT_LOSS_TOL, VIT_STATE_TOL), fa.KERNELS,
+             dict.fromkeys(fa.KERNELS, LAYERS))):
+        rows = []
+        for dtype in (torch.bfloat16, torch.float32):
+            fn.reset_counts()
+            fa.reset_counts()
+            row = compare_on_off(_accum_setup(vit), dtype, batch, lr)
+            launches = {**fn.LAUNCHES, **fa.LAUNCHES}
+            want = {k: ACCUM * v * TRAIN_CMP_STEPS for k, v in per_mb.items()}
+            bad = _held_on_off(row, *tols, f"{arch} accum/mixup on vs off")
+            if {k: launches[k] for k in kernels} != want:
+                bad.append(f"launches {launches}, want {want}")
+            if bad:
+                raise RuntimeError(f"{'; '.join(bad)}: {row}")
+            rows.append(dict(row, launches_per_step={
+                k: launches[k] // TRAIN_CMP_STEPS for k in kernels},
+                loss_tol_relative=tols[0][row["dtype"]],
+                state_tol=tols[1][row["dtype"]]))
+        out[arch] = {"batch": batch, "lr": lr, "rows": rows}
+    out["blend"] = _blend_ms()
+    emit(out)
+    return out
+
+
 # -- phase 8: ImageFolder data on the card's host ------------------------------
 
-# benchmarks/make_synth_imagefolder.py's arguments: 8 classes of stationary
-# textures at 384 px, about ImageNet's mean edge.
-CORPUS_ARGS = ["--classes", "8", "--train-per-class", "160",
-               "--val-per-class", "32", "--size", "384"]
+# The corpus: 8 classes of make_synth_imagefolder.py's stationary textures,
+# 160 train and 32 val images a class, at 384 px (about ImageNet's mean
+# edge).
+CORPUS_SHAPE = (8, 160, 32, 384)
 CORPUS_TRAIN, CORPUS_VAL = 8 * 160, 8 * 32
 TRUNCATED = os.path.join("train", "class_003", "00077.jpg")
 HOST_IMAGES = 32                 # images of the single-thread host check
@@ -2286,21 +2654,51 @@ def phase_image_decode() -> dict:
     return out
 
 
+# One writer of the corpus: every shards-th image of the tree, drawn by
+# benchmarks/make_synth_imagefolder.py's render() from a generator seeded
+# by its (split, class, index), so the tree does not depend on the shards.
+CORPUS_WRITER = r"""
+import importlib.util, os, sys
+import numpy as np
+script, root = sys.argv[1], sys.argv[2]
+classes, train, val, size, shard, shards = map(int, sys.argv[3:9])
+spec = importlib.util.spec_from_file_location("synth", script)
+synth = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(synth)
+jobs = [(split, c, i) for split, per in (("train", train), ("val", val))
+        for c in range(classes) for i in range(per)]
+for split, c, i in jobs[shard::shards]:
+    d = os.path.join(root, split, f"class_{c:03d}")
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng([0, split == "val", c, i])
+    synth.render(rng, size, c).save(os.path.join(d, f"{i:05d}.jpg"),
+                                    quality=88)
+"""
+
+
 def phase_imagefolder_corpus(root: str) -> dict:
-    """A JPEG tree from ``benchmarks/make_synth_imagefolder.py``, run as a
-    subprocess; one train JPEG is then cut to half its bytes (a corrupt
-    sample for the skip path)."""
+    """A JPEG tree of ``benchmarks/make_synth_imagefolder.py``'s images (its
+    ``render``, 8 base classes at 384 px), written by one process a host
+    core; one train JPEG is then cut to half its bytes (a corrupt sample
+    for the skip path)."""
     import glob
     script = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "benchmarks", "make_synth_imagefolder.py")
+    shards = max(1, min(len(os.sched_getaffinity(0)), 32))
     t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, script, "--root", root,
-                        *CORPUS_ARGS], capture_output=True, text=True,
-                       timeout=900)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", CORPUS_WRITER, script, root,
+         *map(str, CORPUS_SHAPE), str(k), str(shards)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for k in range(shards)]
+    errors = []
+    for proc in procs:
+        _, err = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            errors.append(f"exit {proc.returncode}: {err[-1000:]}")
     seconds = time.perf_counter() - t0
-    if r.returncode != 0:
-        raise RuntimeError(f"make_synth_imagefolder.py exited "
-                           f"{r.returncode}: {r.stderr[-2000:]}")
+    if errors:
+        raise RuntimeError(f"writing the corpus failed: {errors}")
     counts = {split: len(glob.glob(os.path.join(root, split, "*", "*.jpg")))
               for split in ("train", "val")}
     if counts != {"train": CORPUS_TRAIN, "val": CORPUS_VAL}:
@@ -2313,11 +2711,10 @@ def phase_imagefolder_corpus(root: str) -> dict:
     with open(bad, "wb") as f:
         f.write(data[:len(data) // 2])
     out = {"phase": "imagefolder_corpus", "seconds": seconds,
-           "files": sum(counts.values()), **counts,
+           "writers": shards, "files": sum(counts.values()), **counts,
            "mean_kb": statistics.mean(sizes) / 1024,
            "truncated": {"file": TRUNCATED, "bytes": len(data) // 2,
-                         "of": len(data)},
-           "script_said": r.stdout.strip()}
+                         "of": len(data)}}
     emit(out)
     return out
 
@@ -3080,6 +3477,26 @@ def _checkpoint_launches(ck: dict, name: str) -> dict:
             vit["train_launches"][name]
     if name == "flash_fwd":
         out["torch_checkpoint_vit_logits"] = vit["logits_launches"][name]
+    # The dispatch's probes compare each kernel with its plain side; their
+    # launches are kept apart.
+    disp = ck["dispatch_auto"]
+    for arch in ("resnet18", "vit_b_16"):
+        for run in ("measure", "cached"):
+            row = disp[arch][run]
+            if name in row["launches"]:
+                probe = row["probe_launches"].get(name, 0)
+                out[f"dispatch_auto_{arch}_{run}"] = \
+                    row["launches"][name] - probe
+                if probe:
+                    out[f"dispatch_auto_{arch}_{run}_probe"] = probe
+        for row in ck["accum_mixup"][arch]["rows"]:
+            if name in row["launches_per_step"]:
+                out[f"accum_mixup_{arch}_{row['dtype']}"] = \
+                    row["launches_per_step"][name] * TRAIN_CMP_STEPS
+    if name == "flash_fwd":
+        probe = disp["serve"]["probe_launches"]
+        out["dispatch_auto_serve"] = disp["serve"]["launches"][name] - probe
+        out["dispatch_auto_serve_probe"] = probe
     return out
 
 
@@ -3185,6 +3602,18 @@ def _norm_kernel_entries(norm: dict, train: dict, ddp: dict, ck: dict,
     return out
 
 
+PHASE_S: dict = {}
+
+
+def _timed(name: str, fn, *args):
+    """``fn(*args)``, its seconds kept in ``PHASE_S[name]``."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_S[name] = round(time.perf_counter() - t0, 3)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -3194,56 +3623,71 @@ def main(argv=None) -> int:
     if argv not in ([], ["--mutations"]):
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = phase_card_and_build()
+    card = _timed("card_and_build", phase_card_and_build)
     if argv:
         return run_mutations()
     _, peaks = peaks_for(card["device_name"])
-    kern = phase_kernel_vs_plain(peaks)
-    bwd = phase_flash_bwd_vs_plain(peaks)
-    norm = phase_fused_norm_vs_plain(peaks)
-    serve, model = phase_serve()
-    phase_forward_breakdown(model)
+    kern = _timed("kernel_vs_plain", phase_kernel_vs_plain, peaks)
+    bwd = _timed("flash_bwd_vs_plain", phase_flash_bwd_vs_plain, peaks)
+    norm = _timed("fused_norm_vs_plain", phase_fused_norm_vs_plain, peaks)
+    serve, model = _timed("serve", phase_serve)
+    _timed("forward_breakdown", phase_forward_breakdown, model)
     del model
-    phase_serve_resnet()
-    train = phase_train()
-    phase_fused_vs_plain()
-    step = phase_train_breakdown()
-    vit = phase_train_vit()
-    phase_flash_vs_plain_train()
-    phase_vit_train_step_breakdown()
-    ddp = {"train_ddp": phase_train_ddp(),
-           "train_syncbn_ddp": phase_train_syncbn_ddp(),
-           "train_vit_ddp": phase_train_vit_ddp()}
-    phase_ddp_vs_plain()
+    _timed("serve_resnet", phase_serve_resnet)
+    train = _timed("train", phase_train)
+    _timed("fused_vs_plain_train", phase_fused_vs_plain)
+    step = _timed("train_step_breakdown", phase_train_breakdown)
+    vit = _timed("train_vit", phase_train_vit)
+    _timed("flash_vs_plain_train", phase_flash_vs_plain_train)
+    _timed("vit_train_step_breakdown", phase_vit_train_step_breakdown)
+    disp = _timed("dispatch_auto", phase_dispatch_auto, card, kern, bwd,
+                  norm)
+    accum = _timed("accum_mixup", phase_accum_mixup)
+    ddp = {"train_ddp": _timed("train_ddp", phase_train_ddp),
+           "train_syncbn_ddp": _timed("train_syncbn_ddp",
+                                      phase_train_syncbn_ddp),
+           "train_vit_ddp": _timed("train_vit_ddp", phase_train_vit_ddp)}
+    _timed("ddp_vs_plain", phase_ddp_vs_plain)
     root = tempfile.mkdtemp(prefix="tpudist_torch_ckpt_")
     try:
-        ck = {"checkpoint_resume": phase_checkpoint_resume(root, card),
-              "checkpoint_vit": phase_checkpoint_vit(root, card)}
-        ck["serve_checkpoint"] = phase_serve_checkpoint(
+        ck = {"checkpoint_resume": _timed(
+                  "checkpoint_resume", phase_checkpoint_resume, root, card),
+              "checkpoint_vit": _timed("checkpoint_vit",
+                                       phase_checkpoint_vit, root, card)}
+        ck["serve_checkpoint"] = _timed(
+            "serve_checkpoint", phase_serve_checkpoint,
             ck["checkpoint_vit"]["run_dir"],
             ck["checkpoint_resume"]["run_dir"], card)
-        ck["preempt_resume"] = phase_preempt_resume(
-            root, card, ck["checkpoint_resume"]["run_dir"])
-        ck["faults_on_card"] = phase_faults_on_card(root, card)
-        ck["torch_checkpoint"] = phase_torch_checkpoint(
-            root, card, ck["faults_on_card"]["run_dir"],
-            ck["checkpoint_vit"]["run_dir"])
+        ck["preempt_resume"] = _timed(
+            "preempt_resume", phase_preempt_resume, root, card,
+            ck["checkpoint_resume"]["run_dir"])
+        ck["faults_on_card"] = _timed("faults_on_card",
+                                      phase_faults_on_card, root, card)
+        ck["torch_checkpoint"] = _timed(
+            "torch_checkpoint", phase_torch_checkpoint, root, card,
+            ck["faults_on_card"]["run_dir"], ck["checkpoint_vit"]["run_dir"])
     finally:
         shutil.rmtree(root, ignore_errors=True)
     root = tempfile.mkdtemp(prefix="tpudist_torch_images_")
     try:
-        phase_image_decode()
+        _timed("image_decode", phase_image_decode)
         tree = os.path.join(root, "imagefolder")
-        phase_imagefolder_corpus(tree)
-        phase_native_vs_plain_host(tree)
-        phase_loader_rates(tree, step)
-        images = phase_train_imagefolder(tree)
-        ck["decode_fail"] = phase_decode_fail(tree, images, card)
+        _timed("imagefolder_corpus", phase_imagefolder_corpus, tree)
+        _timed("native_vs_plain_host", phase_native_vs_plain_host, tree)
+        _timed("loader_rates", phase_loader_rates, tree, step)
+        images = _timed("train_imagefolder", phase_train_imagefolder, tree)
+        ck["decode_fail"] = _timed("decode_fail", phase_decode_fail, tree,
+                                   images, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     ck["train_imagefolder"] = images
+    ck["dispatch_auto"] = disp
+    ck["accum_mixup"] = accum
+    emit({"phase_seconds": PHASE_S,
+          "total_s": round(time.perf_counter() - t_start, 3)})
 
     fwd_rows = [r for r in kern["cases"] if r["case"].startswith(
         ("serve_", "train_"))]

@@ -9,7 +9,9 @@
   The losses agree within 1e-5 after one step and 1e-4 after two; every
   parameter and BN running buffer within 1e-3 of its largest update (or
   1e-6 absolute), the bounds of ``tests/test_torch_train.py``; and the
-  two ranks end bit-identical. The slow tier adds 4 ranks and a tiny ViT
+  two ranks end bit-identical. A third case takes 2 microbatches a step
+  (``--accum-steps 2``, 8 rows each, one gradient all-reduce a step). The
+  slow tier adds 4 ranks and a tiny ViT
   through the flash ``Function`` at 2 ranks. Every rank takes 8 rows a
   step, so 4 ranks run at global batch 32: at 4 rows a rank, layer4's
   BatchNorm (1x1 spatial at 32 px) normalises 4 values a channel, and
@@ -81,7 +83,7 @@ def _port_model(arch: str, sync: bool) -> torch.nn.Module:
                         sync_batchnorm=sync, **TINY_RESNET)
 
 
-def _worker(workdir: str, arch: str, sync: bool) -> None:
+def _worker(workdir: str, arch: str, sync: bool, accum: int) -> None:
     torch.set_num_threads(2)
     dist_lib.initialize_runtime(device="cpu")
     rank, world = dist_lib.data_rank_world()
@@ -91,7 +93,8 @@ def _worker(workdir: str, arch: str, sync: bool) -> None:
                            for k in data.files if k.startswith("init/")},
                           strict=True)
     cfg = port_config.Config(arch="resnet18", lr=LR,
-                             batch_size=RANK_BATCH * world,
+                             batch_size=RANK_BATCH * accum * world,
+                             accum_steps=accum,
                              sync_batchnorm=sync).finalize(world)
     ddp = port_train.data_parallel(model, torch.device("cpu"))
     step = port_train.make_train_step(
@@ -110,9 +113,10 @@ def _worker(workdir: str, arch: str, sync: bool) -> None:
 
 # -- the oracle ---------------------------------------------------------------
 
-def _inputs(arch: str, world: int, sync: bool):
+def _inputs(arch: str, world: int, sync: bool, accum: int = 1):
     """tpudist's initial state, the batches, and its per-step metrics and
-    final state from its step on a ``world``-device mesh."""
+    final state from its step on a ``world``-device mesh (``accum``
+    microbatches of ``RANK_BATCH`` a rank)."""
     jax = pytest.importorskip("jax")
     jnp = pytest.importorskip("jax.numpy")
     from jax.sharding import Mesh
@@ -122,14 +126,14 @@ def _inputs(arch: str, world: int, sync: bool):
     from tpudist.ops import norm_dispatch
     from tpudist_torch.compat.jax_params import (resnet_state_dict_from_jax,
                                                  vit_state_dict_from_jax)
-    batch = RANK_BATCH * world
+    batch = RANK_BATCH * accum * world
     rng = np.random.default_rng(0)
     x = rng.standard_normal((STEPS, batch, 32, 32, 3)).astype(np.float32)
     y = rng.integers(0, 8, (STEPS, batch)).astype(np.int32)
     jcfg = jax_config.Config(arch="resnet18", num_classes=8, image_size=32,
                              batch_size=batch, lr=LR, seed=0,
                              use_amp=False, fused_bn="off",
-                             sync_batchnorm=sync)
+                             sync_batchnorm=sync, accum_steps=accum)
     if arch == "vit":
         from tpudist.models.vit import VisionTransformer as JaxViT
         jm = JaxViT(**TINY_VIT, flash=True)
@@ -160,13 +164,13 @@ def _inputs(arch: str, world: int, sync: bool):
     return x, y, bridge(init), np.asarray(metrics), bridge(final)
 
 
-def _run_parity(tmp_path, arch, world, sync, timeout):
-    x, y, init, want_metrics, want = _inputs(arch, world, sync)
+def _run_parity(tmp_path, arch, world, sync, timeout, accum=1):
+    x, y, init, want_metrics, want = _inputs(arch, world, sync, accum)
     np.savez(tmp_path / "inputs.npz", x=x, y=y,
              **{f"init/{k}": v.numpy() for k, v in init.items()})
     cmd = [sys.executable, os.path.join(REPO, "tests",
                                         "test_torch_dist.py"),
-           "--worker", str(tmp_path), arch, str(int(sync))]
+           "--worker", str(tmp_path), arch, str(int(sync)), str(accum)]
     rc, out, err = _launch(world, cmd, timeout)
     assert rc == 0, out + err[-3000:]
     ranks = [np.load(tmp_path / f"rank{r}.npz") for r in range(world)]
@@ -186,13 +190,16 @@ def _run_parity(tmp_path, arch, world, sync, timeout):
         assert err <= max(1e-3 * update, 1e-6), (k, err, update)
 
 
-@pytest.mark.parametrize("sync", [False, True], ids=["ddp", "syncbn"])
-def test_two_gloo_ranks_match_tpudists_two_device_step(tmp_path, sync):
+@pytest.mark.parametrize("sync,accum", [(False, 1), (True, 1), (False, 2)],
+                         ids=["ddp", "syncbn", "ddp_accum2"])
+def test_two_gloo_ranks_match_tpudists_two_device_step(tmp_path, sync,
+                                                       accum):
     """Parameters and BN running buffers both: with DDP's buffer
     broadcast left on, the buffers would be rank 0's, not the average;
     with a SyncBN all-reduce that drops its gradient, the losses would
-    match and the updates would not."""
-    _run_parity(tmp_path, "resnet18", 2, sync, timeout=60)
+    match and the updates would not. Under ``--accum-steps 2`` every
+    microbatch but the last runs under DDP's ``no_sync``."""
+    _run_parity(tmp_path, "resnet18", 2, sync, timeout=60, accum=accum)
 
 
 @pytest.mark.slow
@@ -407,4 +414,4 @@ def test_global_batch_is_divided_over_the_ranks():
 
 
 if __name__ == "__main__" and sys.argv[1:2] == ["--worker"]:
-    _worker(sys.argv[2], sys.argv[3], sys.argv[4] == "1")
+    _worker(sys.argv[2], sys.argv[3], sys.argv[4] == "1", int(sys.argv[5]))

@@ -6,7 +6,8 @@
   itself stays importable), among them ``faults`` and ``compat/``'s
   ``torch_checkpoint`` and ``pretrained``; a checkpoint round trip, an
   armed fault spec, a ``.pth.tar`` round trip and the ImageFolder
-  pipeline (its native and PIL paths, with auto-augment) run there.
+  pipeline (its native and PIL paths, with auto-augment), a dispatch
+  decision and an accumulated, mixed train step run there.
 - Without a CUDA card, ``resolve_device()`` and the serve CLI without
   ``--device cpu`` fail loudly instead of running on the CPU.
 - ``flash_attention`` on a CPU tensor runs the plain version and counts no
@@ -46,7 +47,9 @@ mods = [m.name for m in pkgutil.walk_packages(tpudist_torch.__path__,
 for name in mods:
     importlib.import_module(name)
 for name in ("tpudist_torch.faults", "tpudist_torch.compat.torch_checkpoint",
-             "tpudist_torch.compat.pretrained"):
+             "tpudist_torch.compat.pretrained", "tpudist_torch.ops.dispatch",
+             "tpudist_torch.ops.attention_dispatch",
+             "tpudist_torch.ops.norm_dispatch", "tpudist_torch.ops.mixup"):
     assert name in mods, name
 import chip_smoke
 import tempfile
@@ -68,8 +71,25 @@ with tempfile.TemporaryDirectory() as d:
         "resnet18", 0, 1.0)
     assert torch_checkpoint.restore_from_torch(
         create_model("resnet18", width=8), path, "resnet18") == (1, 1.0)
-from PIL import Image
+import torch
 from tpudist_torch.config import Config
+from tpudist_torch.ops import dispatch, mixup
+from tpudist_torch.train import make_optimizer, make_train_step
+with tempfile.TemporaryDirectory() as d:
+    dec = dispatch.decide("c", "k", mode="auto", names=("a", "b"),
+                          kernel_rev=lambda: 1, measure_pair=lambda: (1, 2),
+                          cache_dir=d, platform="cuda", device_kind="card")
+    assert dec["kernel"] == "a" and dispatch.lookup(
+        "c", "k", candidate="a", kernel_rev=lambda: 1, cache_dir=d,
+        platform="cuda", device_kind="card")
+model = create_model("resnet18", width=8, num_classes=4)
+model.reset_parameters(torch.Generator().manual_seed(0))
+cfg = Config(num_classes=4, batch_size=4, accum_steps=2, mixup_alpha=0.2,
+             cutmix_alpha=1.0).finalize(1)
+step = make_train_step(model, make_optimizer(model, cfg), cfg)
+m = step(torch.randn(4, 16, 16, 3), torch.tensor([0, 1, 2, 3]), 0.1)
+assert torch.isfinite(m["loss"]), m
+from PIL import Image
 from tpudist_torch.data import build_train_val_loaders
 with tempfile.TemporaryDirectory() as d:
     rng = np.random.default_rng(0)

@@ -14,7 +14,10 @@ the port's trainer, against tpudist's, on the CPU.
   (resumable)`` lines, a ``preempt`` event, a ``checkpoint_save`` of kind
   ``emergency``, a live file whose cursor counts whole steps) and the
   launcher exit 130; the same command continues the epoch at the cursor
-  and ends with the straight run's checkpoint, byte for byte.
+  and ends with the straight run's checkpoint, byte for byte. So does a
+  run under ``--accum-steps 2 --mixup-alpha 0.2 --cutmix-alpha 1.0``:
+  the cursor counts whole optimizer steps and the relaunch draws the
+  mixing of the steps it has not taken.
 - ``checkpoint_corrupt`` flips the bytes of the second epoch's save; the
   resume falls back to the first epoch's history file, quarantines the
   two bad files and emits the ``fault`` events.
@@ -358,6 +361,26 @@ def test_sigterm_drains_exits_75_and_the_relaunch_ends_as_straight(
             f"{cur['consumed']} ({6 - cur['consumed'] // 16} steps remain "
             f"on world 1)") in r.stdout
     assert _file(out) == straight
+
+
+ACCUM_MIX = ["--accum-steps", "2", "--mixup-alpha", "0.2", "--cutmix-alpha",
+             "1.0"]
+
+
+def test_drain_under_accumulation_and_mixing_ends_as_straight(tmp_path):
+    ref = tmp_path / "straight"
+    r = _run(_launch(ref, extra=ACCUM_MIX))
+    assert r.returncode == 0, r.stderr[-3000:]
+    out = tmp_path / "run"
+    cmd = _launch(out, extra=ACCUM_MIX + KEEP + SLOW)
+    code, text, err = _preempted(cmd, "Epoch[1]:\t[2/6]")
+    cur = _check_drain(out, code, text, err)
+    r = _run(cmd)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert (f"=> elastic continuation: epoch 1 resumes at global sample "
+            f"{cur['consumed']} ({6 - cur['consumed'] // 16} steps remain "
+            f"on world 1)") in r.stdout
+    assert _file(out) == _file(ref)
 
 
 def test_checkpoint_corrupt_falls_back_and_quarantines(tmp_path):

@@ -249,7 +249,7 @@ def test_served_checkpoint_matches_tpudists_export_of_the_file(tmp_path,
 
 
 @pytest.mark.parametrize("flag,missing", [
-    (["--flash", "auto"], "attention dispatch"),
+    (["--telemetry"], "--outpath"),
     (["--compile-cache", "/tmp/cc"], "compile cache"),
     (["--metrics-port", "0"], "metrics endpoint"),
     (["--checkpoint", "run/checkpoint.msgpack"], "msgpack"),

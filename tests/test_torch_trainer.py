@@ -1,10 +1,11 @@
 """``python -m tpudist_torch`` on the CPU (``--device cpu``, tiny sizes).
 
 - The CLI trains resnet18 at 32 px for two epochs and prints tpudist's
-  console lines and ``best_acc1=``; every BN+ReLU epilogue of a train step
-  goes through the fused ``Function``s (17 sites), and none in
-  validation.
-- It trains ViT-B/16 (at 32 px) with ``--flash on --optimizer adamw``:
+  console lines and ``best_acc1=``; under ``--fused-bn on`` every BN+ReLU
+  epilogue of a train step goes through the fused ``Function``s (17
+  sites), and none in validation.
+- It trains ViT-B/16 (at 32 px) with ``--flash on --fused-bn on
+  --optimizer adamw``:
   every attention of a train step goes through the flash ``Function``
   (12 forwards and 12 backwards a step), validation runs the forward
   alone, and the dispatch lines and events say so.
@@ -12,7 +13,8 @@
   ``summarize`` reads the run.
 - The sampler order, the loader's batches and the synthetic data equal
   tpudist's.
-- The flag surface is tpudist's (names and defaults), every unsupported
+- The flag surface is tpudist's (names and defaults, ``--flash`` and
+  ``--fused-bn`` ``auto`` among them), every unsupported
   flag is refused by name, and without ``--device cpu`` the CLI fails
   loudly here (no card).
 """
@@ -73,7 +75,8 @@ def cli_run(tmp_path_factory):
     try:
         with redirect_stdout(buf):
             rc = cli.main(TINY + ["--synthetic-size", "64", "--telemetry",
-                                  "--seed", "0", "--outpath", out])
+                                  "--fused-bn", "on", "--seed", "0",
+                                  "--outpath", out])
     finally:
         mp.undo()
     return rc, buf.getvalue(), out, calls
@@ -136,7 +139,8 @@ def test_cli_trains_vit_through_flash_with_adamw(tmp_path, capsys,
     rc = cli.main(["--device", "cpu", "--synthetic", "-a", "vit_b_16",
                    "--image-size", "32", "--num-classes", "10", "-b", "4",
                    "--epochs", "1", "--synthetic-size", "8", "-p", "1",
-                   "--flash", "on", "--optimizer", "adamw", "--lr", "1e-3",
+                   "--flash", "on", "--fused-bn", "on", "--optimizer",
+                   "adamw", "--lr", "1e-3",
                    "--weight-decay", "0.05", "--telemetry", "--seed", "0",
                    "--keep-checkpoints", "0", "--outpath", str(out)])
     lines = capsys.readouterr().out.splitlines()
@@ -223,27 +227,26 @@ def test_flag_surface_is_tpudists():
             continue
         assert a.dest in ours, a.dest
         assert ours[a.dest].option_strings == a.option_strings, a.dest
-        if a.dest != "fused_bn":                 # port default: on
-            assert ours[a.dest].default == a.default, a.dest
-    assert ours["fused_bn"].default == "on"
+        assert ours[a.dest].default == a.default, a.dest
+    assert ours["fused_bn"].default == ours["flash"].default == "auto"
     assert ours["device"].default == "cuda"
 
 
 @pytest.mark.parametrize("flags,named", [
-    (["--mixup-alpha", "0.2"], "--mixup-alpha"),
-    (["--cutmix-alpha", "1.0"], "--cutmix-alpha"),
-    (["-a", "vit_b_16", "--flash", "auto"], "--flash auto"),
-    (["--accum-steps", "2"], "--accum-steps"),
+    (["--microbatches", "2"], "--microbatches"),
+    (["--zero", "1"], "--zero"),
+    (["--telemetry-max-mb", "8"], "--telemetry-max-mb"),
+    (["--stall-timeout", "5"], "--stall-timeout"),
     (["--model-ema-decay", "1.5"], "--model-ema-decay"),
     (["--amp-dtype", "float16"], "--amp-dtype"),
     (["--checkpoint-backend", "orbax"], "--checkpoint-backend orbax"),
     (["--remat"], "--remat"),
     (["--profile", "1,3"], "--profile"),
     (["--doctor"], "--doctor"),
-    (["--fused-bn", "auto"], "--fused-bn auto"),
+    (["--replica-check-freq", "2"], "--replica-check-freq"),
     (["--flash", "on"], "--flash on"),
     (["--metrics-port", "9100"], "--metrics-port"),
-    (["-a", "vit_b_16"], "-a vit_b_16"),
+    (["-a", "alexnet"], "-a alexnet"),
     (["--mesh-shape", "2"], "--mesh-shape"),
     (["--compress-grads", "int8"], "--compress-grads"),
 ])

@@ -3,9 +3,9 @@
 The port's copy of ``tpudist/config.py``: the same flag names and
 defaults (``build_parser``), so one command line means the same thing to
 both trainers, plus ``--device {cuda,cpu}`` (default cuda; nothing falls
-back to the CPU). One default differs until the port has the piece
-behind it: ``--fused-bn`` is ``on`` (the dispatch layer behind ``auto``,
-``ops/norm_dispatch``, is not ported).
+back to the CPU). ``--flash`` and ``--fused-bn`` default to ``auto``, as
+in tpudist: the measurement dispatch (``ops/attention_dispatch``,
+``ops/norm_dispatch``) picks each kernel on the card.
 
 Every flag the port does not support yet is refused at startup by
 ``refuse_unsupported``, with a message that names it, rather than ignored;
@@ -70,7 +70,7 @@ class Config:
     amp_dtype: str = "bfloat16"
     remat: bool = False
     flash: str = "auto"
-    fused_bn: str = "on"
+    fused_bn: str = "auto"
     device_prefetch: bool = True
     async_drain: bool = True
     compile_cache: str = ""
@@ -132,6 +132,14 @@ class Config:
         if self.synthetic_size < 0:
             raise ValueError(f"--synthetic-size must be >= 0, "
                              f"got {self.synthetic_size}")
+        if self.accum_steps < 1:
+            raise ValueError(f"--accum-steps must be >= 1, got "
+                             f"{self.accum_steps}")
+        if self.per_device_batch_size % self.accum_steps:
+            raise ValueError(
+                f"--accum-steps: batch {self.per_device_batch_size} (as "
+                f"seen by this step: per rank) is not divisible by "
+                f"accum_steps={self.accum_steps}")
         if 0 < self.synthetic_size < self.batch_size:
             raise ValueError(
                 f"--synthetic-size {self.synthetic_size} is smaller than the "
@@ -171,10 +179,7 @@ VIT_ARCHS = ("vit_b_16", "vit_b_32", "vit_l_16", "vit_l_32", "vit_h_14")
 # Flags the port does not support yet: a value other than the default is
 # refused at startup, naming the flag and what is missing.
 _NOT_YET = {
-    "accum_steps": ("--accum-steps", "gradient accumulation"),
     "microbatches": ("--microbatches", "pipeline parallelism"),
-    "mixup_alpha": ("--mixup-alpha", "ops/mixup.mix_batch"),
-    "cutmix_alpha": ("--cutmix-alpha", "ops/mixup.mix_batch"),
     "amp_dtype": ("--amp-dtype", "float16 loss scaling (bfloat16 is ported)"),
     "remat": ("--remat", "block checkpointing"),
     "compile_cache": ("--compile-cache", "a persistent compile cache"),
@@ -218,14 +223,6 @@ def refuse_unsupported(cfg: Config) -> None:
                                          "wide_resnet"))):
         bad.append(f"-a {cfg.arch} (the port trains the resnet and vit "
                    f"families so far)")
-    if cfg.fused_bn == "auto":
-        bad.append("--fused-bn auto (the measurement dispatch, "
-                   "ops/norm_dispatch, is not in the port yet; pass on or "
-                   "off)")
-    if vit and cfg.flash == "auto":
-        bad.append(f"--flash auto (the measurement dispatch, "
-                   f"ops/attention_dispatch, is not in the port yet; pass "
-                   f"--flash on|off for -a {cfg.arch})")
     if not vit and cfg.flash == "on":
         bad.append(f"--flash on (it applies to attention archs (vit*); got "
                    f"'{cfg.arch}')")
@@ -273,7 +270,7 @@ def build_parser() -> argparse.ArgumentParser:
     add("--step", default=list(d.step), metavar="step decay", help="lr decay milestones, e.g. '3,4'")
     add("--start-epoch", default=d.start_epoch, type=int, metavar="N", dest="start_epoch", help="first epoch (offsets the schedule)")
     add("-b", "--batch-size", default=d.batch_size, type=int, metavar="N", dest="batch_size", help="GLOBAL batch size")
-    add("--accum-steps", default=d.accum_steps, type=int, dest="accum_steps", help=not_yet)
+    add("--accum-steps", default=d.accum_steps, type=int, dest="accum_steps", help="gradient-accumulation microbatches per optimizer step (the per-rank batch must divide)")
     add("--microbatches", default=d.microbatches, type=int, help=not_yet)
     add("--lr", "--learning-rate", default=d.lr, type=float, metavar="LR", dest="lr", help="initial learning rate")
     add("--momentum", default=d.momentum, type=float, metavar="M", help="momentum")
@@ -286,8 +283,8 @@ def build_parser() -> argparse.ArgumentParser:
     add("--amp-dtype", default=d.amp_dtype, dest="amp_dtype", choices=("bfloat16", "float16"), help="--use_amp compute dtype; float16 is " + not_yet)
     _bool_flag(p, "sync_batchnorm", d.sync_batchnorm, "SyncBN: BatchNorm statistics averaged across the data-parallel ranks (the plain epilogue, as tpudist)")
     _bool_flag(p, "remat", d.remat, not_yet)
-    add("--flash", default=d.flash, choices=("auto", "on", "off"), help="attention kernel for vit archs: on = the hand-written CUDA flash-attention kernels (forward, dQ and dKV), off = plain attention; auto is " + not_yet + " (no-op for the conv nets; on is refused for them)")
-    add("--fused-bn", default=d.fused_bn, dest="fused_bn", choices=("auto", "on", "off"), help="on (the port's default) = the hand-written CUDA BN+ReLU / BN+add+ReLU epilogue kernels in train mode; off = the plain epilogue; auto is " + not_yet)
+    add("--flash", default=d.flash, choices=("auto", "on", "off"), help="attention kernel for vit archs: on = the hand-written CUDA flash-attention kernels (forward, dQ and dKV), off = plain attention, auto = measurement-honest dispatch (both timed on the card at the exact attention shape, the kernel only where it wins; cached per card under $TPUDIST_DISPATCH_CACHE or ~/.cache/tpudist; plain on the CPU) (no-op for the conv nets; on is refused for them)")
+    add("--fused-bn", default=d.fused_bn, dest="fused_bn", choices=("auto", "on", "off"), help="BN+ReLU / BN+add+ReLU epilogues in train mode: on = the hand-written CUDA kernels, off = the plain epilogue, auto = measurement-honest dispatch per (rows, channels, dtype, variant) workload (the kernels only where they win on the card; cached as --flash auto; plain on the CPU)")
     _bool_flag(p, "device_prefetch", d.device_prefetch, "stage the next batch's pinned host-to-device copy while the current step runs")
     _bool_flag(p, "async_drain", d.async_drain, "read each step's metrics back one step late, behind the next step's launch")
     add("--compile-cache", default=d.compile_cache, dest="compile_cache", metavar="DIR", help=not_yet)
@@ -299,8 +296,8 @@ def build_parser() -> argparse.ArgumentParser:
     add("--warmup-epochs", default=d.warmup_epochs, type=int, dest="warmup_epochs", help="linear lr warmup epochs")
     add("--label-smoothing", default=d.label_smoothing, type=float, dest="label_smoothing", help="cross-entropy label smoothing (train only)")
     add("--model-ema-decay", default=d.model_ema_decay, type=float, dest="model_ema_decay", help="per-step EMA decay of the parameters and BN buffers; validation and best use the EMA copy, which the checkpoint carries (0 = off)")
-    add("--mixup-alpha", default=d.mixup_alpha, type=float, dest="mixup_alpha", help=not_yet)
-    add("--cutmix-alpha", default=d.cutmix_alpha, type=float, dest="cutmix_alpha", help=not_yet)
+    add("--mixup-alpha", default=d.mixup_alpha, type=float, dest="mixup_alpha", help="mixup Beta(alpha,alpha) mixing inside the train step (0 = off)")
+    add("--cutmix-alpha", default=d.cutmix_alpha, type=float, dest="cutmix_alpha", help="cutmix Beta(alpha,alpha) box mixing inside the train step (0 = off; both set = choose per step)")
     add("--auto-augment", default=d.auto_augment, choices=("", "ra", "ta_wide"), dest="auto_augment", help="train-time auto-augment policy: RandAugment or TrivialAugmentWide (moves the train split onto the PIL stack)")
     add("--random-erase", default=d.random_erase, type=float, dest="random_erase", help="RandomErasing probability on the train stack (0 = off; moves the train split onto the PIL stack)")
     add("--synthetic-size", default=d.synthetic_size, type=int, dest="synthetic_size", help="synthetic train-set size (0 = auto; val set is half)")

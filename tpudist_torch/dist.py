@@ -229,18 +229,35 @@ def barrier(tag: str = "tpudist_torch_barrier",
 _host_group = None      # a gloo group for host flags under NCCL
 
 
-def any_rank(flag: bool) -> bool:
-    """True on every rank when ``flag`` is true on any: one all-reduce of
-    a host integer (over gloo, so the card is never waited for). Every
-    rank must call it at the same points. One process answers ``flag``."""
+def _host():
+    """The group host values travel over: gloo, so the card is never
+    waited for (the default group itself when it is gloo)."""
     global _host_group
-    if not is_initialized() or dist.get_world_size() == 1:
-        return flag
     if dist.get_backend() != "gloo" and _host_group is None:
         _host_group = dist.new_group(backend="gloo")
+    return _host_group
+
+
+def any_rank(flag: bool) -> bool:
+    """True on every rank when ``flag`` is true on any: one all-reduce of
+    a host integer. Every rank must call it at the same points. One
+    process answers ``flag``."""
+    if not is_initialized() or dist.get_world_size() == 1:
+        return flag
     t = torch.tensor([int(flag)], dtype=torch.int32)
-    dist.all_reduce(t, group=_host_group)
+    dist.all_reduce(t, group=_host())
     return bool(t.item())
+
+
+def broadcast_object(obj):
+    """Rank 0's ``obj`` on every rank (a picklable host value; the others
+    pass anything). Every rank must call it at the same points. One
+    process gets ``obj`` back."""
+    if not is_initialized() or dist.get_world_size() == 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=0, group=_host())
+    return box[0]
 
 
 def shutdown() -> None:

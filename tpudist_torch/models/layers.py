@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpudist_torch import dist as dist_lib
+from tpudist_torch.ops import norm_dispatch
 from tpudist_torch.ops.fused_norm import fused_bn_act, reference_bn_act
 
 
@@ -43,7 +44,13 @@ class BatchNorm(nn.Module):
       kernels; eval mode (the running statistics), SyncBN and
       ``fused=False`` take the plain epilogue in the op order the call
       sites ran (f32 normalize → cast → add → relu), as tpudist's
-      structural fallbacks do.
+      structural fallbacks do;
+    - ``fused`` is this site's verdict: the trainer sets it on each site
+      before the first step from the dispatch (``ops/norm_dispatch``),
+      keyed by ``dispatch_key``, the workload a forward under
+      ``norm_dispatch.record_requests()`` found here (None where the site
+      asks nothing: no activation, or SyncBN). That recording forward
+      takes the plain epilogue and updates no running statistic.
 
     Parameter and buffer names are the flax tree's (``scale``, ``bias``;
     ``batch_stats`` ``mean``, ``var``).
@@ -58,6 +65,7 @@ class BatchNorm(nn.Module):
         self.epsilon = epsilon
         self.dtype = dtype
         self.fused = bool(fused)
+        self.dispatch_key: str | None = None
         f32 = dict(dtype=torch.float32, device=device)
         self.scale = nn.Parameter(torch.ones(features, **f32))
         self.bias = nn.Parameter(torch.zeros(features, **f32))
@@ -82,6 +90,7 @@ class BatchNorm(nn.Module):
                              "(the kernels implement BN+add+ReLU)")
         xh = x.permute(0, 2, 3, 1)                       # NHWC view
         rh = None if residual is None else residual.permute(0, 2, 3, 1)
+        recording = self.training and norm_dispatch.recording()
         if self.training:
             xf = xh.float()
             mean = xf.mean(dim=(0, 1, 2))
@@ -93,16 +102,23 @@ class BatchNorm(nn.Module):
                 mean, mean_sq = (stats / world).unbind(0)
                 n *= world
             var = torch.clamp_min(mean_sq - mean.square(), 0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.mean.copy_((1 - m) * self.mean + m * mean)
-                self.var.copy_((1 - m) * self.var
-                               + m * (var * (n / max(n - 1, 1))))
+            if not recording:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.mean.copy_((1 - m) * self.mean + m * mean)
+                    self.var.copy_((1 - m) * self.var
+                                   + m * (var * (n / max(n - 1, 1))))
         else:
             mean, var = self.mean, self.var
         out_dt = self.dtype or x.dtype
+        if recording and act == "relu" and self.axis_name is None:
+            rows, channels = math.prod(xh.shape[:-1]), xh.shape[-1]
+            norm_dispatch.use_fused(rows, channels, out_dt,
+                                    residual=rh is not None)
+            self.dispatch_key = norm_dispatch.norm_key(
+                rows, channels, out_dt, rh is not None)
         if act == "relu" and self.training and self.fused \
-                and self.axis_name is None:
+                and self.axis_name is None and not recording:
             if x.dtype != out_dt:
                 raise ValueError(f"the fused epilogue writes x's dtype "
                                  f"{x.dtype}; this BatchNorm's is {out_dt}")

@@ -132,6 +132,7 @@ class VisionTransformer(nn.Module):
         kw = dict(dtype=self.dtype, device=device)
         self.conv_proj = PatchConv(3, hidden_dim, patch_size, **kw)
         tokens = (image_size // patch_size) ** 2 + (pool == "token")
+        self.tokens = tokens
         f32 = dict(dtype=torch.float32, device=device)
         if pool == "token":
             self.class_token = nn.Parameter(torch.zeros(1, 1, hidden_dim,
@@ -144,6 +145,13 @@ class VisionTransformer(nn.Module):
                                                mlp_dim, flash=flash, **kw))
         self.ln = nn.LayerNorm(hidden_dim, eps=LN_EPS, **f32)
         self.head = Linear(hidden_dim, num_classes, **kw)
+
+    def set_flash(self, flash: bool) -> None:
+        """Route every block's attention through the flash kernels or plain
+        attention (the dispatch's verdict, set before the first step)."""
+        for m in self.modules():
+            if isinstance(m, MultiHeadAttention):
+                m.flash = bool(flash)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:

@@ -7,5 +7,7 @@
   (``csrc/fused_norm.cu``).
 
 ``_build`` compiles each source with ``nvcc`` at first use and loads it
-through ctypes.
+through ctypes. ``dispatch`` (with its clients ``attention_dispatch`` and
+``norm_dispatch``) decides where ``--flash auto`` and ``--fused-bn auto``
+run each kernel; ``mixup`` mixes a batch inside the train step.
 """

@@ -9,10 +9,13 @@ a zero rate just warms up and reports.
 
 ``--checkpoint FILE|RUN_DIR`` serves a training checkpoint (tpudist's or
 the port's; its EMA copy when it has one); without it the weights are
-fresh from ``--seed``.
+fresh from ``--seed``. ``--flash`` defaults to ``auto``, as in tpudist:
+a ViT's attention is resolved by the measurement dispatch at the eval
+workload of the largest bucket, and the verdict is logged (``=> serve
+attention dispatch: ...``).
 
 Not in the port yet, each refused with a message that names it:
-``--flash auto``, ``--compile-cache`` and ``--metrics-port``.
+``--compile-cache`` and ``--metrics-port``.
 """
 
 from __future__ import annotations
@@ -47,10 +50,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "more requests to coalesce")
     p.add_argument("--compile-cache", default="", dest="compile_cache",
                    help="not in the port yet")
-    p.add_argument("--flash", default="on", choices=("auto", "on", "off"),
+    p.add_argument("--flash", default="auto", choices=("auto", "on", "off"),
                    help="attention backend for vit archs: on = the "
-                        "hand-written flash kernel, off = plain attention "
-                        "(auto is not in the port yet)")
+                        "hand-written flash kernel, off = plain attention, "
+                        "auto = measurement-honest dispatch at the largest "
+                        "bucket's eval shape (plain on the CPU)")
     p.add_argument("--load-rate", type=float, default=0.0, dest="load_rate",
                    help="synthetic open-loop arrivals per second (0 = no "
                         "load: warm up, report, exit)")
@@ -78,10 +82,6 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     if args.telemetry and not args.outpath:
         parser.error("--telemetry needs --outpath")
-    if args.flash == "auto":
-        parser.error("--flash auto needs the attention dispatch layer "
-                     "(ops/dispatch + ops/attention_dispatch), which the "
-                     "port does not have yet; pass --flash on or off")
     if args.compile_cache:
         parser.error("--compile-cache: the port has no persistent compile "
                      "cache yet (its counterpart, CUDA graphs per bucket, "
@@ -128,8 +128,8 @@ def main(argv=None) -> int:
 
     model = load_serve_state(
         args.arch, args.checkpoint, num_classes=args.num_classes,
-        image_size=args.image_size, flash=args.flash, seed=args.seed,
-        device=device, log=log)
+        image_size=args.image_size, max_batch=buckets[-1], flash=args.flash,
+        seed=args.seed, device=device, telemetry=telemetry, log=log)
     engine = ServeEngine(model, image_size=args.image_size, buckets=buckets,
                          device=device, telemetry=telemetry, log=log)
 

@@ -35,12 +35,27 @@ one card a rank.
   rank holds the same EMA) ``e = d·e + (1−d)·x`` over the parameters and
   the float BN buffers, tpudist's ``update_ema``.
 
-Accumulation, fp16 loss scaling, the doctor guard and gradient
-compression are not in the port yet.
+- Gradient accumulation (``--accum-steps k``) is torch's: the rank's
+  batch is split into k microbatches, each microbatch's loss is divided
+  by k and its backward adds into the gradients, the BatchNorm statistics
+  update microbatch after microbatch, the loss and accuracy are averaged,
+  and one optimizer step and one EMA update follow (tpudist's
+  ``accum_scan``). Under DDP every microbatch but the last runs under
+  ``no_sync()``, so a step makes one gradient all-reduce; SyncBN reduces
+  its statistics in every microbatch.
+- Mixup/CutMix (``--mixup-alpha``, ``--cutmix-alpha``) mix the rank's
+  batch once an optimizer step, before it is split: ``ops/mixup``'s
+  ``draw_mix`` on the host from a generator seeded by (seed, optimizer
+  step, rank), ``apply_mix`` on the device. The pair labels go with their
+  microbatch.
+
+fp16 loss scaling, the doctor guard and gradient compression are not in
+the port yet.
 """
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 import math
 from typing import Callable
@@ -51,6 +66,7 @@ from torch.nn.parallel import DistributedDataParallel
 from tpudist_torch import dist as dist_lib
 from tpudist_torch.ops.loss import cross_entropy_loss
 from tpudist_torch.ops.metrics import accuracy
+from tpudist_torch.ops import mixup
 from tpudist_torch.ops.mixup import mixed_ce
 
 
@@ -157,30 +173,83 @@ def update_ema(ema: torch.nn.Module, model: torch.nn.Module,
 
 
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-                    cfg, ema: torch.nn.Module | None = None) -> Callable:
-    """``step(images, labels, lr) → {"loss", "acc1"}``: forward in train
-    mode (BN statistics update the running buffers), f32 CE loss,
-    backward, SGD update, and with ``ema`` the EMA update. The metrics
+                    cfg, ema: torch.nn.Module | None = None,
+                    draw_fn: Callable | None = None,
+                    first_step: int = 0) -> Callable:
+    """``step(images, labels, lr) → {"loss", "acc1"}``:
+    forward in train mode (BN statistics update the running buffers), f32
+    CE loss, backward, the optimizer update, and with ``ema`` the EMA
+    update; under ``--accum-steps`` over microbatches, under
+    ``--mixup-alpha``/``--cutmix-alpha`` on the mixed batch. The metrics
     stay 0-D device tensors. A ``DistributedDataParallel`` model
     (``data_parallel``) takes the data-parallel step: its buffers and
-    metrics are averaged across ranks."""
+    metrics are averaged across ranks.
+
+    The mixing draw of a call is seeded by its optimizer step: the
+    ``first_step``-th for the first call (a resumed run's step count), one
+    more for each call after it. ``draw_fn(step, n, h, w)`` replaces the
+    seeded draw (``mixup.MixDraw``)."""
     smoothing = float(getattr(cfg, "label_smoothing", 0.0))
     ddp = isinstance(model, DistributedDataParallel)
     net = model.module if ddp else model
     decay = float(getattr(cfg, "model_ema_decay", 0.0))
+    accum = max(1, int(getattr(cfg, "accum_steps", 1) or 1))
+    alphas = (float(getattr(cfg, "mixup_alpha", 0.0)),
+              float(getattr(cfg, "cutmix_alpha", 0.0)))
+    mixing = alphas[0] > 0.0 or alphas[1] > 0.0
+    if mixing and draw_fn is None:
+        seed = cfg.seed if cfg.seed is not None else 0
+        rank = dist_lib.data_rank_world()[0]
+
+        def draw_fn(step_index, n, h, w):
+            return mixup.draw_mix(mixup.step_generator(seed, step_index, rank),
+                                  n, h, w, *alphas)
+    calls = [int(first_step)]
 
     def step(images: torch.Tensor, labels: torch.Tensor, lr: float) -> dict:
+        index = calls[0]
+        calls[0] += 1
         for group in optimizer.param_groups:
             group["lr"] = lr
+        labels2, lam = None, None
+        if mixing:
+            images, labels, labels2, lam = mixup.apply_mix(
+                images, labels, draw_fn(index, *images.shape[:3]))
         model.train()
-        logits = model(images)
-        loss = mixed_ce(logits, labels, None, None, smoothing)
         optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        if accum == 1:
+            logits = model(images)
+            loss = mixed_ce(logits, labels, labels2, lam, smoothing)
+            loss.backward()
+            with torch.no_grad():
+                acc1 = accuracy(logits, labels, topk=1)
+            loss = loss.detach()
+        else:
+            n = images.shape[0]
+            mb = n // accum
+            if mb * accum != n:
+                raise ValueError(f"batch {n} (as seen by this step: per "
+                                 f"rank) is not divisible by "
+                                 f"accum_steps={accum}")
+            loss = acc1 = 0.0
+            for i in range(accum):
+                sl = slice(i * mb, (i + 1) * mb)
+                # One gradient all-reduce a step: in the last backward.
+                sync = (model.no_sync() if ddp and i < accum - 1
+                        else contextlib.nullcontext())
+                with sync:
+                    logits = model(images[sl])
+                    loss_i = mixed_ce(logits, labels[sl],
+                                      None if labels2 is None
+                                      else labels2[sl], lam, smoothing)
+                    (loss_i / accum).backward()
+                with torch.no_grad():
+                    loss = loss + loss_i.detach()
+                    acc1 = acc1 + accuracy(logits, labels[sl], topk=1)
+            loss, acc1 = loss / accum, acc1 / accum
         optimizer.step()
         with torch.no_grad():
-            metrics = {"loss": loss.detach(),
-                       "acc1": accuracy(logits, labels, topk=1)}
+            metrics = {"loss": loss, "acc1": acc1}
             if ddp:
                 average_buffers(net)
                 metrics = _mean_over_ranks(metrics)

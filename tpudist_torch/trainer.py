@@ -20,10 +20,17 @@ The hot loop keeps tpudist's two overlaps:
 - ``--device_prefetch``: the next batch's pinned, ``non_blocking``
   host-to-device copy is staged while the current step runs.
 
-It logs which attention a ViT takes and which epilogue the BN workloads
-take, as ``_resolve_attention_dispatch`` and
-``_resolve_fused_norm_dispatch`` do, and on the card the kernel launches
-its first train step made.
+Before the first step it resolves ``--flash`` and ``--fused-bn`` as
+tpudist's ``_resolve_flash_dispatch`` and ``_resolve_fused_norm_dispatch``
+do, through the measurement dispatch (``ops/attention_dispatch``,
+``ops/norm_dispatch``): the attention workload and every BN epilogue
+workload (recorded by one forward at the rows a step runs, the
+microbatch under ``--accum-steps``) are decided once, and the verdicts
+are set on the modules, so a forward looks nothing up. Under
+``--distributed`` rank 0 decides and the others adopt its verdicts. A
+probe that fails to build or launch a kernel fails the run, naming the
+workload. The trainer logs tpudist's dispatch lines, each workload's
+timings, and on the card the kernel launches its first train step made.
 
 Checkpoints are tpudist's (``checkpoint.py``): after each epoch's
 validation the primary rank writes ``checkpoint.msgpack`` (with the
@@ -86,7 +93,9 @@ from tpudist_torch.config import (VIT_ARCHS, Config, refuse_unsupported,
 from tpudist_torch.data import DevicePrefetcher, build_train_val_loaders
 from tpudist_torch.data.loader import to_device
 from tpudist_torch.models import create_model
-from tpudist_torch.ops import flash_attention, fused_norm
+from tpudist_torch.models.layers import BatchNorm
+from tpudist_torch.ops import (attention_dispatch, dispatch, flash_attention,
+                               fused_norm, norm_dispatch)
 from tpudist_torch.train import (compute_dtype, data_parallel, lr_for_epoch,
                                  make_ema, make_eval_step, make_optimizer,
                                  make_train_step)
@@ -228,8 +237,7 @@ class Trainer:
         if self.is_vit:
             kw.update(image_size=cfg.image_size, flash=cfg.flash == "on")
         else:
-            kw.update(fused_bn=cfg.fused_bn == "on",
-                      sync_batchnorm=cfg.sync_batchnorm)
+            kw.update(sync_batchnorm=cfg.sync_batchnorm)
         self.model = create_model(cfg.arch, **kw)
         self.model.reset_parameters(torch.Generator().manual_seed(seed))
         self.model.to(self.device)
@@ -245,9 +253,18 @@ class Trainer:
                     if cfg.model_ema_decay > 0 else None)
         if on_gpu:
             self._build_kernels()
+        before = {**fused_norm.LAUNCHES, **flash_attention.LAUNCHES}
         self.attention_decision = (self._resolve_attention_dispatch()
                                    if self.is_vit else None)
         self.fused_norm_decision = self._resolve_fused_norm_dispatch()
+        probed = {k: v - before[k] for k, v in {
+            **fused_norm.LAUNCHES, **flash_attention.LAUNCHES}.items()
+            if v != before[k]}
+        if probed:
+            self.log(f"=> dispatch probes launched "
+                     f"{sum(probed.values())} kernels ("
+                     + ", ".join(f"{k} {v}" for k, v in probed.items())
+                     + ")")
         self.optimizer = make_optimizer(self.model, cfg)
         self.best_acc1 = 0.0
         self.start_epoch = cfg.start_epoch
@@ -275,23 +292,26 @@ class Trainer:
                      f"{dist_lib.backend()}, DDP (buffers averaged after "
                      f"the step)" + (", SyncBN" if cfg.sync_batchnorm
                                      and not self.is_vit else ""))
+        # The step's mixing draws are seeded by the optimizer step, which
+        # a resumed run continues.
         self.train_step = make_train_step(step_model, self.optimizer, cfg,
-                                          ema=self.ema)
+                                          ema=self.ema,
+                                          first_step=self.global_step)
         # --model-ema-decay: validation (and so 'best') measures the EMA.
         self.eval_step = (make_eval_step(step_model, cfg) if self.ema is None
                           else make_eval_step(self.ema, cfg,
                                               over_ranks=self.distributed))
 
     def _build_kernels(self) -> None:
-        """Compile the kernel sources this run launches (one ``nvcc`` each,
-        in parallel) before the first step; the time is a
-        ``kernel_build`` compile event."""
+        """Compile the kernel sources this run may launch, its dispatch
+        probes included (one ``nvcc`` each, in parallel), before the first
+        step; the time is a ``kernel_build`` compile event."""
         cfg = self.cfg
         names = []
-        if self.is_vit and cfg.flash == "on":
+        if self.is_vit and cfg.flash != "off":
             names += ["flash_fwd"] + ([] if cfg.evaluate else ["flash_bwd"])
-        if cfg.fused_bn == "on" and not (self.is_vit or cfg.evaluate
-                                         or cfg.sync_batchnorm):
+        if cfg.fused_bn != "off" and not (self.is_vit or cfg.evaluate
+                                          or cfg.sync_batchnorm):
             names.append("fused_norm")
         if not names:
             return
@@ -304,35 +324,70 @@ class Trainer:
             self.telemetry.note_compile(time.time() - t0,
                                         phase="kernel_build")
 
-    def _resolve_attention_dispatch(self) -> dict:
-        """Which attention a ViT's blocks take: the flash ``Function``
-        under ``--flash on`` (the CUDA kernels on the card, their plain
-        versions on the CPU), plain attention under ``off``. Logged in
-        tpudist's format and emitted as an ``attention_dispatch`` event."""
+    def _microbatch(self) -> int:
+        """The rows of one forward of a train step on this rank."""
         cfg = self.cfg
-        dec = {"kernel": "flash" if cfg.flash == "on" else "plain",
-               "mode": cfg.flash, "source": "forced"}
+        return cfg.per_device_batch_size // max(1, cfg.accum_steps)
+
+    def _resolve_attention_dispatch(self) -> dict:
+        """Resolve ``--flash`` for the ViT's attention workload (the
+        microbatch's batch, its tokens, heads and head dim, the compute
+        dtype, train or eval) and set the verdict on the model and its EMA:
+        the flash ``Function`` (the CUDA kernels on the card, their plain
+        versions on the CPU) or plain attention. Logged in tpudist's format
+        and emitted as an ``attention_dispatch`` event."""
+        cfg = self.cfg
+        m = self.model
+        heads = m.num_heads
+        dt = compute_dtype(cfg)
+        train = not cfg.evaluate
+
+        def decide():
+            return attention_dispatch.decide(
+                self._microbatch(), m.tokens, heads, m.hidden_dim // heads,
+                dt, train=train, mode=cfg.flash,
+                platform=self.device.type, device=self.device)
+
+        dec = (dispatch.shared_decision(decide, what="attention dispatch")
+               if cfg.flash == "auto" else decide())
         if cfg.flash == "on" and self.device.type != "cuda":
             dec["reason"] = "the CPU runs each kernel's plain body"
+        for model in (self.model, self.ema):
+            if model is not None:
+                model.set_flash(dec["kernel"] == "flash")
         msg = (f"=> attention dispatch: {dec['kernel']} attention (mode "
                f"{dec['mode']}, {dec['source']}")
         if dec.get("reason"):
             msg += f": {dec['reason']}"
+        if dec.get("flash_ms") is not None:
+            msg += (f"; {dec['key']}: flash {dec['flash_ms']:.4f} ms vs "
+                    f"plain {dec['plain_ms']:.4f} ms, margin "
+                    f"{dec.get('margin', 0.0):.1%}")
         self.log(msg + ")")
         if self.telemetry is not None:
-            self.telemetry.emit("attention_dispatch", **dec)
+            self.telemetry.emit("attention_dispatch",
+                                **attention_dispatch.event_fields(dec))
         return dec
 
     def _resolve_fused_norm_dispatch(self) -> dict:
-        """Which epilogue the train-mode BN+ReLU sites take: the fused
-        ``Function``s under ``--fused-bn on`` (the CUDA kernels on the
-        card, their plain bodies on the CPU), the plain epilogue under
-        ``off`` and in eval mode. Logged as one line and emitted as a
-        ``fused_norm_dispatch`` event; ``_log_first_step_launches`` then
-        reports what the card ran."""
+        """Resolve ``--fused-bn`` for every train-mode BN+ReLU workload of
+        the model and set each site's verdict (``BatchNorm.fused``). The
+        structural cases come first, as in tpudist: ``off``, the ViTs (no
+        BatchNorm), eval-only runs and SyncBN take the plain epilogue; the
+        CPU takes it under ``auto`` without measuring. Otherwise the
+        workloads are recorded at the microbatch's rows and decided one by
+        one: forced under ``on`` (the CUDA kernels on the card, their plain
+        bodies on the CPU), measured or read from the cache under ``auto``
+        (rank 0's verdicts for the whole gang). Logged as tpudist's line
+        with each workload's timings, emitted as a ``fused_norm_dispatch``
+        event."""
         cfg = self.cfg
-        agg = {"kernel": "plain", "mode": cfg.fused_bn, "source": "forced"}
-        if self.is_vit:
+        norm_dispatch.set_mode(cfg.fused_bn)
+        agg = {"kernel": "plain", "mode": cfg.fused_bn, "source": "platform",
+               "n_sites": 0, "n_fused": 0}
+        if cfg.fused_bn == "off":
+            agg.update(source="forced")
+        elif self.is_vit:
             agg.update(source="ineligible",
                        reason=f"{cfg.arch} has no BatchNorm")
         elif cfg.evaluate:
@@ -342,18 +397,81 @@ class Trainer:
             agg.update(source="ineligible",
                        reason="SyncBN's statistics all-reduce has no fused "
                               "kernel; plain epilogue")
-        elif cfg.fused_bn == "on":
-            if self.device.type == "cuda":
-                agg["kernel"] = "cuda"
-            else:
-                agg["reason"] = "the CPU runs each kernel's plain body"
+        elif cfg.fused_bn == "on" or self.device.type == dispatch.ACCELERATOR:
+            agg = self._decide_fused_norm(self._record_fused_norm_requests())
+        sites = {}
+        for m in self.model.modules():
+            if isinstance(m, BatchNorm):
+                d = agg.get("decisions", {}).get(m.dispatch_key)
+                m.fused = bool(d) and d["kernel"] == "cuda"
+                if d:
+                    sites[m.dispatch_key] = sites.get(m.dispatch_key, 0) + 1
         msg = (f"=> fused-norm dispatch: {agg['kernel']} epilogue (mode "
                f"{agg['mode']}, {agg['source']}")
         if agg.get("reason"):
             msg += f"; {agg['reason']}"
+        elif agg.get("n_sites"):
+            msg += (f"; {agg['n_fused']}/{agg['n_sites']} BN workloads "
+                    f"fused")
         self.log(msg + ")")
+        for key, d in sorted(agg.get("decisions", {}).items()):
+            timed = (f": cuda {d['cuda_ms']:.4f} ms vs plain "
+                     f"{d['plain_ms']:.4f} ms, margin {d['margin']:.1%}"
+                     if d.get("cuda_ms") is not None else "")
+            n = sites.get(key, 0)
+            self.log(f"=>   {key} ({n} site{'' if n == 1 else 's'}){timed}"
+                     f" → {d['kernel']} ({d['source']})")
         if self.telemetry is not None:
-            self.telemetry.emit("fused_norm_dispatch", **agg)
+            self.telemetry.emit("fused_norm_dispatch",
+                                **norm_dispatch.event_fields(agg))
+        return agg
+
+    def _record_fused_norm_requests(self) -> set:
+        """The (rows, channels, key, residual, dtype) workloads the model's
+        BN sites ask about, from one no-grad train-mode forward of zeros at
+        the microbatch's rows (no running statistic moves)."""
+        cfg = self.cfg
+        dummy = torch.zeros((self._microbatch(), cfg.image_size,
+                             cfg.image_size, 3), device=self.device)
+        was = self.model.training
+        self.model.train()
+        try:
+            with torch.no_grad(), norm_dispatch.record_requests() as reqs:
+                self.model(dummy)
+        finally:
+            self.model.train(was)
+        return reqs
+
+    def _decide_fused_norm(self, reqs: set) -> dict:
+        cfg = self.cfg
+        if not reqs:
+            return {"kernel": "plain", "mode": cfg.fused_bn,
+                    "source": "no_sites", "n_sites": 0, "n_fused": 0,
+                    "reason": "no fused-eligible BN epilogue in this model"}
+
+        def decide_all():
+            decisions = {}
+            for rows, channels, key, residual, dt in sorted(
+                    reqs, key=lambda r: r[2]):
+                decisions[key] = norm_dispatch.decide(
+                    rows, channels, dt, residual=residual, mode=cfg.fused_bn,
+                    platform=self.device.type, device=self.device)
+            out = norm_dispatch.aggregate(decisions, cfg.fused_bn)
+            out["key"] = norm_dispatch.combined_key(reqs)
+            return out
+
+        if cfg.fused_bn == "on":
+            agg = dict(decide_all(), source="forced")
+            if self.device.type != "cuda":
+                agg.update(kernel="plain",
+                           reason="the CPU runs each kernel's plain body")
+            return agg
+        agg = dispatch.shared_decision(decide_all, what="fused-norm dispatch")
+        if agg.get("key") != norm_dispatch.combined_key(reqs):
+            raise RuntimeError(
+                f"rank 0's fused-norm verdicts are for other workloads "
+                f"({agg.get('key')}) than this rank's "
+                f"({norm_dispatch.combined_key(reqs)})")
         return agg
 
     def _first_step_kernels(self):
@@ -365,7 +483,7 @@ class Trainer:
             return (("flash", flash_attention)
                     if self.attention_decision["kernel"] == "flash" else None)
         return (("fused-norm", fused_norm)
-                if self.fused_norm_decision["kernel"] == "cuda" else None)
+                if self.fused_norm_decision["n_fused"] else None)
 
     def _log_first_step_launches(self, label: str, ops,
                                  before: dict) -> None:
