@@ -9,26 +9,35 @@ line and raising on failure:
 
 1. card and build: the card (``nvidia-smi`` name and power limit, torch's
    device name and CUDA version), then ``nvcc`` builds every kernel and
-   its ``-Xptxas -v`` report (registers, spills) is printed; a bf16
-   tensor-core kernel that spills fails the phase;
+   its ``-Xptxas -v`` report (registers, spills) is printed; a 16-bit
+   (bf16 or float16) tensor-core kernel that spills fails the phase.
+   ``startup`` then points every Python process this script starts at a
+   bytecode cache in the checkout (the first launch fills it);
 2. kernel vs plain: each kernel against its plain-PyTorch version on the
    card, with its time, the plain version's, one PyTorch library call's
    (where one computes the same function) and the card's bound:
    a. the flash-attention forward at the serving shapes, ViT-B/16's
-      training shape (batch 128) and odd shapes in f32 and bf16 (head
-      dims 32 and 80, a causal cross length, fully masked rows): o and
-      lse within the bound (the bf16 lse within the f32 one), the share
-      of O entries not bit-equal to the plain version, two launches
-      bit-identical, rows that see no key O = 0 and lse = -1e30;
+      training shape (batch 128) and odd shapes in f32, bf16 and float16
+      (head dims 32 and 80, a causal cross length, fully masked rows): o
+      and lse within the bound (the 16-bit lse within the f32 one), the
+      share of O entries not bit-equal to the plain version, two launches
+      bit-identical, rows that see no key O = 0 and lse = -1e30; in
+      float16 with inf and NaN planted in v and q, O and lse non-finite
+      exactly where the plain version's are;
    b. the flash-attention backward, its dQ and dKV passes, at ViT-B/16's
-      training shape in bf16 and at odd shapes in f32 and bf16 (head dims
-      32 and 80, causal cross lengths with fully masked rows): within the
-      bound, the share of entries not bit-equal to the plain version, two
-      launches bit-identical; beside SDPA's backward and the names of the
-      device kernels it launched;
+      training shape in bf16 and float16 and at odd shapes in f32, bf16
+      and float16 (head dims 32 and 80, causal cross lengths with fully
+      masked rows): within the bound, the share of entries not bit-equal
+      to the plain version, two launches bit-identical; beside SDPA's
+      backward and the names of the device kernels it launched; in
+      float16 with inf and NaN planted in dO, dq, dk and dv non-finite
+      exactly where the plain version's are;
    c. the four fused BatchNorm epilogues (forward, forward+residual,
       backward, backward+residual) at the five resnet18 shapes of batch
-      256 at 224 px in bf16 and three odd shapes in f32;
+      256 at 224 px in bf16 and float16 and three odd shapes in f32; in
+      float16 with inf and NaN planted in x, r and dy and an affine past
+      65,504, y, dx and dr equal the plain version's (NaN where it is
+      NaN) and every partial is non-finite where the plain one is;
 3. serving end to end: ``python -m tpudist_torch.serve`` serves ViT-B/16
    at 224 px in bf16 under a short open-loop load; every bucket call must
    have gone through the flash kernel, and the logits of a ``--flash on``
@@ -52,6 +61,16 @@ line and raising on failure:
    three SGD steps under ``--flash on`` and ``off`` (same seed, same
    batches, bf16 and f32) must agree; then one train step is broken down
    by kernel category;
+5b. float16 (``--use_amp --amp-dtype float16``, dynamic loss scaling):
+   ``fp16_train`` steps resnet18 (batch 256) and ViT-B/16 (batch 128)
+   from the default scale 65,536 until one lands, then holds three SGD
+   steps kernels on against off from that scale (B1–B4 9/8/9/8 and B5–B7
+   12/12/12 a step, skipped steps included) and times the float16 step
+   beside the bf16 one; ``fp16_cli`` runs the slice's three commands in
+   this process (resnet18 at ``--fused-bn auto``, whose probes time the
+   float16 kernels; resnet18 ``--accum-steps 2 --fused-bn on``; ViT-B/16
+   ``--flash on`` with AdamW): steps land, the checkpoint carries a
+   finite ``dynamic_scale``, the parameters move;
 6. the measurement dispatch, accumulation and mixing: ``dispatch_auto``
    runs tpudist's own resnet18 and ViT-B/16 commands at full width with
    ``--fused-bn`` and ``--flash`` at their default, ``auto``, and
@@ -65,24 +84,28 @@ line and raising on failure:
    three steps of two microbatches on mixed batches, kernels on against
    off (the same draws), to the on/off bounds of phases 4 and 5, at
    B1–B4 18/16/18/16 and B5–B7 24/24/24 launches a step;
-7. data-parallel training, world 1 over NCCL, through ``python -m
-   tpudist_torch.launch -n 1 -- python -m tpudist_torch --distributed``:
-   resnet18 at 224 px, batch 256, bf16, ``--fused-bn on`` for two epochs
-   of 8 steps (the log and ``run_start`` name backend nccl, the first
-   step launches B1–B4 9/8/9/8 times, ``init_s`` > 0); a short
-   ``--sync_batchnorm`` run (the plain epilogue: no fused-norm launch);
-   a short ViT-B/16 ``--flash on`` run (12/12/12 flash launches a step).
-   A rank's launch counters start at 0 in its process, and the trainer
-   reports them in ``run_end``. Then, in this process, three steps of the
-   world-1 DDP step against the one-card step (bit-equal whenever two
-   one-card runs are) and the DDP step's breakdown;
-8. checkpoints: ``checkpoint_resume`` trains resnet18 at ``train_ddp``'s
-   settings for 3 epochs through the launcher, straight through and again
-   under ``--max-restarts 1 --resume auto --overwrite keep`` with
+7. data-parallel training, world 1 over NCCL: the reference's recipe 3
+   through ``python -m tpudist_torch.launch -n 1 -- python -m
+   tpudist_torch --distributed``, resnet18 at 224 px, batch 256, float16,
+   ``--fused-bn on`` for three epochs of 8 steps (the log and
+   ``run_start`` name backend nccl, the first step launches B1–B4
+   9/8/9/8 times, ``init_s`` > 0, the checkpoint carries a finite
+   ``dynamic_scale``; its rank reports its imports); then, in this
+   process as rank 0 of a world of 1, a short bf16 ``--sync_batchnorm``
+   run (the plain epilogue: no fused-norm launch) and a short float16
+   ViT-B/16 ``--flash on`` run (12/12/12 flash launches a step). A
+   rank's launch counters start at 0 in its process, and the trainer
+   reports them in ``run_end``. Then three steps of the world-1 DDP step
+   against the one-card step (bit-equal whenever two one-card runs are)
+   and the DDP step's breakdown;
+8. checkpoints: ``checkpoint_resume`` takes ``train_ddp``'s run as its
+   straight run A and trains resnet18 at its settings again under
+   ``--max-restarts 1 --resume auto --overwrite keep`` with
    ``CRASH_WRAPPER``, whose attempt 0 dies after the first epoch's save:
    the launcher restarts once, attempt 1 resumes, B1–B4 launch 9/8/9/8
    times a step in both attempts and the two final checkpoints hold the
-   same parameters, BN statistics and momentum bit for bit.
+   same parameters, BN statistics, momentum, step and loss scale bit for
+   bit.
    ``checkpoint_vit`` trains ViT-B/16 (batch 128, AdamW,
    ``--model-ema-decay 0.999``) 2 epochs straight against 1 epoch and a
    ``--resume`` for the second: params, moments, EMA and step bit-equal,
@@ -107,11 +130,13 @@ line and raising on failure:
    ``-j`` = the cores (at most 32) on the card's path, the PIL stack and
    the PIL stack with ``--auto-augment ra --random-erase 0.25``, and the
    val loader, beside the device-resident resnet18 rate;
-   ``train_imagefolder`` trains resnet18 (two epochs) and ViT-B/16 (one,
-   ``--auto-augment ta_wide --random-erase 0.25``) from the tree through
-   the launcher with ``--data-skip-budget 1``: B1–B4 9/8/9/8 and B5–B7
-   12/12/12 a step, the truncated JPEG skipped once an epoch and logged,
-   the share of the wall spent waiting for data;
+   ``train_imagefolder`` trains resnet18 (two epochs, through the
+   launcher, whose ``--inject decode_fail:p=0.1,fails=1`` ``decode_fail``
+   reads) and ViT-B/16 (one, in this process, ``--auto-augment ta_wide
+   --random-erase 0.25``) from the tree with ``--data-skip-budget 1``:
+   B1–B4 9/8/9/8 and B5–B7 12/12/12 a step, the truncated JPEG skipped
+   once an epoch and logged, the share of the wall spent waiting for
+   data;
 10. preemption, fault injection and the reference's files:
    ``preempt_resume`` sends SIGTERM to the launcher of a
    ``checkpoint_resume`` run mid-epoch: the rank drains, writes its
@@ -124,7 +149,8 @@ line and raising on failure:
    resume quarantines both files, falls back to the history and emits the
    ``fault`` events), ``bitflip`` refused by name by the trainer and the
    launcher, and, on the ImageFolder tree, ``decode_fail:p=0.1,fails=1``
-   given to the launcher (retries, no new skip). ``torch_checkpoint``:
+   given to the launcher of train_imagefolder's resnet18 run (retries, no
+   new skip). ``torch_checkpoint``:
    that run's ``checkpoint.pth.tar`` and ``model_best.pth.tar`` (the EMA)
    hold the reference's schema and the run's weights, ``--evaluate`` from
    ``--pretrained-path`` equals ``--evaluate`` from ``--resume``; the
@@ -133,7 +159,8 @@ line and raising on failure:
    start from that file (B5–B7 12/12/12 a step), and ``--pretrained``
    with an empty ``$TORCH_HOME`` fails, naming where it searched;
 11. one ``{"phase_seconds": {...}}`` line, each phase's seconds;
-12. one ``{"kernels": [...]}`` line;
+12. one ``{"kernels": [...]}`` line: each kernel in bf16 (its f32 cases
+    beside) and its float16 instantiation, `` (float16)`` in the name;
 13. last, ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, without a CUDA card or without the
@@ -182,6 +209,7 @@ from tpudist_torch.compat.jax_params import state_dict_from_jax
 from tpudist_torch.data import autoaugment as data_aa
 from tpudist_torch.data import native as data_native
 from tpudist_torch.data import transforms as data_tf
+from tpudist_torch.dynamic_scale import DynamicScale
 from tpudist_torch.models import create_model
 from tpudist_torch.ops import _build
 from tpudist_torch.ops import flash_attention as fa
@@ -204,6 +232,15 @@ LAYERS = 12
 F32_TOL = 2e-5     # rtol and atol, the bound tests/test_flash_attention.py
 #                    holds the Pallas kernel to
 BF16_TOL = 1e-2
+# float16's own bounds: float16 resolves 8x finer than bf16, so bf16's 1e-2
+# would pass a float16 kernel that rounds P or dS at bf16. O within 1.5e-3
+# (the form of F32_TOL; read at 4.9e-4, one float16 ulp below 1, on an
+# H100 80GB HBM3 at 700 W), and at most 45 % of O's entries not bit-equal
+# to the plain version's (read 0.16-0.28 there). A plain version that
+# rounds P and dS at bf16 passes bf16's bound and breaks these, forward
+# and backward (tests/test_torch_flash_kernel.py, on the CPU).
+F16_TOL = 1.5e-3
+F16_O_SHARE = 0.45
 # The bf16 forward's lse against the plain version's. Every product feeding
 # S is exact in f32 (bf16 operands) and l sums the unrounded P in f32, so
 # only the order of f32 sums differs; held to the f32 bound. Read at 9.5e-7
@@ -258,9 +295,14 @@ TRAIN_STATE_TOL = {"bfloat16": 1.0, "float32": 0.1}
 # ViT-B/16 training at 224 px: batch 128, 197 tokens, 12 heads of 64.
 VIT_B = 128
 VIT_SYNTHETIC = 1024            # train images an epoch; validation half
+CKPT_VIT_SYNTHETIC = 512        # the same in checkpoint_vit's runs
 # The backward kernels against their plain version: rtol and atol·max|ref|
 # (the bound tests/test_flash_attention.py holds the Pallas backward to).
-BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# float16 at about 3x its readings there: dq, dk, dv within 3.4e-4 of
+# max|ref|, and at most 0.85 % of a gradient's entries not bit-equal, held
+# to 3 % (BWD_F16_SHARE).
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 1e-3}
+BWD_F16_SHARE = 0.03
 # --flash on vs off over 3 SGD steps (lr VIT_CMP_LR) from one seed on the
 # same batches of VIT_CMP_B images: the plain attention rounds P after
 # normalising and the kernel before, so bf16 activations round apart, 12
@@ -339,16 +381,16 @@ def time_ms(fn, reps: int = 25, inner: int = 10) -> float:
 # -- phase 1 -----------------------------------------------------------------
 
 def _kernel_name(mangled: str) -> str:
-    """``flash_fwd_mma<64>``, ``flash_bwd_dq_kernel<f32,64>`` or
+    """``flash_fwd_mma<f16,64>``, ``flash_bwd_dq_kernel<f32,64>`` or
     ``bn_act_fwd_kernel<bf16,true>`` from a mangled kernel name; one of
     another form comes back as it is."""
     m = re.search(r"\d+((?:flash|bn)_\w+?_(?:mma|kernel))I(\w+?)EEv",
                   mangled)
     if not m:
         return mangled
-    words = {"f": "f32", "13__nv_bfloat16": "bf16", "Lb0E": "false",
-             "Lb1E": "true"}
-    toks = re.finditer(r"f(?=L|$)|13__nv_bfloat16|Lb[01]E|Li(\d+)E",
+    words = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16",
+             "Lb0E": "false", "Lb1E": "true"}
+    toks = re.finditer(r"f(?=L|$)|13__nv_bfloat16|6__half|Lb[01]E|Li(\d+)E",
                        m.group(2))
     names = [words.get(t.group(0)) or t.group(1) for t in toks]
     return f"{m.group(1)}<{','.join(names)}>"
@@ -394,7 +436,7 @@ def phase_card_and_build() -> dict:
               for entry, r in entries.items() if "_mma<" in entry
               and (r.get("spill_stores") or r.get("spill_loads"))]
     if spills:
-        raise RuntimeError(f"a bf16 tensor-core kernel spills: {spills}")
+        raise RuntimeError(f"a 16-bit tensor-core kernel spills: {spills}")
     peak_kind, _ = peaks_for(name)
     card = {"phase": "card_and_build", "nvidia_smi": smi_line,
             "device_name": name, "torch": torch.__version__,
@@ -405,6 +447,37 @@ def phase_card_and_build() -> dict:
             "ptxas": ptxas}
     emit(card)
     return card
+
+
+# -- phase 1b: a process's start ------------------------------------------------
+
+def _bytecode_cache() -> dict:
+    """Point the Python processes this script starts at a bytecode cache
+    in the checkout (``build/pycache``, which git ignores). Where the
+    interpreter may not write ``__pycache__`` beside its modules (a
+    read-only install, or ``PYTHONDONTWRITEBYTECODE``), every process
+    compiles torch's sources anew: the first process now writes the cache
+    and the others read it. What the host offered is returned."""
+    torch_dir = os.path.dirname(torch.__file__)
+    out = {"dont_write_bytecode_env": os.environ.get("PYTHONDONTWRITEBYTECODE"),
+           "pycache_prefix_env": os.environ.get("PYTHONPYCACHEPREFIX"),
+           "torch_dir_writable": os.access(torch_dir, os.W_OK),
+           "torch_has_pycache": os.path.isdir(
+               os.path.join(torch_dir, "__pycache__"))}
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = os.path.join(HERE, "build", "pycache")
+    out["pycache_prefix"] = os.environ["PYTHONPYCACHEPREFIX"]
+    return out
+
+
+def phase_startup() -> dict:
+    """The bytecode cache every later process uses (``_bytecode_cache``).
+    The first launch (``train_ddp``) fills it; every launch reports where
+    its seconds went (``timing``), so the first shows a cold start and the
+    rest a warm one."""
+    out = {"phase": "startup", **_bytecode_cache()}
+    emit(out)
+    return out
 
 
 # -- phase 2 -----------------------------------------------------------------
@@ -455,6 +528,15 @@ FWD_CASES = [
     ("bf16_d80", 2, 257, 257, 16, 80, torch.bfloat16, False),
     ("bf16_causal_cross", 2, 150, 197, 4, 64, torch.bfloat16, True),
     ("bf16_d32_masked_rows", 2, 100, 60, 3, 32, torch.bfloat16, True),
+    # float16 (--amp-dtype float16) through the same tensor-core kernel, at
+    # every bf16 shape.
+    *[(f"f16_serve_b{b}", b, SERVE_T, SERVE_T, SERVE_H, SERVE_D,
+       torch.float16, False) for b in BUCKETS],
+    (f"f16_train_b{VIT_B}", VIT_B, SERVE_T, SERVE_T, SERVE_H, SERVE_D,
+     torch.float16, False),
+    ("f16_d80", 2, 257, 257, 16, 80, torch.float16, False),
+    ("f16_causal_cross", 2, 150, 197, 4, 64, torch.float16, True),
+    ("f16_d32_masked_rows", 2, 100, 60, 3, 32, torch.float16, True),
 ]
 
 
@@ -464,23 +546,34 @@ def _close(got, want, tol):
     return bool(((got - want).abs() <= tol + tol * want.abs()).all())
 
 
+def _fwd_tol(dtype) -> float:
+    return {torch.float32: F32_TOL, torch.bfloat16: BF16_TOL,
+            torch.float16: F16_TOL}[dtype]
+
+
 def _fwd_check(q, k, v, causal) -> tuple[dict, list[str]]:
     """The forward kernel against its plain version on one input: the
     errors and bit-equality shares of O and lse, and what breaks its
-    bounds (none: []): o within 2e-5 (f32) or 1e-2 (bf16), lse within
-    2e-5 (F32_TOL, BF16_LSE_TOL), two launches bit-identical, and rows
-    that see no key O = 0 and lse = -1e30 exactly."""
+    bounds (none: []): o within 2e-5 (f32), 1e-2 (bf16) or 1.5e-3
+    (float16, with at most F16_O_SHARE of O not bit-equal), lse within
+    2e-5 (F32_TOL, BF16_LSE_TOL: in float16 too only the order of the f32
+    sums differs), two launches bit-identical, and rows that see no key
+    O = 0 and lse = -1e30 exactly."""
     o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
     o2, lse2 = fa.flash_attention_fwd(q, k, v, causal=causal)
     torch.cuda.synchronize()
     o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal=causal)
-    bf16 = q.dtype == torch.bfloat16
-    tol = BF16_TOL if bf16 else F32_TOL
+    half = q.dtype != torch.float32
+    tol = _fwd_tol(q.dtype)
     of, rf = o.float(), o_ref.float()
     bad = []
     if not _close(of, rf, tol):
         bad.append(f"o off by {(of - rf).abs().max().item()} (tol {tol})")
-    lse_tol = BF16_LSE_TOL if bf16 else F32_TOL
+    o_share = (o != o_ref).float().mean().item()
+    if q.dtype == torch.float16 and o_share > F16_O_SHARE:
+        bad.append(f"{o_share:.3f} of o not bit-equal (at most "
+                   f"{F16_O_SHARE})")
+    lse_tol = BF16_LSE_TOL if half else F32_TOL
     if not _close(lse, lse_ref, lse_tol):
         bad.append(f"lse off by {(lse - lse_ref).abs().max().item()} "
                    f"(tol {lse_tol})")
@@ -493,7 +586,7 @@ def _fwd_check(q, k, v, causal) -> tuple[dict, list[str]]:
         bad.append("rows that see no key got O != 0 or lse != -1e30")
     row = {"o_max_abs_err": (of - rf).abs().max().item(),
            "lse_max_abs_err": (lse - lse_ref).abs().max().item(),
-           "o_not_bit_equal_share": (o != o_ref).float().mean().item(),
+           "o_not_bit_equal_share": o_share,
            "lse_not_bit_equal_share": (lse != lse_ref).float().mean()
            .item(),
            "lse_tol": lse_tol, "relaunch_bit_identical": relaunch,
@@ -508,12 +601,12 @@ def phase_kernel_vs_plain(peaks: dict) -> dict:
         checked, bad = _fwd_check(q, k, v, causal)
         if bad:
             raise RuntimeError(f"flash_fwd {label}: {'; '.join(bad)}")
-        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+        tol = _fwd_tol(dtype)
         row = {"case": label, "shape": [b, tq, tk, h, d],
                "dtype": str(dtype).replace("torch.", ""), "causal": causal,
                "tol": tol, **checked}
         nbytes, flops = _work(q, k, v, causal)
-        rate = peaks["bf16" if dtype == torch.bfloat16 else "f32"]
+        rate = peaks["f32" if dtype == torch.float32 else "bf16"]
         t_bytes, t_ops = nbytes / peaks["hbm"] * 1e3, flops / rate * 1e3
         row.update(bytes=nbytes, flops=flops, bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
@@ -532,8 +625,60 @@ def phase_kernel_vs_plain(peaks: dict) -> dict:
             # k_len - q_len offset: no one call computes this function.
             row["library_ms"] = None
         rows.append(row)
-    out = {"phase": "kernel_vs_plain", "kernel": "flash_fwd", "cases": rows}
+    out = {"phase": "kernel_vs_plain", "kernel": "flash_fwd", "cases": rows,
+           "nonfinite": _nonfinite_fwd()}
     emit(out)
+    return out
+
+
+def _nonfinite_share(got, want) -> dict:
+    """Where ``got`` and its plain version ``want`` are non-finite: the
+    plain version's NaN and inf counts, the entries finite in one and not
+    in the other (``pattern_mismatches``, which must be 0), the entries
+    whose class differs (NaN in one, inf in the other: a 0·inf in one sum
+    that is p·inf in the other), and the largest difference where both are
+    finite."""
+    g, w = got.float(), want.float()
+    fin_g, fin_w = torch.isfinite(g), torch.isfinite(w)
+    both = fin_g & fin_w
+    return {"nan": int(torch.isnan(w).sum()), "inf": int(torch.isinf(w).sum()),
+            "pattern_mismatches": int((fin_g != fin_w).sum()),
+            "class_differs": int((torch.isnan(g) != torch.isnan(w)).sum()),
+            "finite_max_abs_err": float((g[both] - w[both]).abs().max())
+            if both.any() else 0.0}
+
+
+def _planted(t, seed, frac=1e-3):
+    """``t`` with about ``frac`` of its entries set to +inf, -inf and NaN
+    (a third each), at seeded positions."""
+    g = torch.Generator(device=t.device).manual_seed(seed)
+    u = torch.rand(t.shape, generator=g, device=t.device)
+    t = t.clone()
+    t[u < frac / 3] = float("inf")
+    t[(u >= frac / 3) & (u < 2 * frac / 3)] = float("-inf")
+    t[(u >= 2 * frac / 3) & (u < frac)] = float("nan")
+    return t
+
+
+def _nonfinite_fwd() -> dict:
+    """B5 in float16 with inf and NaN planted in v and in one query row:
+    O and lse are non-finite exactly where the plain version's are."""
+    b, t, h, d = 2, SERVE_T, 4, SERVE_D
+    q, k, v = _qkv_views(b, t, t, h, d, torch.float16, seed=90)
+    v = _planted(v, 91)
+    q = q.clone()
+    q[0, 5, 1, 3] = float("inf")
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v)
+    out = {"shape": [b, t, t, h, d], "dtype": "float16",
+           "o": _nonfinite_share(o, o_ref),
+           "lse": _nonfinite_share(lse, lse_ref)}
+    if out["o"]["pattern_mismatches"] or out["lse"]["pattern_mismatches"] \
+            or not out["o"]["nan"] + out["o"]["inf"]:
+        raise RuntimeError(f"flash_fwd float16 with inf/NaN: the kernel's "
+                           f"non-finite outputs differ from the plain "
+                           f"version's: {out}")
     return out
 
 
@@ -843,14 +988,60 @@ def _norm_case(label, m, c, dtype, peaks, seed):
     return rows
 
 
+def _nonfinite_norm() -> dict:
+    """B1–B4 in float16 with inf and NaN planted in x, r and dy, and an
+    affine that overflows float16 (x·a + b past 65504) on a few channels:
+    y, dx and dr equal the plain version's bit for bit, NaN for NaN, and
+    every partial is non-finite exactly where the plain one is."""
+    m, c = 25_088, 256
+    g = torch.Generator(device="cuda").manual_seed(80)
+    x, r, dy = (_planted(torch.randn(m, c, generator=g, device="cuda")
+                         .half(), 81 + i) for i in range(3))
+    a = torch.randn(c, generator=g, device="cuda")
+    b = torch.randn(c, generator=g, device="cuda")
+    a[:4] = 3.0e4                          # |x·a| past 65504 where |x| > 2.2
+    out = {"shape": [m, c], "dtype": "float16"}
+    for res in (False, True):
+        rr = r if res else None
+        got = (fn.bn_act_fwd(x, rr, a, b), *fn.bn_act_bwd(x, rr, dy, a, b))
+        torch.cuda.synchronize()
+        want = (fn.bn_act_fwd_plain(x, rr, a, b),
+                *fn.bn_act_bwd_plain(x, rr, dy, a, b))
+        row = {}
+        for name, gv, wv in zip(("y", "dx", "dr", "da_partials",
+                                 "db_partials"), got, want):
+            if wv is None:
+                continue
+            row[name] = _nonfinite_share(gv, wv)
+            # y, dx, dr: the same bits wherever the plain value is not
+            # NaN, and NaN wherever it is (a NaN's payload is the
+            # conversion's, not the data's).
+            exact = name in ("y", "dx", "dr")
+            nan = torch.isnan(wv)
+            if row[name]["pattern_mismatches"] or (exact and not (
+                    torch.equal(nan, torch.isnan(gv)) and torch.equal(
+                        gv.view(torch.int16)[~nan],
+                        wv.view(torch.int16)[~nan]))):
+                raise RuntimeError(f"fused-norm float16 res={res} with "
+                                   f"inf/NaN: {name} differs from the plain "
+                                   f"version ({row[name]})")
+        if not row["y"]["inf"] or not row["dx"]["nan"] + row["dx"]["inf"]:
+            raise RuntimeError(f"fused-norm float16 non-finite case planted "
+                               f"nothing that shows: {row}")
+        out["residual" if res else "plain"] = row
+    return out
+
+
 def phase_fused_norm_vs_plain(peaks: dict) -> dict:
     cases = [(label, m, c, torch.bfloat16) for label, m, c in RESNET18_SHAPES]
     cases += [(label, m, c, torch.float32) for label, m, c in ODD_SHAPES]
+    cases += [(label, m, c, torch.float16) for label, m, c in RESNET18_SHAPES]
     rows = []
     for i, (label, m, c, dtype) in enumerate(cases):
         for name, row in _norm_case(label, m, c, dtype, peaks, i).items():
             rows.append(dict(row, kernel=name))
     out = {"phase": "fused_norm_vs_plain", "cases": rows,
+           "nonfinite": _nonfinite_norm(),
            "library_ms": "null: no single PyTorch call computes the "
                          "epilogue with its rounding, or its backward "
                          "with per-block partials"}
@@ -928,10 +1119,19 @@ def phase_train() -> dict:
     return out
 
 
+def _scaler(dtype, scale=None):
+    """A float16 step's loss scale (flax's default 65,536 unless
+    ``scale``); None for the other dtypes."""
+    if dtype != torch.float16:
+        return None
+    return DynamicScale() if scale is None else DynamicScale(scale=scale)
+
+
 def _train_setup(fused: bool, dtype=torch.bfloat16, seed: int = 0,
-                 ddp: bool = False):
+                 ddp: bool = False, scaler=None):
     """resnet18 at TRAIN_B and its train step; with ``ddp`` the step is the
-    data-parallel one (the process group must be up)."""
+    data-parallel one (the process group must be up); in float16 the step
+    scales its loss by ``scaler`` (flax's default when None)."""
     cfg = config_lib.Config(batch_size=TRAIN_B, image_size=TRAIN_PX,
                             fused_bn="on" if fused else "off")
     model = create_model("resnet18", dtype=dtype, fused_bn=fused)
@@ -939,8 +1139,10 @@ def _train_setup(fused: bool, dtype=torch.bfloat16, seed: int = 0,
     model.cuda()
     net = (train_lib.data_parallel(model, torch.device("cuda", 0)) if ddp
            else model)
-    step = train_lib.make_train_step(
-        net, train_lib.make_optimizer(model, cfg), cfg)
+    opt = train_lib.make_optimizer(model, cfg)
+    step = train_lib.make_train_step(net, opt, cfg,
+                                     scaler=scaler or _scaler(dtype))
+    step.optimizer = opt
     return model, step
 
 
@@ -957,23 +1159,34 @@ def _device_batch(seed: int, batch: int = TRAIN_B):
     return images, labels
 
 
-def compare_on_off(setup, dtype, batch: int, lr: float) -> dict:
+def compare_on_off(setup, dtype, batch: int, lr: float,
+                   scale=None) -> dict:
     """TRAIN_CMP_STEPS train steps with the kernels on (``setup(True,
     dtype)``) and off from one seed on the same device batches: the
     losses, and per parameter and running statistic max|on − off| over the
     off run's largest change, after the first step and (reported only)
-    after the last."""
+    after the last; the kernel launches of the ``on`` run. In float16 both
+    runs start from the loss scale ``scale``, and whether each step landed
+    is reported."""
     batches = [_device_batch(100 + i, batch) for i in range(TRAIN_CMP_STEPS)]
-    losses, first, last = {}, {}, {}
+    losses, first, last, landed = {}, {}, {}, {}
     for mode in ("on", "off"):
-        model, step = setup(mode == "on", dtype)
+        model, step = (setup(mode == "on", dtype) if dtype != torch.float16
+                       else setup(mode == "on", dtype,
+                                  scaler=_scaler(dtype, scale)))
         init = _leaves(model)
-        losses[mode] = []
+        losses[mode], landed[mode] = [], []
+        before = {**fn.LAUNCHES, **fa.LAUNCHES}
         for i, (x, y) in enumerate(batches):
-            losses[mode].append(float(step(x, y, lr)["loss"]))
+            m = step(x, y, lr)
+            losses[mode].append(float(m["loss"]))
+            landed[mode].append(bool(m.get("finite", True)))
             if i == 0:
                 first[mode] = _leaves(model)
         last[mode] = _leaves(model)
+        if mode == "on":
+            launches = {k: v - before[k] for k, v in {
+                **fn.LAUNCHES, **fa.LAUNCHES}.items() if v != before[k]}
         del model, step
 
     def ratios(leaves):
@@ -987,6 +1200,8 @@ def compare_on_off(setup, dtype, batch: int, lr: float) -> dict:
     ratio, drift = ratios(first), ratios(last)
     worst = max(ratio, key=ratio.get)
     return {"dtype": str(dtype).replace("torch.", ""),
+            "landed_on": landed["on"], "landed_off": landed["off"],
+            "launches_on": launches,
             "losses_on": losses["on"], "losses_off": losses["off"],
             "loss_abs_diff": [abs(a - b) for a, b in zip(losses["on"],
                                                           losses["off"])],
@@ -1149,7 +1364,7 @@ def _launch_trainer(args: list[str], what: str, timeout: float = 300.0, *,
            *launch_args, "--", sys.executable,
            *(trainer or ["-m", "tpudist_torch"]), "--distributed", *args,
            "--telemetry", "--seed", "0", "--outpath", outdir]
-    t0 = time.perf_counter()
+    t0, t0_wall = time.perf_counter(), time.time()
     proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(
         __file__)), stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
@@ -1173,6 +1388,30 @@ def _launch_trainer(args: list[str], what: str, timeout: float = 300.0, *,
         events = [json.loads(ln) for ln in f]
     for ev in events:
         telemetry_lib.validate_event(ev)
+    row = _world1_run(text, events, what)
+    if own:
+        shutil.rmtree(os.path.dirname(outdir), ignore_errors=True)
+    # Where the launch's seconds went, on the host clock: to the rank's
+    # run_start (the launcher's and the rank's start, imports, the process
+    # group), to its first step's end, to its run_end, and to the exit.
+    steps = [e for e in events if e["type"] == "step"]
+    t_end = t0_wall + wall_s
+    timing = {"to_run_start_s": events[0]["t"] - t0_wall,
+              "to_first_step_end_s": steps[0]["t"] - t0_wall
+              if steps else None,
+              "to_run_end_s": events[-1]["t"] - t0_wall,
+              "exit_after_run_end_s": t_end - events[-1]["t"]}
+    return text, {
+        "timing": timing, "wall_s": wall_s, **row,
+        "launcher_lines": [ln for ln in err.splitlines()
+                           if ln.startswith("[tpudist_torch.launch]")]}, events
+
+
+def _world1_run(text: str, events: list, what: str) -> dict:
+    """What makes a valid world-1 NCCL run, launched or in process: the
+    DDP line, a run_start over NCCL on one device and an init phase
+    recorded at its start and end, finite train and val losses. Returns
+    its summary (the launches are its run_end's counters)."""
     start, end = events[0], events[-1]
     if DDP_LINE not in text or start.get("backend") != "nccl" \
             or start["n_devices"] != 1 or not start["init_s"] > 0 \
@@ -1184,60 +1423,88 @@ def _launch_trainer(args: list[str], what: str, timeout: float = 300.0, *,
     if not train_l or not all(np.isfinite(train_l + val_l)):
         raise RuntimeError(f"{what}: losses {train_l}, {val_l}")
     steps = [e for e in events if e["type"] == "step"]
-    if own:
-        shutil.rmtree(os.path.dirname(outdir), ignore_errors=True)
-    return text, {
-        "wall_s": wall_s, "train_steps": len(steps), "train_loss": train_l,
+    return {
+        "train_steps": len(steps), "train_loss": train_l,
         "val_loss": val_l, "launches": end["kernel_launches"],
         "init_s": {"run_start": start["init_s"], "run_end": end["init_s"]},
         "backend": start["backend"],
         "host_step_s_p50": (statistics.median(e["step_s"] for e in steps[1:])
                             if len(steps) > 1 else None),
-        "launcher_lines": [ln for ln in err.splitlines()
-                           if ln.startswith("[tpudist_torch.launch]")],
         "run_end": {k: end[k] for k in (
             "wall_s", "productive_s", "goodput", "init_s", "compile_s",
-            "eval_s", "checkpoint_s")}}, events
+            "eval_s", "checkpoint_s")}}
 
 
-def phase_train_ddp() -> dict:
-    """The data-parallel path through the launcher at full width: resnet18
-    at 224 px, 1000 classes, global batch 256, bf16, --fused-bn on, two
-    epochs of 8 steps, world 1 over NCCL; every train step launches the
-    fused-norm kernels 9/8/9/8 times and validation none."""
-    text, row, _ = _launch_trainer(
-        ["-a", "resnet18", "--use_amp", "--fused-bn", "on", "-b",
-         str(TRAIN_B), "--synthetic", "--image-size", str(TRAIN_PX),
-         "--num-classes", "1000", "--epochs", "2", "--synthetic-size",
-         "2048", "--step", "1", "-p", "4"], "the DDP resnet18 run")
+def _ddp_in_process(args: list, what: str, outdir: str):
+    """``python -m tpudist_torch --distributed ARGS --telemetry`` in this
+    process as rank 0 of a world of 1 over NCCL (the launcher's
+    ``TPUDIST_*`` identity set for the run; the trainer joins the process
+    group and leaves it), held to ``_world1_run``'s checks: the launches
+    are this process's counters, set to 0 just before."""
+    env = {"TPUDIST_COORDINATOR": f"127.0.0.1:{launch_lib.find_free_port()}",
+           "TPUDIST_NUM_PROCESSES": "1", "TPUDIST_PROCESS_ID": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    t0 = time.perf_counter()
+    try:
+        text, events, launches = _run_cli(
+            ["--distributed", *args, "--telemetry", "--seed", "0",
+             "--outpath", outdir], what)
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    wall_s = time.perf_counter() - t0
+    return text, {"in_process": True, "wall_s": wall_s,
+                  **_world1_run(text, events, what),
+                  "launches": launches}, events
+
+
+def phase_train_ddp(root: str) -> dict:
+    """The reference's recipe 3 through the launcher at full width:
+    resnet18 at 224 px, 1000 classes, global batch 256, float16 with
+    tpudist's dynamic loss scaling, --fused-bn on, three epochs of 8 steps,
+    world 1 over NCCL (CKPT_R18_ARGS): every train step, skipped ones
+    included, launches the fused-norm kernels 9/8/9/8 times and validation
+    none; the checkpoint carries a finite ``dynamic_scale``, at least one
+    step landed and the parameters moved (``_fp16_facts``). The run is
+    checkpoint_resume's straight run A: its dir is kept under ``root``."""
+    run_a = os.path.join(root, "r18_a")
+    # The first launch: its rank fills the bytecode cache.
+    text, row, events = _launch_trainer(
+        CKPT_R18_ARGS, "the DDP resnet18 float16 run", outdir=run_a)
     n = row["train_steps"]
-    want = {"bn_act_fwd": 9 * n, "bn_act_fwd_res": 8 * n,
-            "bn_act_bwd": 9 * n, "bn_act_bwd_res": 8 * n}
+    want = {k: v * n for k, v in R18_PER_STEP.items()}
     got = {k: row["launches"][k] for k in fn.KERNELS}
     first = ("=> fused-norm kernels launched by the first train step: "
              "34 (bn_act_fwd 9, bn_act_fwd_res 8, bn_act_bwd 9, "
              "bn_act_bwd_res 8)")
-    if n != 16 or got != want or first not in text.splitlines():
+    if n != 24 or got != want or first not in text.splitlines():
         raise RuntimeError(f"DDP fused-norm launches {got} for {n} steps; "
                            f"want {want} and the line {first!r}")
     out = {"phase": "train_ddp", "arch": "resnet18", "batch": TRAIN_B,
-           "world": 1, "dtype": "bfloat16", **row,
+           "world": 1, "dtype": "float16", **row,
            "fused_norm_launches": got,
-           "images_per_s_host": TRAIN_B / row["host_step_s_p50"]}
+           "images_per_s_host": TRAIN_B / row["host_step_s_p50"],
+           "float16": _fp16_facts(text, run_a, "resnet18"),
+           "run_dir": run_a}
     emit(out)
+    out["events"] = events
     return out
 
 
-def phase_train_syncbn_ddp() -> dict:
-    """``--sync_batchnorm`` at world 1, two steps: the statistics go
-    through the all-reduce and the epilogue is the plain one, as tpudist's
-    (0 fused-norm launches)."""
-    text, row, _ = _launch_trainer(
+def phase_train_syncbn_ddp(root: str) -> dict:
+    """``--sync_batchnorm`` at world 1 over NCCL, in this process, two
+    steps: the statistics go through the all-reduce and the epilogue is
+    the plain one, as tpudist's (0 fused-norm launches)."""
+    text, row, _ = _ddp_in_process(
         ["-a", "resnet18", "--use_amp", "--fused-bn", "on",
          "--sync_batchnorm", "-b", str(TRAIN_B), "--synthetic",
          "--image-size", str(TRAIN_PX), "--num-classes", "1000",
          "--epochs", "1", "--synthetic-size", str(2 * TRAIN_B), "-p", "1"],
-        "the DDP SyncBN run")
+        "the DDP SyncBN run", os.path.join(root, "syncbn"))
+    shutil.rmtree(os.path.join(root, "syncbn"), ignore_errors=True)
     plain = ("=> fused-norm dispatch: plain epilogue (mode on, ineligible; "
              "SyncBN's statistics all-reduce has no fused kernel; plain "
              "epilogue)")
@@ -1252,16 +1519,28 @@ def phase_train_syncbn_ddp() -> dict:
     return out
 
 
-def phase_train_vit_ddp() -> dict:
-    """ViT-B/16 at 224 px, batch 128, bf16, --flash on, AdamW under DDP at
-    world 1, two steps and one validation batch: 12 of each flash kernel
-    a train step and 12 forwards a validation batch."""
-    text, row, _ = _launch_trainer(
-        ["-a", "vit_b_16", "--use_amp", "--flash", "on", "--optimizer",
-         "adamw", "--lr", "1e-3", "--weight-decay", "0.05", "-b",
-         str(VIT_B), "--synthetic", "--image-size", "224", "--num-classes",
-         "1000", "--epochs", "1", "--synthetic-size", str(2 * VIT_B), "-p",
-         "1", "--keep-checkpoints", "0"], "the DDP ViT-B/16 run")
+def phase_train_vit_ddp(root: str) -> dict:
+    """ViT-B/16 at 224 px, batch 128, float16 with dynamic loss scaling,
+    --flash on, AdamW under DDP at world 1 over NCCL, in this process, two
+    steps and one validation batch: 12 of each flash kernel a train step
+    (skipped or not) and 12 forwards a validation batch; the checkpoint
+    carries a finite ``dynamic_scale``."""
+    outdir = os.path.join(root, "vit_ddp")
+    text, row, _ = _ddp_in_process(
+        ["-a", "vit_b_16", "--use_amp", "--amp-dtype", "float16", "--flash",
+         "on", "--optimizer", "adamw", "--lr", "1e-3", "--weight-decay",
+         "0.05", "-b", str(VIT_B), "--synthetic", "--image-size", "224",
+         "--num-classes", "1000", "--epochs", "1", "--synthetic-size",
+         str(2 * VIT_B), "-p", "1", "--keep-checkpoints", "0"],
+        "the DDP ViT-B/16 float16 run", outdir)
+    tree = ckpt_lib.load_checkpoint(outdir)
+    ds = tree["state"].get("dynamic_scale")
+    skipped = [m.group(4) for m in _verdicts(text, SCALE_LINE_RE)]
+    del tree
+    shutil.rmtree(outdir, ignore_errors=True)
+    if not isinstance(ds, dict) or not np.isfinite(np.asarray(ds["scale"])):
+        raise RuntimeError(f"DDP ViT-B/16 float16 checkpoint dynamic_scale "
+                           f"{ds!r}")
     n, val = row["train_steps"], 1
     want = {"flash_fwd": LAYERS * (n + val), "flash_bwd_dq": LAYERS * n,
             "flash_bwd_dkv": LAYERS * n}
@@ -1272,7 +1551,9 @@ def phase_train_vit_ddp() -> dict:
         raise RuntimeError(f"DDP flash launches {got} for {n} steps; want "
                            f"{want} and the line {first!r}")
     out = {"phase": "train_vit_ddp", "arch": "vit_b_16", "batch": VIT_B,
-           "world": 1, **row, "flash_launches": got}
+           "world": 1, "dtype": "float16", **row, "flash_launches": got,
+           "dynamic_scale": {k: float(np.asarray(v)) for k, v in ds.items()},
+           "steps_skipped": [int(k) for k in skipped]}
     emit(out)
     return out
 
@@ -1332,7 +1613,8 @@ def phase_ddp_vs_plain() -> dict:
 
 # -- phase 7: checkpoints, resume and serving from a checkpoint ---------------
 
-CKPT_R18_ARGS = ["-a", "resnet18", "--use_amp", "--fused-bn", "on", "-b",
+CKPT_R18_ARGS = ["-a", "resnet18", "--use_amp", "--amp-dtype", "float16",
+                 "--fused-bn", "on", "-b",
                  str(TRAIN_B), "--synthetic", "--image-size", str(TRAIN_PX),
                  "--num-classes", "1000", "--epochs", "3", "--synthetic-size",
                  "2048", "--step", "1", "-p", "4"]
@@ -1341,10 +1623,20 @@ CKPT_VIT_ARGS = ["--synthetic", "-a", "vit_b_16", "--image-size", "224",
                  "--flash", "on", "--optimizer", "adamw", "--lr", "1e-3",
                  "--weight-decay", "0.05", "--model-ema-decay", "0.999",
                  "--telemetry", "--seed", "0", "--synthetic-size",
-                 str(VIT_SYNTHETIC), "--step", "1", "-p", "4",
+                 str(CKPT_VIT_SYNTHETIC), "--step", "1", "-p", "4",
                  "--keep-checkpoints", "0"]
 R18_PER_STEP = {"bn_act_fwd": 9, "bn_act_fwd_res": 8, "bn_act_bwd": 9,
                 "bn_act_bwd_res": 8}
+# The parts of a resnet18 checkpoint a resumed run must end bit-equal in:
+# the float16 loss scale (fin_steps and scale) and the optimizer count
+# (the steps that landed) among them.
+CKPT_R18_PARTS = {"params": ("state", "params"),
+                  "batch_stats": ("state", "batch_stats"),
+                  "momentum": ("state", "opt_state", "inner_state", "1",
+                               "trace"),
+                  "opt_count": ("state", "opt_state", "count"),
+                  "step": ("state", "step"),
+                  "dynamic_scale": ("state", "dynamic_scale")}
 RESUMED_RE = re.compile(r"=> resumed from '([^']*)' \(epoch (\d+), "
                         r"best_acc1 ")
 
@@ -1503,18 +1795,18 @@ def _checkpoint_numbers(events: list, path: str) -> dict:
                                  for e in restores]}
 
 
-def phase_checkpoint_resume(root: str, card: dict) -> dict:
-    """resnet18 at train_ddp's settings for 3 epochs through the launcher:
-    run A straight through; run B with ``--max-restarts 1 --resume auto
-    --overwrite keep`` under CRASH_WRAPPER, whose attempt 0 dies after the
-    first epoch's save. The launcher must restart it once, attempt 1 must
-    resume at epoch 1 or later, B1–B4 must launch 9/8/9/8 times a step in
-    both attempts, and A's and B's final checkpoints must hold the same
-    parameters, BN statistics and momentum, read back with the port's
-    reader."""
-    run_a, run_b = os.path.join(root, "r18_a"), os.path.join(root, "r18_b")
-    _, row_a, ev_a = _launch_trainer(CKPT_R18_ARGS, "the straight resnet18 "
-                                     "run", outdir=run_a)
+def phase_checkpoint_resume(root: str, card: dict, straight: dict) -> dict:
+    """resnet18 at train_ddp's settings (float16) for 3 epochs through the
+    launcher: run A is train_ddp's run, straight through; run B with
+    ``--max-restarts 1 --resume auto --overwrite keep`` under
+    CRASH_WRAPPER, whose attempt 0 dies after the first epoch's save. The
+    launcher must restart it once, attempt 1 must resume at epoch 1 or
+    later, B1–B4 must launch 9/8/9/8 times a step in both attempts, and
+    A's and B's final checkpoints must hold the same parameters, BN
+    statistics, momentum, step and dynamic loss scale, read back with the
+    port's reader (the scale and fin_steps are restored exactly)."""
+    run_a, run_b = straight["run_dir"], os.path.join(root, "r18_b")
+    row_a, ev_a = straight, straight["events"]
     wrapper = os.path.join(root, "crash_after_epoch_1.py")
     with open(wrapper, "w") as f:
         f.write(CRASH_WRAPPER)
@@ -1542,10 +1834,7 @@ def phase_checkpoint_resume(root: str, card: dict) -> dict:
             f"{resumed and resumed.group(0)}, steps A {steps_a}, B attempt 0 "
             f"{crash['step']}, attempt 1 {steps_b1}; launches {got}, want "
             f"{want}")
-    parts = {"params": ("state", "params"),
-             "batch_stats": ("state", "batch_stats"),
-             "momentum": ("state", "opt_state", "inner_state", "1", "trace"),
-             "step": ("state", "step")}
+    parts = CKPT_R18_PARTS
     tree_a, tree_b = (ckpt_lib.load_checkpoint(d) for d in (run_a, run_b))
 
     def rerun():
@@ -1558,7 +1847,7 @@ def phase_checkpoint_resume(root: str, card: dict) -> dict:
     held = _resumed_vs_straight(tree_a, tree_b, parts, rerun)
     live = os.path.join(run_a, ckpt_lib.CKPT_NAME)
     out = {"phase": "checkpoint_resume", "arch": "resnet18",
-           "batch": TRAIN_B, "dtype": "bfloat16", "epochs": 3,
+           "batch": TRAIN_B, "dtype": "float16", "epochs": 3,
            "card": card["nvidia_smi"],
            "files_equal": open(live + ".sha256").read().split()[0]
            == open(os.path.join(run_b, ckpt_lib.CKPT_NAME)
@@ -1625,14 +1914,14 @@ def _train_in_process(argv: list, what: str, val_batches: int):
 
 def phase_checkpoint_vit(root: str, card: dict) -> dict:
     """ViT-B/16 at 224 px, batch 128, bf16, --flash on, AdamW,
-    --model-ema-decay 0.999, 1024 images, --keep-checkpoints 0: two epochs
+    --model-ema-decay 0.999, 512 images, --keep-checkpoints 0: two epochs
     straight through against one epoch and a --resume for the second. The
     final params, AdamW moments, EMA and step must be bit-equal (or within
     3x the run-to-run spread). Each save and restore is timed, with the
     host RSS it adds."""
     straight = os.path.join(root, "vit_straight")
     resumed = os.path.join(root, "vit_resumed")
-    val = math.ceil(VIT_SYNTHETIC // 2 / VIT_B)
+    val = math.ceil(CKPT_VIT_SYNTHETIC // 2 / VIT_B)
     runs = {}
     host_rates = _host_io_rates(root)
     with _rss_of_checkpoint_io() as io_records:
@@ -1751,7 +2040,7 @@ def phase_serve_checkpoint(vit_dir: str, r18_dir: str, card: dict) -> dict:
         text, summary, launches, calls = _serve_run(
             ["-a", arch, "--image-size", "224", "--buckets",
              ",".join(map(str, buckets)), "--flash", "on", "--checkpoint",
-             run_dir, "--load-rate", "20", "--load-duration", "3",
+             run_dir, "--load-rate", "20", "--load-duration", "1.5",
              "--seed", "0"], f"serving {arch} from its checkpoint")
         vit = arch.startswith("vit")
         ema_line = "=> serving the EMA weights" in text
@@ -1849,6 +2138,12 @@ def phase_flash_bwd_vs_plain(peaks: dict) -> dict:
         ("bf16_d80", 2, SERVE_T, SERVE_T, 4, 80, torch.bfloat16, False),
         ("bf16_causal_cross", 2, 150, 197, 4, 64, torch.bfloat16, True),
         ("bf16_d32_masked_rows", 2, 100, 60, 3, 32, torch.bfloat16, True),
+        # float16 through the same tensor-core kernels, at the bf16 shapes.
+        (f"f16_train_b{VIT_B}", VIT_B, SERVE_T, SERVE_T, SERVE_H, SERVE_D,
+         torch.float16, False),
+        ("f16_d80", 2, SERVE_T, SERVE_T, 4, 80, torch.float16, False),
+        ("f16_causal_cross", 2, 150, 197, 4, 64, torch.float16, True),
+        ("f16_d32_masked_rows", 2, 100, 60, 3, 32, torch.float16, True),
     ]
     rows = []
     for i, (label, b, tq, tk, h, d, dtype, causal) in enumerate(cases):
@@ -1870,6 +2165,11 @@ def phase_flash_bwd_vs_plain(peaks: dict) -> dict:
         if not all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv))):
             raise RuntimeError(f"{label}: two launches on the same inputs "
                                f"differ")
+        shares = {n: (a != w).float().mean().item()
+                  for n, a, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
+        if dtype == torch.float16 and max(shares.values()) > BWD_F16_SHARE:
+            raise RuntimeError(f"{label}: not bit-equal shares {shares} "
+                               f"(at most {BWD_F16_SHARE})")
         large = b >= VIT_B
         row = {"case": label, "shape": [b, tq, tk, h, d],
                "dtype": str(dtype).replace("torch.", ""), "causal": causal,
@@ -1877,14 +2177,11 @@ def phase_flash_bwd_vs_plain(peaks: dict) -> dict:
                "relative_errors": {
                    n: errs[n] / max(1e-30, w.float().abs().max().item())
                    for n, w in zip(("dq", "dk", "dv"), want)},
-               "not_bit_equal_share": {
-                   n: (a != w).float().mean().item()
-                   for n, a, w in zip(("dq", "dk", "dv"), (dq, dk, dv),
-                                      want)},
+               "not_bit_equal_share": shares,
                "plain_ms": time_ms(
                    lambda: fa.flash_attention_bwd_reference(*args),
                    reps=5 if large else 25, inner=2 if large else 10)}
-        rate = peaks["bf16" if dtype == torch.bfloat16 else "f32"]
+        rate = peaks["f32" if dtype == torch.float32 else "bf16"]
         for name, (nbytes, flops) in _bwd_work(q, k, causal).items():
             t_bytes, t_ops = nbytes / peaks["hbm"] * 1e3, flops / rate * 1e3
             fn_ = fa.flash_bwd_dq if name == "flash_bwd_dq" \
@@ -1913,10 +2210,39 @@ def phase_flash_bwd_vs_plain(peaks: dict) -> dict:
             row["library_kernels"] = None
         rows.append(row)
     out = {"phase": "flash_bwd_vs_plain", "cases": rows,
+           "nonfinite": _nonfinite_bwd(),
            "library": "torch.nn.functional.scaled_dot_product_attention "
                       "backward (torch.autograd.grad from a retained "
                       "graph)"}
     emit(out)
+    return out
+
+
+def _nonfinite_bwd() -> dict:
+    """B6 and B7 in float16 with inf and NaN planted in dO (the gradient
+    an overflowed float16 step brings): dq, dk and dv are non-finite
+    exactly where the plain version's are."""
+    b, t, h, d = 2, SERVE_T, 4, SERVE_D
+    q, k, v = _qkv_views(b, t, t, h, d, torch.float16, seed=95)
+    g = torch.Generator(device="cuda").manual_seed(96)
+    do = torch.randn(b, t, h, d, generator=g, device="cuda").half()
+    do = _planted(do, 97, frac=2e-5)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    delta, lse = fa.backward_rows(o, lse, do)
+    args = (q, k, v, do, lse, delta, False)
+    got = (fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args))
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_reference(*args)
+    out = {"shape": [b, t, t, h, d], "dtype": "float16",
+           "planted_in_do": int((~torch.isfinite(do)).sum()),
+           **{n: _nonfinite_share(a, w)
+              for n, a, w in zip(("dq", "dk", "dv"), got, want)}}
+    if any(out[n]["pattern_mismatches"] for n in ("dq", "dk", "dv")) \
+            or not all(out[n]["nan"] + out[n]["inf"]
+                       for n in ("dq", "dk", "dv")):
+        raise RuntimeError(f"flash backward float16 with inf/NaN in dO: "
+                           f"the kernels' non-finite outputs differ from "
+                           f"the plain version's: {out}")
     return out
 
 
@@ -1995,7 +2321,7 @@ def phase_train_vit() -> dict:
 
 
 def _vit_setup(flash: bool, dtype=torch.bfloat16, seed: int = 0,
-               optimizer: str = "sgd"):
+               optimizer: str = "sgd", scaler=None):
     cfg = config_lib.Config(arch="vit_b_16", batch_size=VIT_B,
                             image_size=TRAIN_PX, optimizer=optimizer,
                             flash="on" if flash else "off")
@@ -2003,8 +2329,10 @@ def _vit_setup(flash: bool, dtype=torch.bfloat16, seed: int = 0,
                          image_size=TRAIN_PX)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     model.cuda()
-    step = train_lib.make_train_step(
-        model, train_lib.make_optimizer(model, cfg), cfg)
+    opt = train_lib.make_optimizer(model, cfg)
+    step = train_lib.make_train_step(model, opt, cfg,
+                                     scaler=scaler or _scaler(dtype))
+    step.optimizer = opt
     return model, step
 
 
@@ -2031,6 +2359,162 @@ def phase_flash_vs_plain_train() -> dict:
     return out
 
 
+# float16 (--amp-dtype float16) kernels on vs off, SGD, three steps from a
+# loss scale that lands: resnet18 at TRAIN_B (lr 0.1) and ViT-B/16 at VIT_B
+# (lr FP16_VIT_LR). Losses relative to max(1, |loss|) and every leaf after
+# step one against its change in the step, as the bf16 rows above. Read on
+# an H100 80GB HBM3 at 700 W: resnet18 2.3e-4 and 0.135, ViT-B/16 1.1e-5
+# and 0.043 (float16 keeps 3 more mantissa bits than bf16, so the two
+# epilogues and attentions round apart less); the bounds sit about 3x
+# above.
+FP16_LOSS_TOL = {"float16": 1e-3}
+FP16_STATE_TOL = {"float16": 0.4}
+FP16_VIT_LR = 1e-3
+FP16_VIT_LOSS_TOL = {"float16": 4e-5}
+FP16_VIT_STATE_TOL = {"float16": 0.13}
+# Steps tried from flax's default scale (65,536) before a float16 step must
+# have landed.
+LANDING_LIMIT = 32
+
+
+def _first_landing(setup, batch: int, lr: float) -> dict:
+    """Train steps (kernels on) from flax's default scale, one fresh device
+    batch each, until one lands: the steps skipped, the scale each step
+    ran at, and the kernel launches a step (skipped steps included)."""
+    scaler = DynamicScale()
+    model, step = setup(True, torch.float16, scaler=scaler)
+    before = {**fn.LAUNCHES, **fa.LAUNCHES}
+    scales = []
+    for i in range(LANDING_LIMIT):
+        x, y = _device_batch(400 + i, batch)
+        scales.append(scaler.scale)
+        m = step(x, y, lr)
+        if m["finite"]:
+            break
+    else:
+        raise RuntimeError(f"no float16 step landed in {LANDING_LIMIT} "
+                           f"steps from 65536 (scales {scales})")
+    n = len(scales)
+    launches = {k: (v - before[k]) / n for k, v in {
+        **fn.LAUNCHES, **fa.LAUNCHES}.items() if v != before[k]}
+    del model, step
+    return {"skipped_from_65536": n - 1, "landed_at_scale": scales[-1],
+            "scales": scales, "first_landed_loss": float(m["loss"]),
+            "launches_per_step": launches}
+
+
+def _poisoned_step(setup, batch: int, lr: float, scale: float) -> dict:
+    """One landed float16 step (kernels on) from ``scale``, then a batch of
+    infs: the kernels launch as in any step, the step is skipped, the
+    parameters and the optimizer state keep their bits, the scale halves
+    and fin_steps restarts."""
+    scaler = DynamicScale(scale=scale)
+    model, step = setup(True, torch.float16, scaler=scaler)
+    x, y = _device_batch(7, batch)
+    landed = bool(step(x, y, lr)["finite"])
+
+    def opt_tensors():
+        return [v for st in step.optimizer.state.values()
+                for v in st.values() if isinstance(v, torch.Tensor)]
+    params = {k: v.detach().clone() for k, v in model.named_parameters()}
+    opt_state = [v.clone() for v in opt_tensors()]
+    before = {**fn.LAUNCHES, **fa.LAUNCHES}
+    m = step(torch.full_like(x, float("inf")), y, lr)
+    torch.cuda.synchronize()
+    launches = {k: v - before[k] for k, v in {
+        **fn.LAUNCHES, **fa.LAUNCHES}.items() if v != before[k]}
+    kept = all(torch.equal(v, params[k])
+               for k, v in model.named_parameters())
+    now = opt_tensors()
+    kept_opt = len(now) == len(opt_state) > 0 and all(
+        torch.equal(a, b) for a, b in zip(now, opt_state))
+    del model, step
+    return {"first_landed": landed, "skipped": not m["finite"],
+            "params_kept": kept, "optimizer_state_kept": kept_opt,
+            "scale_after": scaler.scale, "fin_steps_after": scaler.fin_steps,
+            "launches": launches}
+
+
+def _step_wall_ms(setup, dtype, batch: int, lr: float, scale=None,
+                  n: int = 10) -> dict:
+    """The synchronised wall of one train step (kernels on) on a
+    device-resident batch, median of ``n`` after 2 warm steps; in float16
+    from ``scale``, with the steps that landed counted."""
+    scaler = _scaler(dtype, scale)
+    model, step = (setup(True, dtype) if scaler is None
+                   else setup(True, dtype, scaler=scaler))
+    x, y = _device_batch(7, batch)
+    for _ in range(2):
+        step(x, y, lr)
+    torch.cuda.synchronize()
+    walls, landed = [], 0
+    for _ in range(n):
+        t0 = time.perf_counter()
+        m = step(x, y, lr)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        landed += bool(m.get("finite", True))
+    del model, step
+    return {"wall_ms_p50": statistics.median(walls),
+            "wall_ms_min": min(walls), "steps": n, "landed": landed}
+
+
+def phase_fp16_train() -> dict:
+    """Float16 training in this process (SGD): from flax's default scale
+    until a step lands (reported: the steps skipped and the scale), then
+    three steps kernels on against off from that scale on the same
+    batches, held to FP16_* bounds; B1–B4 launch 9/8/9/8 and B5–B7
+    12/12/12 a step, skipped steps included (a step of infs is skipped:
+    the kernels launch, the weights and optimizer state keep their bits,
+    the scale halves); and the synchronised float16 step beside the bf16
+    one at the same batch (the difference is what the scaler's multiply,
+    unscale, finite check and host read cost)."""
+    out = {"phase": "fp16_train", "optimizer": "sgd",
+           "steps": TRAIN_CMP_STEPS}
+    for arch, setup, batch, lr, tols, per_step in (
+            ("resnet18", _train_setup, TRAIN_B, 0.1,
+             (FP16_LOSS_TOL, FP16_STATE_TOL), R18_PER_STEP),
+            ("vit_b_16", _vit_setup, VIT_B, FP16_VIT_LR,
+             (FP16_VIT_LOSS_TOL, FP16_VIT_STATE_TOL),
+             dict.fromkeys(fa.KERNELS, LAYERS))):
+        land = _first_landing(setup, batch, lr)
+        row = compare_on_off(setup, torch.float16, batch, lr,
+                             scale=land["landed_at_scale"])
+        bad = _held_on_off(row, *tols, f"{arch} float16 on vs off")
+        want = {k: v * TRAIN_CMP_STEPS for k, v in per_step.items()}
+        if land["launches_per_step"] != per_step:
+            bad.append(f"launches a step from 65536 "
+                       f"{land['launches_per_step']}, want {per_step}")
+        if row["launches_on"] != want:
+            bad.append(f"launches {row['launches_on']}, want {want}")
+        if row["landed_on"] != row["landed_off"] \
+                or not any(row["landed_on"]):
+            bad.append(f"steps landed on {row['landed_on']} and off "
+                       f"{row['landed_off']}: the two must skip alike and "
+                       f"land at least once")
+        poisoned = _poisoned_step(setup, batch, lr, land["landed_at_scale"])
+        if poisoned != dict(poisoned, first_landed=True, skipped=True,
+                            params_kept=True, optimizer_state_kept=True,
+                            scale_after=land["landed_at_scale"] / 2,
+                            fin_steps_after=0, launches=per_step):
+            bad.append(f"a step of infs: {poisoned}")
+        if bad:
+            raise RuntimeError(f"{'; '.join(bad)}: {land}, {row}")
+        walls = {"bfloat16": _step_wall_ms(setup, torch.bfloat16, batch, lr),
+                 "float16": _step_wall_ms(setup, torch.float16, batch, lr,
+                                          land["landed_at_scale"])}
+        out[arch] = {"batch": batch, "lr": lr, "landing": land,
+                     "poisoned_step": poisoned,
+                     "row": dict(row, loss_tol_relative=tols[0]["float16"],
+                                 state_tol=tols[1]["float16"]),
+                     "launches_per_step": per_step, "step_walls": walls,
+                     "fp16_minus_bf16_ms":
+                         walls["float16"]["wall_ms_p50"]
+                         - walls["bfloat16"]["wall_ms_p50"]}
+    emit(out)
+    return out
+
+
 def _dq_off(dq):
     return dq * 1.1
 
@@ -2052,8 +2536,8 @@ MUTATIONS = {"dq_10pct_off": ("flash_bwd_dq", _dq_off),
 # bf16-rounded P instead of the unrounded one.
 FWD_MUTANTS = {
     "fwd_key_tile_1_dropped": (
-        "      pack_a(aP, s[2 * kk], s[2 * kk + 1]);\n",
-        "      pack_a(aP, s[2 * kk], s[2 * kk + 1]);\n"
+        "      pack_a<E>(aP, s[2 * kk], s[2 * kk + 1]);\n",
+        "      pack_a<E>(aP, s[2 * kk], s[2 * kk + 1]);\n"
         "      if (kt == 1) aP[0] = aP[1] = aP[2] = aP[3] = 0u;\n"),
     "fwd_l_from_rounded_p": (
         "        ls[e >> 1] += p;\n",
@@ -2340,6 +2824,183 @@ def _dispatch_run(argv: list, root: str, tag: str, vit: bool) -> dict:
     return {"wall_s": wall_s, "steps": n, "verdicts": rows,
             "sources": sorted(sources), "probe_launches": probe,
             "launches": got, "launches_per_step": per_step}
+
+
+# -- float16 through the CLI ---------------------------------------------------
+
+SCALE_LINE_RE = re.compile(
+    r"^=> dynamic loss scale after epoch (\d+): scale (\S+), fin_steps "
+    r"(\d+); (\d+) of (\d+) steps skipped")
+FP16_STEPS = 4                    # train steps of each in-process CLI run
+
+
+def _fp16_facts(text: str, run_dir: str, arch: str) -> dict:
+    """What a float16 run of the CLI left: its log's loss-scale lines (the
+    steps each epoch skipped) and its checkpoint's ``dynamic_scale``, step
+    and optimizer count (the steps that landed), and how many parameters
+    differ from their seed-0 init. Raises unless the file carries a finite
+    ``dynamic_scale`` as flax writes it (an int32 ``fin_steps``, an f32
+    ``scale``), at least one step landed and the parameters moved."""
+    epochs = [{"epoch": int(m.group(1)), "scale": float(m.group(2)),
+               "fin_steps": int(m.group(3)), "skipped": int(m.group(4)),
+               "steps": int(m.group(5))}
+              for m in _verdicts(text, SCALE_LINE_RE)]
+    tree = ckpt_lib.load_checkpoint(run_dir)
+    state = tree["state"]
+    ds = state.get("dynamic_scale")
+    step, count = int(np.asarray(state["step"])), ckpt_lib.optimizer_count(
+        tree)
+    kw = {"image_size": TRAIN_PX} if arch.startswith("vit") else {}
+    init = create_model(arch, num_classes=1000, **kw)
+    init.reset_parameters(torch.Generator().manual_seed(0))
+    saved = state_dict_from_jax(arch, state["params"])
+    moved = sum(not torch.equal(saved[k].float(), v.float())
+                for k, v in init.named_parameters())
+    out = {"log": epochs, "step": step, "landed": count,
+           "skipped": step - count, "params_moved": moved,
+           "params": len(saved)}
+    if not isinstance(ds, dict) or set(ds) != {"fin_steps", "scale"} \
+            or np.asarray(ds["scale"]).dtype != np.float32 \
+            or np.asarray(ds["fin_steps"]).dtype != np.int32:
+        raise RuntimeError(f"{arch} float16 checkpoint dynamic_scale {ds!r}")
+    out["dynamic_scale"] = {"scale": float(np.asarray(ds["scale"])),
+                            "fin_steps": int(np.asarray(ds["fin_steps"]))}
+    if not np.isfinite(out["dynamic_scale"]["scale"]) or count < 1 \
+            or not moved or not epochs \
+            or sum(e["skipped"] for e in epochs) != step - count:
+        raise RuntimeError(f"{arch} float16 run: {out}")
+    return out
+
+
+def _fp16_cli_run(argv: list, tag: str, arch: str, per_step: dict,
+                  val_per_batch: dict, root: str) -> dict:
+    """One in-process float16 CLI run: its launches a step (skipped steps
+    included) against ``per_step``, and ``_fp16_facts``."""
+    outdir = os.path.join(root, tag)
+    t0 = time.perf_counter()
+    text, events, launches = _run_cli(argv + ["--outpath", outdir], tag)
+    wall_s = time.perf_counter() - t0
+    n = sum(e["type"] == "step" for e in events)
+    val = FP16_STEPS // 2          # the validation set is half the train set
+    probe = _counts(text, PROBE_LINE_RE)
+    want = {k: n * v + val * val_per_batch.get(k, 0) + probe.get(k, 0)
+            for k, v in per_step.items()}
+    got = {k: launches[k] for k in per_step}
+    facts = _fp16_facts(text, outdir, arch)
+    shutil.rmtree(outdir, ignore_errors=True)
+    if n != FP16_STEPS or got != want:
+        raise RuntimeError(f"{tag}: launches {got} over {n} steps and {val} "
+                           f"validation batches (probes {probe}); want "
+                           f"{want}")
+    return {"argv": argv, "wall_s": wall_s, "steps": n,
+            "launches": got, "launches_per_step": per_step,
+            "probe_launches": probe, **facts}
+
+
+def phase_fp16_cli() -> dict:
+    """The slice's commands through the CLI, in this process, at full width
+    (224 px, 1000 classes, synthetic data, FP16_STEPS steps of one epoch):
+    resnet18 ``--use_amp --amp-dtype float16 -b 256`` with ``--fused-bn``
+    at its default, ``auto`` (a fresh dispatch cache: the probes time the
+    float16 kernels, each verdict keyed ``..._float16_...``), the same at
+    ``--accum-steps 2 --fused-bn on`` (B1–B4 18/16/18/16 a step), and
+    ViT-B/16 ``-b 128 --optimizer adamw --flash on`` (B5–B7 12/12/12 a
+    step, 12 forwards a validation batch). In each, at least one step
+    lands, the checkpoint carries a finite ``dynamic_scale`` and the
+    parameters moved (``_fp16_facts``). Then ViT-B/16 at ``--flash auto``:
+    its probe times the float16 kernels at the float16 key, and its steps
+    launch them as the verdict says."""
+    root = tempfile.mkdtemp(prefix="tpudist_torch_fp16_")
+    prev = os.environ.get("TPUDIST_DISPATCH_CACHE")
+    os.environ["TPUDIST_DISPATCH_CACHE"] = os.path.join(root, "cache")
+    common = ["--synthetic", "--image-size", str(TRAIN_PX), "--num-classes",
+              "1000", "--use_amp", "--amp-dtype", "float16", "--epochs", "1",
+              "-p", "4", "--keep-checkpoints", "0", "--telemetry", "--seed",
+              "0"]
+    r18 = common + ["-a", "resnet18", "-b", str(TRAIN_B),
+                    "--synthetic-size", str(FP16_STEPS * TRAIN_B)]
+    try:
+        out = {"phase": "fp16_cli"}
+        # --fused-bn auto: the launches a step follow the verdicts.
+        outdir = os.path.join(root, "resnet18_auto")
+        text, events, launches = _run_cli(r18 + ["--outpath", outdir],
+                                          "resnet18 float16 auto")
+        rows = [{"key": m.group(1), "sites": int(m.group(3)),
+                 "cuda_ms": m.group(4) and float(m.group(4)),
+                 "plain_ms": m.group(5) and float(m.group(5)),
+                 "kernel": m.group(7), "source": m.group(8)}
+                for m in _verdicts(text, NORM_VERDICT_RE)]
+        per_step = dict.fromkeys(fn.KERNELS, 0)
+        for r in rows:
+            if r["kernel"] == "cuda":
+                res = r["key"].endswith("_res")
+                for k in (("bn_act_fwd_res", "bn_act_bwd_res") if res
+                          else ("bn_act_fwd", "bn_act_bwd")):
+                    per_step[k] += r["sites"]
+        probe = _counts(text, PROBE_LINE_RE)
+        n = sum(e["type"] == "step" for e in events)
+        want = {k: n * v + probe.get(k, 0) for k, v in per_step.items()}
+        got = {k: launches[k] for k in fn.KERNELS}
+        facts = _fp16_facts(text, outdir, "resnet18")
+        shutil.rmtree(outdir, ignore_errors=True)
+        if len(rows) != 9 or any(not r["key"].endswith(
+                ("_float16_plain", "_float16_res")) or r["cuda_ms"] is None
+                or r["source"] != "measured" for r in rows) \
+                or not sum(probe.values()) or got != want \
+                or n != FP16_STEPS:
+            raise RuntimeError(f"resnet18 float16 --fused-bn auto: verdicts "
+                               f"{rows}, probes {probe}, launches {got} "
+                               f"over {n} steps, want {want}")
+        out["resnet18_auto"] = {"verdicts": rows, "probe_launches": probe,
+                                "launches": got, "launches_per_step":
+                                per_step, "steps": n, **facts}
+        out["resnet18_accum2_on"] = _fp16_cli_run(
+            r18 + ["--accum-steps", "2", "--fused-bn", "on"],
+            "resnet18_accum2_on", "resnet18",
+            {k: 2 * v for k, v in R18_PER_STEP.items()}, {}, root)
+        vit = common + ["-a", "vit_b_16", "-b", str(VIT_B), "--optimizer",
+                        "adamw", "--lr", "1e-3", "--weight-decay", "0.05",
+                        "--synthetic-size", str(FP16_STEPS * VIT_B)]
+        out["vit_b_16_flash_on"] = _fp16_cli_run(
+            vit + ["--flash", "on"], "vit_b_16_flash_on", "vit_b_16",
+            dict.fromkeys(fa.KERNELS, LAYERS), {"flash_fwd": LAYERS}, root)
+        # --flash auto: the attention probe times the float16 kernels, and
+        # the step launches them or not as the verdict says.
+        outdir = os.path.join(root, "vit_b_16_auto")
+        text, events, launches = _run_cli(
+            vit + ["--flash", "auto", "--outpath", outdir],
+            "ViT-B/16 float16 --flash auto")
+        shutil.rmtree(outdir, ignore_errors=True)
+        verdicts = [m for m in _verdicts(text, ATTN_VERDICT_RE)
+                    if m.group(3)]
+        probe = _counts(text, PROBE_LINE_RE)
+        n = sum(e["type"] == "step" for e in events)
+        flash = bool(verdicts) and verdicts[0].group(1) == "flash"
+        want = {k: (LAYERS * (n + (FP16_STEPS // 2 if k == "flash_fwd"
+                                    else 0)) if flash else 0)
+                + probe.get(k, 0) for k in fa.KERNELS}
+        got = {k: launches[k] for k in fa.KERNELS}
+        if len(verdicts) != 1 or verdicts[0].group(2) != "measured" \
+                or verdicts[0].group(3) != \
+                f"b{VIT_B}_t{SERVE_T}_h{SERVE_H}_d{SERVE_D}_float16_train_full" \
+                or not sum(probe.values()) or got != want:
+            raise RuntimeError(f"ViT-B/16 float16 --flash auto: verdicts "
+                               f"{[v.group(0) for v in verdicts]}, probes "
+                               f"{probe}, launches {got}, want {want}")
+        v = verdicts[0]
+        out["vit_b_16_flash_auto"] = {
+            "key": v.group(3), "kernel": v.group(1),
+            "flash_ms": float(v.group(4)), "plain_ms": float(v.group(5)),
+            "margin": float(v.group(6)) / 100, "probe_launches": probe,
+            "launches": got, "steps": n}
+    finally:
+        if prev is None:
+            os.environ.pop("TPUDIST_DISPATCH_CACHE", None)
+        else:
+            os.environ["TPUDIST_DISPATCH_CACHE"] = prev
+        shutil.rmtree(root, ignore_errors=True)
+    emit(out)
+    return out
 
 
 # A probe's kernel side against this run's event-timed kernels at the same
@@ -2980,8 +3641,25 @@ def phase_loader_rates(root: str, step: dict) -> dict:
     return out
 
 
-def _imagefolder_run(args: list, what: str, path_line: str) -> dict:
-    text, row, events = _launch_trainer(args, what, timeout=600)
+def _imagefolder_run(args: list, what: str, path_line: str,
+                     launch_args: tuple = (),
+                     outdir: str | None = None,
+                     pace_epoch: int | None = None) -> tuple[dict, list]:
+    """One ImageFolder run: through the launcher, or with ``outdir`` in
+    this process (the kernel counts set to 0 just before it). Its pace
+    (images/s, the host's p50s, the waits for data and their shares)
+    reads every step after the first (which compiles), the waits' shares
+    of the run's wall; with ``pace_epoch``, that epoch's steps alone, the
+    shares of their seconds."""
+    if outdir is None:
+        text, row, events = _launch_trainer(args, what, timeout=600,
+                                            launch_args=launch_args)
+    else:
+        t0 = time.perf_counter()
+        text, events, launches = _run_cli(
+            args + ["--telemetry", "--seed", "0", "--outpath", outdir], what)
+        row = {"wall_s": time.perf_counter() - t0, "launches": launches,
+               "train_steps": sum(e["type"] == "step" for e in events)}
     if path_line not in text.splitlines():
         raise RuntimeError(f"{what}: the trainer did not log {path_line!r}")
     epochs = [e for e in events if e["type"] == "epoch"]
@@ -3001,30 +3679,41 @@ def _imagefolder_run(args: list, what: str, path_line: str) -> dict:
     b = TRAIN_B if "resnet18" in args else VIT_B
     # With --device_prefetch the wait for the loader's next batch falls in
     # the staging call (``prefetch_s``), not in ``data_s``.
-    step_s = sum(e["step_s"] for e in steps[1:])
-    wait_s = sum(e["data_s"] + (e.get("prefetch_s") or 0.0)
-                 for e in steps[1:])
-    prefetch_s = sum(e.get("prefetch_s") or 0.0 for e in steps)
-    return {**row, "best_acc1": best, "samples_skipped": skipped,
+    paced = steps[1:] if pace_epoch is None else [
+        e for e in steps if e["epoch"] == pace_epoch]
+    step_s = sum(e["step_s"] for e in paced)
+    wait_s = sum(e["data_s"] + (e.get("prefetch_s") or 0.0) for e in paced)
+    if pace_epoch is None:
+        prefetch_s = sum(e.get("prefetch_s") or 0.0 for e in steps)
+        data_wait_s, span_s = end["data_wait_s"], end["wall_s"]
+    else:
+        prefetch_s = sum(e.get("prefetch_s") or 0.0 for e in paced)
+        data_wait_s, span_s = sum(e["data_s"] for e in paced), step_s
+    return events, {**row, "best_acc1": best, "samples_skipped": skipped,
             "samples_retried": retried, "data_lines": data_lines,
-            "images_per_s": b * (len(steps) - 1) / step_s,
+            "pace_epoch": pace_epoch, "pace_steps": len(paced),
+            "images_per_s": b * len(paced) / step_s,
             "host_data_s_p50": statistics.median(
-                e["data_s"] for e in steps[1:]),
+                e["data_s"] for e in paced),
             "host_compute_s_p50": statistics.median(
-                e["compute_s"] for e in steps[1:]),
+                e["compute_s"] for e in paced),
             "host_prefetch_s_p50": statistics.median(
-                e.get("prefetch_s") or 0.0 for e in steps[1:]),
-            "data_wait_s": end["data_wait_s"], "wall_s": end["wall_s"],
-            "data_wait_share": end["data_wait_s"] / end["wall_s"],
-            "prefetch_share": prefetch_s / end["wall_s"],
+                e.get("prefetch_s") or 0.0 for e in paced),
+            "data_wait_s": data_wait_s, "wall_s": end["wall_s"],
+            "data_wait_share": data_wait_s / span_s,
+            "prefetch_share": prefetch_s / span_s,
             "loader_wait_share_of_steps": wait_s / step_s}
 
 
 def phase_train_imagefolder(root: str) -> dict:
     """``python -m tpudist_torch --data DIR`` through the launcher (world 1
     over NCCL): resnet18 (batch 256, bf16, --fused-bn on, two epochs of 5
-    steps, ``--data-skip-budget 1``) launches B1–B4 9/8/9/8 times a step,
-    skips the truncated JPEG once an epoch and logs it; then ViT-B/16
+    steps, ``--data-skip-budget 1``, and the launcher's ``--inject
+    decode_fail:p=0.1,fails=1`` that ``decode_fail`` reads) launches B1–B4
+    9/8/9/8 times a step, skips the truncated JPEG once an epoch and logs
+    it; its pace reads epoch 1 alone, where no load fails (``fails=1``
+    healed every injected failure in epoch 0: 0 retried there, or the
+    phase fails); then ViT-B/16 in this process
     (batch 128, bf16, --flash on, AdamW, one epoch of 10 steps, the train
     split on the PIL stack under ``--auto-augment ta_wide --random-erase
     0.25``) launches B5–B7 12/12/12 a step and B5 12 a val batch."""
@@ -3032,12 +3721,17 @@ def phase_train_imagefolder(root: str) -> dict:
     paths = data_lib.choose_paths(config_lib.Config(data=root))
     line = "=> data path: " + "; ".join(
         f"{s} {p} ({why})" for s, (p, why) in paths.items())
-    r18 = _imagefolder_run(
+    r18_events, r18 = _imagefolder_run(
         ["-a", "resnet18", "--use_amp", "--fused-bn", "on", "-b",
          str(TRAIN_B), "--data", root, "--image-size", str(TRAIN_PX),
          "--num-classes", "1000", "--epochs", "2", "--step", "1", "-p", "1",
          "--data-skip-budget", "1", "-j", workers],
-        "the ImageFolder resnet18 run", line)
+        "the ImageFolder resnet18 run under decode_fail", line,
+        launch_args=("--inject", "decode_fail:p=0.1,fails=1"), pace_epoch=1)
+    if r18["samples_retried"][1:] != [0]:
+        raise RuntimeError(f"ImageFolder resnet18: retried "
+                           f"{r18['samples_retried']} a epoch; the pace's "
+                           f"epoch 1 must retry none")
     n = r18["train_steps"]
     want = {"bn_act_fwd": 9 * n, "bn_act_fwd_res": 8 * n,
             "bn_act_bwd": 9 * n, "bn_act_bwd_res": 8 * n}
@@ -3047,7 +3741,7 @@ def phase_train_imagefolder(root: str) -> dict:
                            f"{r18['launches']} for {n} steps; want {want}")
     aug = data_lib.choose_paths(config_lib.Config(
         data=root, auto_augment="ta_wide", random_erase=0.25))
-    vit = _imagefolder_run(
+    _, vit = _imagefolder_run(
         ["-a", "vit_b_16", "--use_amp", "--flash", "on", "--optimizer",
          "adamw", "--lr", "1e-3", "--weight-decay", "0.05", "-b",
          str(VIT_B), "--data", root, "--image-size", str(TRAIN_PX),
@@ -3056,7 +3750,8 @@ def phase_train_imagefolder(root: str) -> dict:
          "--keep-checkpoints", "0", "--data-skip-budget", "1", "-j",
          workers],
         "the ImageFolder ViT-B/16 run", "=> data path: " + "; ".join(
-            f"{s} {p} ({why})" for s, (p, why) in aug.items()))
+            f"{s} {p} ({why})" for s, (p, why) in aug.items()),
+        outdir=os.path.join(os.path.dirname(root), "vit_run"))
     n, val = vit["train_steps"], -(-CORPUS_VAL // VIT_B)
     want = {"flash_fwd": LAYERS * (n + val), "flash_bwd_dq": LAYERS * n,
             "flash_bwd_dkv": LAYERS * n}
@@ -3067,7 +3762,7 @@ def phase_train_imagefolder(root: str) -> dict:
     out = {"phase": "train_imagefolder", "workers": int(workers),
            "cpu_count": os.cpu_count(), "resnet18": r18, "vit_b_16": vit}
     emit(out)
-    return out
+    return dict(out, resnet18_events=r18_events)
 
 
 # -- phase 9: preemption, fault injection and the reference's files ---------
@@ -3177,10 +3872,7 @@ def phase_preempt_resume(root: str, card: dict, run_a: str) -> dict:
         raise RuntimeError(f"preempt_resume: resumed "
                            f"{resumed and resumed.group(0)}, cursor line "
                            f"{cont in text_r}, launches {counts}")
-    parts = {"params": ("state", "params"),
-             "batch_stats": ("state", "batch_stats"),
-             "momentum": ("state", "opt_state", "inner_state", "1", "trace"),
-             "step": ("state", "step")}
+    parts = CKPT_R18_PARTS
 
     def rerun():
         again = os.path.join(root, "r18_a3")
@@ -3193,7 +3885,7 @@ def phase_preempt_resume(root: str, card: dict, run_a: str) -> dict:
                                 ckpt_lib.load_checkpoint(out), parts, rerun)
     shutil.rmtree(out, ignore_errors=True)
     row = {"phase": "preempt_resume", "arch": "resnet18", "batch": TRAIN_B,
-           "dtype": "bfloat16", "card": card["nvidia_smi"], **held,
+           "dtype": "float16", "card": card["nvidia_smi"], **held,
            "cursor": cursor, "steps": {k: n for k, (n, _, _)
                                        in counts.items()},
            "fused_norm_launches": {k: got for k, (_, got, _)
@@ -3279,38 +3971,35 @@ def phase_faults_on_card(root: str, card: dict) -> dict:
     return row
 
 
-def phase_decode_fail(tree: str, images: dict, card: dict) -> dict:
-    """``--inject decode_fail:p=0.1,fails=1`` given to the launcher: one
-    epoch of train_imagefolder's resnet18 run on its JPEG tree. Each
-    failed load heals on its first retry: ``samples_retried`` > 0, a
-    ``fault`` event each, and ``samples_skipped`` is train_imagefolder's
-    (the truncated JPEG alone)."""
-    workers = str(min(os.cpu_count() or 1, 32))
-    text, row, events = _launch_trainer(
-        ["-a", "resnet18", "--use_amp", "--fused-bn", "on", "-b",
-         str(TRAIN_B), "--data", tree, "--image-size", str(TRAIN_PX),
-         "--num-classes", "1000", "--epochs", "1", "-p", "1",
-         "--data-skip-budget", "1", "-j", workers],
-        "the resnet18 run under decode_fail", timeout=600,
-        launch_args=("--inject", "decode_fail:p=0.1,fails=1"))
+def phase_decode_fail(rates: dict, images: dict, card: dict) -> dict:
+    """``--inject decode_fail:p=0.1,fails=1`` given to the launcher of
+    train_imagefolder's resnet18 run (two epochs of its JPEG tree). Each
+    failed load heals on its first retry, and a sample fails once in the
+    run (``fails=1``): ``samples_retried`` > 0 in the first epoch, a
+    ``fault`` event each, and ``samples_skipped`` a epoch those of the
+    same loader path over the same tree without injection (loader_rates'
+    ``train_card_path``: the truncated JPEG alone), B1–B4 9/8/9/8 a
+    step."""
+    events = images["resnet18_events"]
     epoch = [e for e in events if e["type"] == "epoch"]
     fired = sum(e["type"] == "fault" and e["point"] == "decode_fail"
                 for e in events)
     n, got, want = _norm_launches(events)
     skipped = [e.get("samples_skipped", 0) for e in epoch]
     retried = [e.get("samples_retried", 0) for e in epoch]
-    if skipped != images["resnet18"]["samples_skipped"][:1] \
-            or not retried or not retried[0] > 0 or fired != retried[0] \
-            or got != want:
+    clean = rates["train_card_path"]["samples_skipped"]
+    if skipped != clean or len(epoch) != 2 \
+            or not retried[0] > 0 or fired != sum(retried) or got != want:
         raise RuntimeError(f"decode_fail: skipped {skipped} (without "
-                           f"injection {images['resnet18']['samples_skipped']}"
-                           f"), retried {retried}, fault events {fired}, "
-                           f"launches {got}, want {want}")
+                           f"injection {clean}), retried {retried}, "
+                           f"fault events {fired}, launches {got}, want "
+                           f"{want}")
     out = {"phase": "faults_on_card", "part": "decode_fail",
-           "card": card["nvidia_smi"], "samples_skipped": skipped[0],
-           "samples_retried": retried[0], "fault_events": fired,
+           "card": card["nvidia_smi"], "samples_skipped": skipped,
+           "samples_skipped_without_injection": clean,
+           "samples_retried": retried, "fault_events": fired,
            "train_steps": n, "fused_norm_launches": got,
-           "wall_s": row["wall_s"]}
+           "wall_s": images["resnet18"]["wall_s"]}
     emit(out)
     return out
 
@@ -3423,36 +4112,68 @@ def phase_torch_checkpoint(root: str, card: dict, r18_dir: str,
     vit.update(train_steps=steps, train_launches=launches,
                train_wall_s=wall_s)
     out["vit_b_16"] = vit
-    # --pretrained with nothing on disk.
+    # --pretrained with nothing on disk (in this process, under an empty
+    # $TORCH_HOME).
     home = os.path.join(root, "empty_torch_home")
     os.makedirs(home)
-    env = {k: v for k, v in os.environ.items()
-           if k != "TPUDIST_PRETRAINED_DIR"}
-    env["TORCH_HOME"] = home
-    r = subprocess.run(
-        [sys.executable, "-m", "tpudist_torch", *CKPT_R18_ARGS, "--pretrained",
-         "--outpath", os.path.join(root, "no_weights")], cwd=HERE, env=env,
-        capture_output=True, text=True, timeout=300)
+    saved = {k: os.environ.pop(k, None)
+             for k in ("TPUDIST_PRETRAINED_DIR", "TORCH_HOME")}
+    os.environ["TORCH_HOME"] = home
+    try:
+        train_cli.main(CKPT_R18_ARGS + ["--pretrained", "--outpath",
+                                        os.path.join(root, "no_weights")])
+    except FileNotFoundError as e:
+        missing = str(e)
+    else:
+        missing = None
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
     searched = f"searched ['{os.path.join(home, 'hub', 'checkpoints')}']"
-    if r.returncode == 0 or searched not in r.stderr:
-        raise RuntimeError(f"torch_checkpoint: --pretrained without a file "
-                           f"exited {r.returncode}: {r.stderr[-1000:]}")
-    out["pretrained_missing"] = r.stderr.strip().splitlines()[-1]
+    if missing is None or searched not in missing:
+        raise RuntimeError(f"torch_checkpoint: --pretrained without a file: "
+                           f"{missing!r}")
+    out["pretrained_missing"] = missing
     emit(out)
     return out
 
 
-def _checkpoint_launches(ck: dict, name: str) -> dict:
-    """A kernel's launches on each checkpoint path, each ImageFolder run,
-    the preemption and fault runs and the ``.pth.tar`` paths (counted
-    from 0 in each run's process, or set to 0 before each run in this
-    one)."""
+def _launches_by_path(ck: dict, name: str, dtype: str) -> dict:
+    """A kernel's launches on each path of one storage dtype (counted from
+    0 in each run's process, or set to 0 before each run in this one):
+    ``"float16"`` the float16 paths, ``"bfloat16"`` the bf16 and f32 ones
+    beyond ``train``, ``train_vit`` and ``serve``."""
     out = {}
-    r18 = ck["checkpoint_resume"]["fused_norm_launches"]
-    if name in r18["a"]:
-        out.update({"checkpoint_resume_a": r18["a"][name],
-                    "checkpoint_resume_b_attempt0": r18["b0"][name],
-                    "checkpoint_resume_b_attempt1": r18["b1"][name]})
+    if dtype == "float16":
+        r18 = ck["checkpoint_resume"]["fused_norm_launches"]
+        if name in r18["a"]:
+            out.update({"train_ddp (checkpoint_resume_a)": r18["a"][name],
+                        "checkpoint_resume_b_attempt0": r18["b0"][name],
+                        "checkpoint_resume_b_attempt1": r18["b1"][name]})
+            for phase in ("preempt_resume", "faults_on_card"):
+                for run, got in ck[phase]["fused_norm_launches"].items():
+                    out[f"{phase}_{run}"] = got[name]
+        vit_ddp = ck["train_vit_ddp"]["launches"]
+        if name in fa.KERNELS:
+            out["train_vit_ddp"] = vit_ddp[name]
+        for arch in ("resnet18", "vit_b_16"):
+            row = ck["fp16_train"][arch]
+            land = row["landing"]
+            if name in land["launches_per_step"]:
+                out[f"fp16_train_{arch}_from_65536"] = int(
+                    land["launches_per_step"][name]
+                    * (land["skipped_from_65536"] + 1))
+                out[f"fp16_train_{arch}_on"] = row["row"]["launches_on"][
+                    name]
+        for tag, row in ck["fp16_cli"].items():
+            if isinstance(row, dict) and name in row.get("launches", {}):
+                probe = row["probe_launches"].get(name, 0)
+                out[f"fp16_cli_{tag}"] = row["launches"][name] - probe
+                if probe:
+                    out[f"fp16_cli_{tag}_probe"] = probe
+        return out
     for run, row in ck["checkpoint_vit"]["runs"].items():
         if name in row["flash_launches"]:
             out[f"checkpoint_vit_{run}"] = row["flash_launches"][name]
@@ -3460,17 +4181,10 @@ def _checkpoint_launches(ck: dict, name: str) -> dict:
     if name == "flash_fwd":
         out["serve_checkpoint"] = served[name]
     images = ck["train_imagefolder"]
-    for run, key in (("resnet18", "train_imagefolder"),
+    for run, key in (("resnet18", "train_imagefolder (decode_fail)"),
                      ("vit_b_16", "train_imagefolder_vit")):
         if name in images[run]["launches"]:
             out[key] = images[run]["launches"][name]
-    for phase in ("preempt_resume", "faults_on_card"):
-        for run, got in ck[phase]["fused_norm_launches"].items():
-            if name in got:
-                out[f"{phase}_{run}"] = got[name]
-    if name in ck["decode_fail"]["fused_norm_launches"]:
-        out["faults_on_card_decode_fail"] = \
-            ck["decode_fail"]["fused_norm_launches"][name]
     vit = ck["torch_checkpoint"]["vit_b_16"]
     if name in vit["train_launches"]:
         out["torch_checkpoint_vit_pretrained_steps"] = \
@@ -3500,62 +4214,128 @@ def _checkpoint_launches(ck: dict, name: str) -> dict:
     return out
 
 
-def _bwd_kernel_entries(bwd: dict, vit: dict, ddp: dict, ck: dict,
+def _entry_name(name: str, dtype: str) -> str:
+    """A kernels-line entry's name: the kernel's, and for its float16
+    instantiation the kernel's with `` (float16)``."""
+    return name if dtype != "float16" else f"{name} (float16)"
+
+
+def _mma_ptxas(card: dict, library: str, element: str) -> dict:
+    """Registers and spills of a library's tensor-core kernels of one
+    element type (``bf16`` or ``f16``), from this run's build (none if the
+    library was built before it)."""
+    return {k: r for k, r in card["ptxas"].get(library, {}).items()
+            if f"_mma<{element}," in k}
+
+
+def _fwd_kernel_entries(kern: dict, serve: dict, vit: dict, ck: dict,
                         card: dict) -> list:
-    """The dQ and dKV entries of the kernels line: the main row is ViT-B/16's
-    training shape; ``step_ms`` is the kernel's time over one train step's
-    12 launches."""
+    """The flash forward's entries of the kernels line, bf16 then float16:
+    the main row is ViT-B/16's training shape (batch 128); ``launches``
+    the bf16 serving and training runs, and the float16 CLI run."""
+    out = []
+    for dtype, prefix in (("bfloat16", ""), ("float16", "f16_")):
+        rows = [r for r in kern["cases"] if r["dtype"] == dtype
+                and r["case"].startswith((prefix + "serve_",
+                                          prefix + "train_"))]
+        main = rows[-1]
+        if dtype == "float16":
+            cli = ck["fp16_cli"]["vit_b_16_flash_on"]["launches"]
+            launches = cli["flash_fwd"]
+            paths = {}
+        else:
+            launches = (serve["flash_launches"]
+                        + vit["flash_launches"]["flash_fwd"])
+            paths = {"serve": serve["flash_launches"],
+                     "train_vit": vit["flash_launches"]["flash_fwd"]}
+        cases = [r for r in kern["cases"] if (r["dtype"] == "float16")
+                 == (dtype == "float16")]
+        out.append({
+            "name": _entry_name("flash_fwd", dtype), "route": "cuda",
+            "source": "tpudist_torch/ops/csrc/flash_fwd.cu",
+            "replaces": "tpudist/ops/pallas/flash_attention.py:95 "
+                        "(_flash_kernel, via _flash_forward)",
+            "launches": launches,
+            "launches_by_path": {
+                **paths, **_launches_by_path(ck, "flash_fwd", dtype)},
+            "max_abs_err": max(r["o_max_abs_err"] for r in cases),
+            "ms": main["kernel_ms"], "kernel_ms": main["kernel_ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "shape": main["shape"], "dtype": main["dtype"],
+            "by_batch": [{k: r[k] for k in ("shape", "kernel_ms", "plain_ms",
+                                             "library_ms", "bound_ms")}
+                         for r in rows],
+            "o_not_bit_equal_share": {r["case"]: r["o_not_bit_equal_share"]
+                                      for r in cases},
+            "nonfinite": kern["nonfinite"] if dtype == "float16" else None,
+            "ptxas": _mma_ptxas(card, "flash_fwd",
+                                "f16" if dtype == "float16" else "bf16"),
+            "card": card["nvidia_smi"]})
+    return out
+
+
+def _bwd_kernel_entries(bwd: dict, vit: dict, ck: dict, card: dict) -> list:
+    """The dQ and dKV entries of the kernels line, bf16 then float16: the
+    main row is ViT-B/16's training shape; ``step_ms`` is the kernel's time
+    over one train step's 12 launches."""
     replaces = {
         "flash_bwd_dq": "tpudist/ops/pallas/flash_attention.py:373 "
                         "(_bwd_dq_kernel, via _flash_backward)",
         "flash_bwd_dkv": "tpudist/ops/pallas/flash_attention.py:425 "
                          "(_bwd_dkv_kernel, via _flash_backward)"}
-    main = bwd["cases"][0]
     out = []
-    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
-        r = main[name]
-        out.append({
-            "name": name, "route": "cuda",
-            "source": "tpudist_torch/ops/csrc/flash_bwd.cu",
-            "replaces": replaces[name],
-            "launches": vit["flash_launches"][name],
-            "launches_by_path": {
-                "train_vit": vit["flash_launches"][name],
-                "train_vit_ddp": ddp["train_vit_ddp"]["launches"][name],
-                **_checkpoint_launches(ck, name)},
-            "max_abs_err": max(c[name]["max_abs_err"] for c in bwd["cases"]),
-            "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"],
-            "plain_ms": main["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": main["library_ms"],
-            "library_kernels": main["library_kernels"],
-            "plain_and_library_cover": "both backward passes",
-            "shape": main["shape"], "dtype": main["dtype"],
-            "step_ms": LAYERS * r["kernel_ms"],
-            "by_shape": [{"case": c["case"], "shape": c["shape"],
-                          "kernel_ms": c[name]["kernel_ms"],
-                          "bound_ms": c[name]["bound_ms"],
-                          "plain_ms": c["plain_ms"],
-                          "library_ms": c["library_ms"]}
-                         for c in bwd["cases"]],
-            "ptxas": {k: r for k, r in _mma_ptxas(card, "flash_bwd").items()
-                      if k.startswith(name + "_mma")},
-            "card": card["nvidia_smi"]})
+    for dtype in ("bfloat16", "float16"):
+        cases = [c for c in bwd["cases"] if (c["dtype"] == "float16")
+                 == (dtype == "float16")]
+        main = cases[0]
+        for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+            r = main[name]
+            if dtype == "float16":
+                launches = ck["fp16_cli"]["vit_b_16_flash_on"]["launches"][
+                    name]
+                paths = {}
+            else:
+                launches = vit["flash_launches"][name]
+                paths = {"train_vit": launches}
+            element = "f16" if dtype == "float16" else "bf16"
+            out.append({
+                "name": _entry_name(name, dtype), "route": "cuda",
+                "source": "tpudist_torch/ops/csrc/flash_bwd.cu",
+                "replaces": replaces[name], "launches": launches,
+                "launches_by_path": {
+                    **paths, **_launches_by_path(ck, name, dtype)},
+                "max_abs_err": max(c[name]["max_abs_err"] for c in cases),
+                "ms": r["kernel_ms"], "kernel_ms": r["kernel_ms"],
+                "plain_ms": main["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": main["library_ms"],
+                "library_kernels": main["library_kernels"],
+                "plain_and_library_cover": "both backward passes",
+                "shape": main["shape"], "dtype": main["dtype"],
+                "step_ms": LAYERS * r["kernel_ms"],
+                "by_shape": [{"case": c["case"], "shape": c["shape"],
+                              "kernel_ms": c[name]["kernel_ms"],
+                              "bound_ms": c[name]["bound_ms"],
+                              "plain_ms": c["plain_ms"],
+                              "library_ms": c["library_ms"]}
+                             for c in cases],
+                "nonfinite": ({k: bwd["nonfinite"][k] for k in (
+                    ("dq",) if name == "flash_bwd_dq" else ("dk", "dv"))}
+                    if dtype == "float16" else None),
+                "ptxas": {k: v for k, v in _mma_ptxas(
+                    card, "flash_bwd", element).items()
+                          if k.startswith(name + "_mma")},
+                "card": card["nvidia_smi"]})
     return out
 
 
-def _mma_ptxas(card: dict, library: str) -> dict:
-    """Registers and spills of a library's bf16 tensor-core kernels, from
-    this run's build (none if the library was built before it)."""
-    return {k: r for k, r in card["ptxas"].get(library, {}).items()
-            if "_mma<" in k}
-
-
-def _norm_kernel_entries(norm: dict, train: dict, ddp: dict, ck: dict,
+def _norm_kernel_entries(norm: dict, train: dict, ck: dict,
                          card: dict) -> list:
-    """The four fused-norm entries of the kernels line: the main row is
-    the largest main-path shape of each kernel (the stem for the plain
-    epilogue, stage 1 for the residual one); ``step_ms`` sums the kernel's
-    measured time over one step's launches at their shapes."""
+    """The four fused-norm entries of the kernels line, bf16 then float16:
+    the main row is the largest main-path shape of each kernel (the stem
+    for the plain epilogue, stage 1 for the residual one); ``step_ms`` sums
+    the kernel's measured time over one step's launches at their shapes.
+    The bf16 entries' ``by_shape`` also holds the f32 odd shapes."""
     replaces = {
         "bn_act_fwd": "tpudist/ops/pallas/fused_norm.py:83 (_fwd_kernel, "
                       "via _fwd_call)",
@@ -3570,35 +4350,45 @@ def _norm_kernel_entries(norm: dict, train: dict, ddp: dict, ck: dict,
     per_step = {"stem": 1, "layer1": 2, "layer2": 2, "layer3": 2,
                 "layer4": 2}
     out = []
-    for name in fn.KERNELS:
-        rows = [r for r in norm["cases"] if r["kernel"] == name]
-        res = name.endswith("_res")
-        main = [r for r in rows if r["case"] == ("layer1" if res
-                                                 else "stem")][0]
-        step_rows = [(r, per_step[r["case"]]) for r in rows
-                     if r["case"] in per_step
-                     and not (res and r["case"] == "stem")]
-        out.append({
-            "name": name, "route": "cuda",
-            "source": "tpudist_torch/ops/csrc/fused_norm.cu",
-            "replaces": replaces[name],
-            "launches": train["fused_norm_launches"][name],
-            "launches_by_path": {
-                "train": train["fused_norm_launches"][name],
-                "train_ddp": ddp["train_ddp"]["launches"][name],
-                "train_syncbn_ddp": ddp["train_syncbn_ddp"]["launches"][name],
-                **_checkpoint_launches(ck, name)},
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": main["kernel_ms"], "kernel_ms": main["kernel_ms"],
-            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-            "bound_by": main["bound_by"], "library_ms": None,
-            "shape": main["shape"], "dtype": main["dtype"],
-            "step_ms": sum(r["kernel_ms"] * k for r, k in step_rows),
-            "step_bound_ms": sum(r["bound_ms"] * k for r, k in step_rows),
-            "by_shape": [{k: r[k] for k in ("case", "shape", "kernel_ms",
-                                            "plain_ms", "bound_ms")}
-                         for r in rows],
-            "card": card["nvidia_smi"]})
+    for dtype in ("bfloat16", "float16"):
+        for name in fn.KERNELS:
+            rows = [r for r in norm["cases"] if r["kernel"] == name
+                    and (r["dtype"] == "float16") == (dtype == "float16")]
+            res = name.endswith("_res")
+            main = [r for r in rows if r["dtype"] == dtype and r["case"]
+                    == ("layer1" if res else "stem")][0]
+            step_rows = [(r, per_step[r["case"]]) for r in rows
+                         if r["dtype"] == dtype and r["case"] in per_step
+                         and not (res and r["case"] == "stem")]
+            if dtype == "float16":
+                launches = ck["checkpoint_resume"]["fused_norm_launches"][
+                    "a"][name]
+                paths = {}
+            else:
+                launches = train["fused_norm_launches"][name]
+                paths = {"train": launches,
+                         "train_syncbn_ddp": ck["train_syncbn_ddp"][
+                             "launches"][name]}
+            out.append({
+                "name": _entry_name(name, dtype), "route": "cuda",
+                "source": "tpudist_torch/ops/csrc/fused_norm.cu",
+                "replaces": replaces[name], "launches": launches,
+                "launches_by_path": {
+                    **paths, **_launches_by_path(ck, name, dtype)},
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "ms": main["kernel_ms"], "kernel_ms": main["kernel_ms"],
+                "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+                "bound_by": main["bound_by"], "library_ms": None,
+                "shape": main["shape"], "dtype": main["dtype"],
+                "step_ms": sum(r["kernel_ms"] * k for r, k in step_rows),
+                "step_bound_ms": sum(r["bound_ms"] * k for r, k in step_rows),
+                "by_shape": [{k: r[k] for k in ("case", "shape", "dtype",
+                                                "kernel_ms", "plain_ms",
+                                                "bound_ms")}
+                             for r in rows],
+                "nonfinite": norm["nonfinite"] if dtype == "float16"
+                else None,
+                "card": card["nvidia_smi"]})
     return out
 
 
@@ -3606,10 +4396,15 @@ PHASE_S: dict = {}
 
 
 def _timed(name: str, fn, *args):
-    """``fn(*args)``, its seconds kept in ``PHASE_S[name]``."""
+    """``fn(*args)``, its seconds kept in ``PHASE_S[name]``; if it raises,
+    the seconds of every phase so far are printed first."""
     t0 = time.perf_counter()
     try:
         return fn(*args)
+    except BaseException:
+        PHASE_S[name] = round(time.perf_counter() - t0, 3)
+        emit({"phase_seconds": PHASE_S, "failed_in": name})
+        raise
     finally:
         PHASE_S[name] = round(time.perf_counter() - t0, 3)
 
@@ -3629,6 +4424,7 @@ def main(argv=None) -> int:
     card = _timed("card_and_build", phase_card_and_build)
     if argv:
         return run_mutations()
+    _timed("startup", phase_startup)
     _, peaks = peaks_for(card["device_name"])
     kern = _timed("kernel_vs_plain", phase_kernel_vs_plain, peaks)
     bwd = _timed("flash_bwd_vs_plain", phase_flash_bwd_vs_plain, peaks)
@@ -3646,15 +4442,19 @@ def main(argv=None) -> int:
     disp = _timed("dispatch_auto", phase_dispatch_auto, card, kern, bwd,
                   norm)
     accum = _timed("accum_mixup", phase_accum_mixup)
-    ddp = {"train_ddp": _timed("train_ddp", phase_train_ddp),
-           "train_syncbn_ddp": _timed("train_syncbn_ddp",
-                                      phase_train_syncbn_ddp),
-           "train_vit_ddp": _timed("train_vit_ddp", phase_train_vit_ddp)}
-    _timed("ddp_vs_plain", phase_ddp_vs_plain)
+    fp16 = _timed("fp16_train", phase_fp16_train)
+    fp16_cli = _timed("fp16_cli", phase_fp16_cli)
     root = tempfile.mkdtemp(prefix="tpudist_torch_ckpt_")
     try:
+        ddp = {"train_ddp": _timed("train_ddp", phase_train_ddp, root),
+               "train_syncbn_ddp": _timed("train_syncbn_ddp",
+                                          phase_train_syncbn_ddp, root),
+               "train_vit_ddp": _timed("train_vit_ddp",
+                                       phase_train_vit_ddp, root)}
+        _timed("ddp_vs_plain", phase_ddp_vs_plain)
         ck = {"checkpoint_resume": _timed(
-                  "checkpoint_resume", phase_checkpoint_resume, root, card),
+                  "checkpoint_resume", phase_checkpoint_resume, root, card,
+                  ddp["train_ddp"]),
               "checkpoint_vit": _timed("checkpoint_vit",
                                        phase_checkpoint_vit, root, card)}
         ck["serve_checkpoint"] = _timed(
@@ -3677,9 +4477,9 @@ def main(argv=None) -> int:
         tree = os.path.join(root, "imagefolder")
         _timed("imagefolder_corpus", phase_imagefolder_corpus, tree)
         _timed("native_vs_plain_host", phase_native_vs_plain_host, tree)
-        _timed("loader_rates", phase_loader_rates, tree, step)
+        rates = _timed("loader_rates", phase_loader_rates, tree, step)
         images = _timed("train_imagefolder", phase_train_imagefolder, tree)
-        ck["decode_fail"] = _timed("decode_fail", phase_decode_fail, tree,
+        ck["decode_fail"] = _timed("decode_fail", phase_decode_fail, rates,
                                    images, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -3689,36 +4489,12 @@ def main(argv=None) -> int:
     emit({"phase_seconds": PHASE_S,
           "total_s": round(time.perf_counter() - t_start, 3)})
 
-    fwd_rows = [r for r in kern["cases"] if r["case"].startswith(
-        ("serve_", "train_"))]
-    main_row = fwd_rows[-1]                # batch 128, the training call
-    emit({"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "tpudist_torch/ops/csrc/flash_fwd.cu",
-        "replaces": "tpudist/ops/pallas/flash_attention.py:95 "
-                    "(_flash_kernel, via _flash_forward)",
-        "launches": serve["flash_launches"]
-        + vit["flash_launches"]["flash_fwd"],
-        "launches_by_path": {
-            "serve": serve["flash_launches"],
-            "train_vit": vit["flash_launches"]["flash_fwd"],
-            "train_vit_ddp": ddp["train_vit_ddp"]["launches"]["flash_fwd"],
-            **_checkpoint_launches(ck, "flash_fwd")},
-        "max_abs_err": max(r["o_max_abs_err"] for r in kern["cases"]),
-        "ms": main_row["kernel_ms"], "kernel_ms": main_row["kernel_ms"],
-        "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "shape": main_row["shape"], "dtype": main_row["dtype"],
-        "by_batch": [{k: r[k] for k in ("shape", "kernel_ms", "plain_ms",
-                                         "library_ms", "bound_ms")}
-                     for r in fwd_rows],
-        "o_not_bit_equal_share": {r["case"]: r["o_not_bit_equal_share"]
-                                  for r in kern["cases"]},
-        "ptxas": _mma_ptxas(card, "flash_fwd"),
-        "card": card["nvidia_smi"]}]
-        + _bwd_kernel_entries(bwd, vit, ddp, ck, card)
-        + _norm_kernel_entries(norm, train, ddp, ck, card)})
+    ck.update(train_syncbn_ddp=ddp["train_syncbn_ddp"],
+              train_vit_ddp=ddp["train_vit_ddp"], fp16_train=fp16,
+              fp16_cli=fp16_cli)
+    emit({"kernels": _fwd_kernel_entries(kern, serve, vit, ck, card)
+          + _bwd_kernel_entries(bwd, vit, ck, card)
+          + _norm_kernel_entries(norm, train, ck, card)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

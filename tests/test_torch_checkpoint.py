@@ -647,14 +647,19 @@ def test_cli_refuses_a_mismatched_checkpoint_by_name(two_epoch_run, tmp_path,
         "arch": (["-a", "resnet34"], "trained as 'resnet18' but this run is "
                                      "'resnet34'"),
         "optimizer": (["--optimizer", "adamw"], "different --optimizer"),
-        "dynamic_scale": ([], "dynamic_scale (float16 loss scaling"),
+        "dynamic_scale": ([], "carries a dynamic_scale (float16 loss "
+                              "scaling, --amp-dtype float16), and this run "
+                              "does not scale its loss"),
         "data_cursor": ([], "a --doctor rollback; its data_cursor counts the "
                             "excised order"),
     }[what]
     path = str(src / ckpt.CKPT_NAME)
     if what == "dynamic_scale":
+        # A float16 run's scale in a file this (f32) run resumes: tpudist
+        # restores it as a dict its step then fails on.
         path = _edited(src, tmp_path / "ds", lambda t: t["state"].update(
-            dynamic_scale={"scale": np.asarray(2.0**15, np.float32)}))
+            dynamic_scale={"fin_steps": np.asarray(3, np.int32),
+                           "scale": np.asarray(2.0**15, np.float32)}))
     if what == "data_cursor":
         path = _edited(src, tmp_path / "dc", lambda t: t.update(
             data_cursor={"epoch": 1, "consumed": 16, "samples_skipped": 0,

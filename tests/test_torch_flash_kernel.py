@@ -6,7 +6,8 @@ each CUDA kernel against its plain version and counts its launches: the
 forward f32 within 2e-5 (rtol and atol), bf16 within 1e-2 (its lse within
 2e-5); the dQ and dKV passes f32 within rtol 1e-5 and atol 1e-5·max|ref|,
 bf16 within 1e-2 of the same form (the bounds
-``tests/test_flash_attention.py`` holds the Pallas kernels to). Without a
+``tests/test_flash_attention.py`` holds the Pallas kernels to); float16
+within its own, tighter bounds (F16_TOL and the rest below). Without a
 card those cases skip at setup.
 """
 
@@ -19,6 +20,41 @@ from tpudist_torch.ops import flash_attention as fa
 pytestmark = pytest.mark.torch_port
 
 F32 = dict(rtol=2e-5, atol=2e-5)
+# float16's own bounds, chip_smoke.py's F16_TOL, F16_O_SHARE, BWD_TOL and
+# BWD_F16_SHARE: about 3x its readings on the card, since bf16's 1e-2 would
+# pass a float16 kernel that rounds P or dS at bf16
+# (test_float16_bounds_see_p_and_ds_rounded_at_bf16).
+F16_TOL, F16_O_SHARE = 1.5e-3, 0.45
+F16_BWD_TOL, F16_GRAD_SHARE = 1e-3, 0.03
+
+
+def _f16_fwd_breaks(o, o_ref) -> list:
+    """What breaks float16's forward bounds: |o − ref| within
+    F16_TOL·(1 + |ref|), at most F16_O_SHARE of o not bit-equal."""
+    of, rf = o.float(), o_ref.float()
+    bad = []
+    if not bool(((of - rf).abs() <= F16_TOL * (1 + rf.abs())).all()):
+        bad.append(f"o off by {(of - rf).abs().max().item()}")
+    share = (o != o_ref).float().mean().item()
+    if share > F16_O_SHARE:
+        bad.append(f"{share:.3f} of o not bit-equal")
+    return bad
+
+
+def _f16_bwd_breaks(got, want) -> list:
+    """What breaks float16's backward bounds: each of dq, dk, dv within
+    rtol F16_BWD_TOL and atol F16_BWD_TOL·max|ref|, at most F16_GRAD_SHARE
+    of it not bit-equal."""
+    bad = []
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        af, bf = a.float(), b.float()
+        lim = F16_BWD_TOL * (bf.abs() + bf.abs().max())
+        if not bool(((af - bf).abs() <= lim).all()):
+            bad.append(f"{name} off by {(af - bf).abs().max().item()}")
+        share = (a != b).float().mean().item()
+        if share > F16_GRAD_SHARE:
+            bad.append(f"{share:.3f} of {name} not bit-equal")
+    return bad
 
 
 def _qkv(b, tq, h, d, tk=None, seed=0):
@@ -97,15 +133,21 @@ FWD_CARD_CASES = [
     (torch.bfloat16, 2, 257, 257, 16, 80, False),
     (torch.bfloat16, 2, 150, 197, 4, 64, True),
     (torch.bfloat16, 2, 100, 60, 3, 32, True),
+    # float16 (--amp-dtype float16) runs the same tensor-core kernel.
+    (torch.float16, 2, 197, 197, 12, 64, False),
+    (torch.float16, 2, 257, 257, 16, 80, False),
+    (torch.float16, 2, 150, 197, 4, 64, True),
+    (torch.float16, 2, 100, 60, 3, 32, True),
 ]
 
 
 @pytest.mark.parametrize("dtype,b,tq,tk,h,d,causal", FWD_CARD_CASES)
 def test_kernel_matches_plain_on_card(cuda_device, dtype, b, tq, tk, h, d,
                                       causal):
-    """o and lse within 2e-5 (f32) or 1e-2 (bf16), and the bf16 lse within
-    the f32 bound (only the order of its f32 sums differs); a second launch
-    bit-identical; rows that see no key O = 0 and lse = -1e30 exactly."""
+    """o and lse within 2e-5 (f32), o within 1e-2 (bf16) or float16's own
+    bounds, and the 16-bit lse within the f32 bound (only the order of its
+    f32 sums differs); a second launch bit-identical; rows that see no key
+    O = 0 and lse = -1e30 exactly."""
     q, k, v = (x.to(cuda_device, dtype)
                for x in _qkv(b, tq, h, d, tk=tk, seed=d))
     before = dict(fa.LAUNCHES)
@@ -113,8 +155,11 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, b, tq, tk, h, d,
     torch.cuda.synchronize()
     assert fa.LAUNCHES == dict(before, flash_fwd=before["flash_fwd"] + 1)
     o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal=causal)
-    tol = dict(rtol=1e-2, atol=1e-2) if dtype == torch.bfloat16 else F32
-    torch.testing.assert_close(o.float(), o_ref.float(), **tol)
+    if dtype == torch.float16:
+        assert not _f16_fwd_breaks(o, o_ref)
+    else:
+        tol = dict(rtol=1e-2, atol=1e-2) if dtype != torch.float32 else F32
+        torch.testing.assert_close(o.float(), o_ref.float(), **tol)
     torch.testing.assert_close(lse, lse_ref, **F32)
     o2, lse2 = fa.flash_attention_fwd(q, k, v, causal=causal)
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
@@ -127,7 +172,7 @@ def test_kernel_refuses_unsupported_inputs_on_card(cuda_device):
     q = torch.zeros(1, 8, 2, 48, device=cuda_device)
     with pytest.raises(ValueError, match="head dims"):
         fa.flash_attention(q, q, q)
-    q = torch.zeros(1, 8, 2, 64, device=cuda_device, dtype=torch.float16)
+    q = torch.zeros(1, 8, 2, 64, device=cuda_device, dtype=torch.float64)
     with pytest.raises(ValueError, match="supports"):
         fa.flash_attention(q, q, q)
     q = torch.zeros(1, 8, 2, 128, device=cuda_device)[..., ::2]
@@ -145,11 +190,18 @@ CARD_CASES = [
     (torch.bfloat16, 64, True, 150, 197),
     (torch.bfloat16, 80, False, 197, 197),
     (torch.bfloat16, 32, True, 100, 60),
+    (torch.float16, 64, False, 197, 197),
+    (torch.float16, 64, True, 150, 197),
+    (torch.float16, 80, False, 197, 197),
+    (torch.float16, 32, True, 100, 60),
 ]
 
 
 def _grad_close(got, want, dtype):
-    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    if dtype == torch.float16:
+        assert not _f16_bwd_breaks(got, want)
+        return
+    tol = 1e-2 if dtype != torch.float32 else 1e-5
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         b = b.float()
         torch.testing.assert_close(
@@ -231,3 +283,56 @@ def test_kernels_refuse_misaligned_bf16_views_on_card(cuda_device):
     with pytest.raises(ValueError, match="16-byte"):
         fa.flash_attention(bq, bk, bv)
     assert fa.LAUNCHES == before
+
+
+def _plain_rounding_at(q, k, v, do, causal, rdt):
+    """The plain forward and backward (``flash_attention_reference``,
+    ``flash_attention_bwd_reference``) with P and dS rounded at ``rdt``
+    where the kernels round them at the input dtype: ``(o, (dq, dk,
+    dv))``."""
+    tq, tk, d = q.shape[1], k.shape[1], q.shape[-1]
+    scale = 1.0 / d ** 0.5
+    qs = (q.float() * scale).to(q.dtype).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qs, k.float())
+    valid = torch.ones(tq, tk, dtype=torch.bool)
+    if causal:
+        valid = valid.tril(tk - tq)
+        s = torch.where(valid, s, fa.NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), 0.0)
+    l = p.sum(-1, keepdim=True)
+    l = torch.where(l == 0.0, 1.0, l)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(rdt).float(), v.float())
+    o = (o / l.squeeze(-1).transpose(1, 2).unsqueeze(-1)).to(q.dtype)
+    lse = (m + torch.log(l)).squeeze(-1)
+    delta, lse = fa.backward_rows(o, lse, do)
+    p = torch.exp(s - lse.unsqueeze(-1))
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds = (p * (dp - delta.unsqueeze(-1))).to(rdt).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(rdt).float(), do.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qs)
+    return o, (dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype))
+
+
+@pytest.mark.parametrize("tq,tk,d,causal", [(197, 197, 64, False),
+                                            (150, 197, 64, True),
+                                            (100, 60, 32, True)])
+def test_float16_bounds_see_p_and_ds_rounded_at_bf16(tq, tk, d, causal):
+    """On the CPU: rounded at float16, ``_plain_rounding_at`` is the plain
+    version bit for bit; rounded at bf16 (a float16 kernel that kept
+    bf16's rounding) it breaks float16's forward and backward bounds,
+    which bf16's 1e-2 would not see."""
+    q, k, v = (x.half() for x in _qkv(2, tq, 4, d, tk=tk, seed=d))
+    do = torch.from_numpy(np.random.default_rng(d + 1).standard_normal(
+        q.shape).astype(np.float32)).half()
+    o_ref, lse = fa.flash_attention_reference(q, k, v, causal=causal)
+    delta, lse = fa.backward_rows(o_ref, lse, do)
+    grads = fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, causal)
+    o, got = _plain_rounding_at(q, k, v, do, causal, torch.float16)
+    assert torch.equal(o, o_ref) and all(
+        torch.equal(a, b) for a, b in zip(got, grads))
+    o, got = _plain_rounding_at(q, k, v, do, causal, torch.bfloat16)
+    assert _f16_fwd_breaks(o, o_ref)
+    assert _f16_bwd_breaks(got, grads)
+    assert torch.allclose(o.float(), o_ref.float(), rtol=1e-2, atol=1e-2)

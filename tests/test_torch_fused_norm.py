@@ -43,7 +43,8 @@ def _two_torch_threads():
     torch.set_num_threads(n)
 
 DTYPES = {"float32": (torch.float32, jnp.float32, 1e-5),
-          "bfloat16": (torch.bfloat16, jnp.bfloat16, 1e-2)}
+          "bfloat16": (torch.bfloat16, jnp.bfloat16, 1e-2),
+          "float16": (torch.float16, jnp.float16, 1e-3)}
 SHAPES = [(2, 5, 5, 64), (24, 130), (40, 8)]
 
 

@@ -52,7 +52,8 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("m,c", [(802_816, 64), (50_176, 256), (24, 130),
                                  (40, 8), (1000, 2048)])
 @pytest.mark.parametrize("residual", [False, True])
@@ -110,9 +111,9 @@ def test_kernel_refuses_unsupported_inputs_on_card(cuda_device):
         fn.fused_bn_act(x.permute(0, 2, 3, 1), v, v, v, v)
     xh = x.to(memory_format=torch.channels_last).permute(0, 2, 3, 1)
     assert fn.fused_bn_act(xh, v, v, v, v).shape == (2, 4, 4, 8)
-    with pytest.raises(ValueError, match="float32 and bfloat16"):
+    with pytest.raises(ValueError, match="float32, bfloat16 and float16"):
         fn.bn_act_fwd(torch.zeros(4, 8, device=cuda_device,
-                                  dtype=torch.float16), None, v, v)
+                                  dtype=torch.float64), None, v, v)
     with pytest.raises(ValueError, match="contiguous"):
         fn.bn_act_fwd(torch.zeros(8, 8, device=cuda_device)[:, ::2], None,
                       v[:4], v[:4])

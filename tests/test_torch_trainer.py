@@ -238,7 +238,8 @@ def test_flag_surface_is_tpudists():
     (["--telemetry-max-mb", "8"], "--telemetry-max-mb"),
     (["--stall-timeout", "5"], "--stall-timeout"),
     (["--model-ema-decay", "1.5"], "--model-ema-decay"),
-    (["--amp-dtype", "float16"], "--amp-dtype"),
+    (["--use_amp", "--amp-dtype", "float16", "--compress-grads", "int8"],
+     "--compress-grads does not compose with float16 dynamic loss scaling"),
     (["--checkpoint-backend", "orbax"], "--checkpoint-backend orbax"),
     (["--remat"], "--remat"),
     (["--profile", "1,3"], "--profile"),

@@ -7,7 +7,7 @@ tpudist writes, byte for byte for the same state: flax's msgpack
 
     {"epoch": e + 1, "arch", "best_acc1", "layout_version": 2,
      "state": {"step", "params", "batch_stats", "opt_state",
-               "dynamic_scale": None, "ema_params", "comm_state": None},
+               "dynamic_scale", "ema_params", "comm_state": None},
      "topology": {...}, "data_cursor": {...}}
 
 with the weights in flax's layout (``compat.jax_params.jax_tree``) and the
@@ -15,9 +15,11 @@ optimizer state in optax's tree: SGD's ``inject_hyperparams(chain(
 add_decayed_weights, trace, scale_by_learning_rate))`` holds the momentum
 as ``inner_state["1"]["trace"]``, AdamW's ``chain(scale_by_adam,
 masked(add_decayed_weights), scale_by_learning_rate)`` its moments as
-``inner_state["0"]["mu"/"nu"]`` with their ``count``. So a tpudist run
-continues on the card and a port run continues, or is served, in
-tpudist.
+``inner_state["0"]["mu"/"nu"]`` with their ``count``. A float16 run's
+``dynamic_scale`` is flax's ``{"fin_steps": int32, "scale": f32}`` (None
+otherwise), and the optimizer ``count`` then counts the steps that landed,
+as optax's does under tpudist's overflow skip. So a tpudist run continues
+on the card and a port run continues, or is served, in tpudist.
 
 Files, as tpudist writes them: ``checkpoint.msgpack`` every epoch (a
 pid-unique temporary renamed into place) and its sha256 sidecar after it;
@@ -367,6 +369,7 @@ def _is_sgd(optimizer) -> bool:
 
 
 def _opt_state(model: torch.nn.Module, optimizer, step: int) -> dict:
+    # ``step``: the optimizer updates that landed (optax's count).
     """The optimizer's state as optax's ``InjectHyperparamsState`` tree
     (``tpudist/train.py``'s ``sgd_torch`` and ``adamw_torch``)."""
     named = list(model.named_parameters())
@@ -402,21 +405,27 @@ def state_to_dict(model: torch.nn.Module, optimizer, *, arch: str,
                   epoch: int, best_acc1: float, step: int,
                   ema: Optional[torch.nn.Module] = None,
                   topology: Optional[dict] = None,
-                  data_cursor: Optional[dict] = None) -> dict:
+                  data_cursor: Optional[dict] = None,
+                  scaler=None, opt_steps: Optional[int] = None) -> dict:
     """tpudist's ``state_to_dict`` of the equivalent ``TrainState``:
     ``epoch + 1`` is where a resume starts. ``data_cursor`` (emergency
     saves only) is the interrupted epoch's ``{"epoch", "consumed",
-    "samples_skipped", "samples_retried"}``. Leaves are views of the
-    model's and optimizer's tensors; ``save_checkpoint`` copies each to
-    the host as it writes it."""
+    "samples_skipped", "samples_retried"}``. ``scaler`` (a float16 run's
+    ``DynamicScale``) is written as ``dynamic_scale``; ``opt_steps`` is
+    the optimizer updates that landed (``step`` less the steps a float16
+    run skipped; ``step`` when None). Leaves are views of the model's and
+    optimizer's tensors; ``save_checkpoint`` copies each to the host as
+    it writes it."""
     variables = _variables(model)
+    landed = step if opt_steps is None else opt_steps
     out = {"epoch": int(epoch) + 1, "arch": arch,
            "best_acc1": float(best_acc1), "layout_version": LAYOUT_VERSION,
            "state": {"step": np.asarray(step, np.int32),
                      "params": variables["params"],
                      "batch_stats": variables["batch_stats"],
-                     "opt_state": _opt_state(model, optimizer, step),
-                     "dynamic_scale": None,
+                     "opt_state": _opt_state(model, optimizer, landed),
+                     "dynamic_scale": (None if scaler is None
+                                       else scaler.state_dict()),
                      "ema_params": (_variables(ema) if ema is not None
                                     else None),
                      "comm_state": None}}
@@ -495,18 +504,35 @@ def _restore_optimizer(arch: str, opt: dict, model: torch.nn.Module,
                                   "exp_avg_sq": _like(p, nu[p])}
 
 
+def optimizer_count(ckpt: dict) -> int:
+    """The optimizer updates that landed, optax's ``count`` in the
+    checkpoint's ``opt_state`` (its ``step`` where the tree has none)."""
+    state = ckpt.get("state") or {}
+    opt = state.get("opt_state")
+    if isinstance(opt, dict) and "count" in opt:
+        return int(np.asarray(opt["count"]))
+    return int(np.asarray(state.get("step", 0)))
+
+
 def restore(ckpt: dict, model: torch.nn.Module, optimizer=None,
             ema: Optional[torch.nn.Module] = None, *, arch: str,
             world: int = 1,
-            log: Optional[Callable[[str], None]] = None) -> int:
-    """Load a checkpoint tree onto the port's model, optimizer and EMA
-    module, with tpudist's rules (``restore_train_state``): a different
-    arch, a different optimizer, a ``dynamic_scale`` (float16 loss
-    scaling) and the doctor's replay windows are refused by name; a
-    mid-epoch ``data_cursor`` is the caller's to apply (``Trainer``); a
-    different world is allowed (every leaf is a full host array); an EMA
-    copy is dropped when ``ema`` is None and seeded at the restored
-    weights when the checkpoint has none; ``comm_state`` is dropped.
+            log: Optional[Callable[[str], None]] = None,
+            scaler=None, train: bool = True) -> int:
+    """Load a checkpoint tree onto the port's model, optimizer, EMA module
+    and float16 loss scale (``scaler``), with tpudist's rules
+    (``restore_train_state``): a different arch, a different optimizer
+    and the doctor's replay windows are refused by name; a mid-epoch
+    ``data_cursor`` is the caller's to apply (``Trainer``); a different
+    world is allowed (every leaf is a full host array); an EMA copy is
+    dropped when ``ema`` is None and seeded at the restored weights when
+    the checkpoint has none; ``comm_state`` is dropped. The loss scale
+    crosses dtypes as it does in tpudist: a float16 run restores the
+    file's ``fin_steps`` and ``scale`` exactly, and refuses a file with no
+    ``dynamic_scale`` (flax's ``from_state_dict`` raises on it); a run
+    that does not scale its loss refuses a float16 file when it trains
+    (tpudist restores the scale as a plain dict and its train step fails
+    on it) and drops the scale under ``--evaluate`` (``train`` False).
     Returns the optimizer-step count."""
     emit = log or (lambda m: None)
     saved_arch = ckpt.get("arch")
@@ -528,10 +554,24 @@ def restore(ckpt: dict, model: torch.nn.Module, optimizer=None,
     if not isinstance(state, dict) or state.get("params") is None:
         raise ValueError("checkpoint has no state.params — not a tpudist "
                          "training checkpoint")
-    if state.get("dynamic_scale") is not None:
-        raise ValueError("checkpoint carries a dynamic_scale (float16 loss "
-                         "scaling, --amp-dtype float16), which is not in the "
-                         "port")
+    saved_ds = state.get("dynamic_scale")
+    if scaler is not None and saved_ds is None:
+        raise ValueError("checkpoint has no dynamic_scale (it was written by "
+                         "a run without float16 loss scaling), and this "
+                         "--amp-dtype float16 run needs one: tpudist's "
+                         "restore fails on it too; resume with the dtype "
+                         "the checkpoint was trained in")
+    if scaler is None and saved_ds is not None:
+        if train:
+            raise ValueError(
+                "checkpoint carries a dynamic_scale (float16 loss scaling, "
+                "--amp-dtype float16), and this run does not scale its "
+                "loss: tpudist's train step fails on it too; resume with "
+                "--use_amp --amp-dtype float16")
+        emit("=> checkpoint carries a float16 dynamic_scale; an eval-only "
+             "run drops it")
+    if scaler is not None:
+        scaler.load_state_dict(saved_ds)
     topo = ckpt.get("topology") or {}
     if topo.get("world") is not None and int(topo["world"]) != int(world):
         emit(f"=> cross-topology restore: world {topo['world']} -> {world} "

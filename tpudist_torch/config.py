@@ -180,7 +180,6 @@ VIT_ARCHS = ("vit_b_16", "vit_b_32", "vit_l_16", "vit_l_32", "vit_h_14")
 # refused at startup, naming the flag and what is missing.
 _NOT_YET = {
     "microbatches": ("--microbatches", "pipeline parallelism"),
-    "amp_dtype": ("--amp-dtype", "float16 loss scaling (bfloat16 is ported)"),
     "remat": ("--remat", "block checkpointing"),
     "compile_cache": ("--compile-cache", "a persistent compile cache"),
     "metrics_port": ("--metrics-port", "the metrics endpoint (obs/server.py)"),
@@ -235,6 +234,18 @@ def refuse_unsupported(cfg: Config) -> None:
     if not 0.0 <= cfg.model_ema_decay < 1.0:
         bad.append(f"--model-ema-decay {cfg.model_ema_decay} (a decay lies "
                    f"in [0, 1); 0 is off)")
+    if cfg.use_amp and cfg.amp_dtype == "float16":
+        # tpudist's own refusals (tpudist/config.py), beside the port's
+        # refusal of the flags themselves.
+        if cfg.compress_grads != "off":
+            bad.append("--compress-grads does not compose with float16 "
+                       "dynamic loss scaling (the GradScaler path reduces "
+                       "inside flax's DynamicScale grad_fn — no choke point "
+                       "to swap); use --amp-dtype bfloat16")
+        if cfg.zero == "full":
+            bad.append("--zero full does not support float16 dynamic loss "
+                       "scaling (like the SP/EP/PP specialty paths); use "
+                       "--amp-dtype bfloat16")
     if bad:
         raise ValueError("unsupported in tpudist_torch: " + "; ".join(bad))
 
@@ -279,8 +290,8 @@ def build_parser() -> argparse.ArgumentParser:
     _bool_flag(p, "evaluate", d.evaluate, "evaluate the model on the validation set only")
     _bool_flag(p, "pretrained", d.pretrained, "start from torchvision's weights, read from disk (never downloaded): --pretrained-path, else $TPUDIST_PRETRAINED_DIR, else $TORCH_HOME/hub/checkpoints")
     add("--pretrained-path", default=d.pretrained_path, dest="pretrained_path", help="local torchvision checkpoint file/dir for --pretrained (default: the directories above)")
-    _bool_flag(p, "use_amp", d.use_amp, "bf16 compute policy (f32 master weights)")
-    add("--amp-dtype", default=d.amp_dtype, dest="amp_dtype", choices=("bfloat16", "float16"), help="--use_amp compute dtype; float16 is " + not_yet)
+    _bool_flag(p, "use_amp", d.use_amp, "mixed-precision compute policy: --amp-dtype (bf16 by default) activations, f32 master weights")
+    add("--amp-dtype", default=d.amp_dtype, dest="amp_dtype", choices=("bfloat16", "float16"), help="--use_amp compute dtype: bfloat16 (no scaler) or float16 (adds tpudist's dynamic loss scaling, flax's DynamicScale rule: the reference's GradScaler recipe; composes with --accum-steps and --distributed)")
     _bool_flag(p, "sync_batchnorm", d.sync_batchnorm, "SyncBN: BatchNorm statistics averaged across the data-parallel ranks (the plain epilogue, as tpudist)")
     _bool_flag(p, "remat", d.remat, not_yet)
     add("--flash", default=d.flash, choices=("auto", "on", "off"), help="attention kernel for vit archs: on = the hand-written CUDA flash-attention kernels (forward, dQ and dKV), off = plain attention, auto = measurement-honest dispatch (both timed on the card at the exact attention shape, the kernel only where it wins; cached per card under $TPUDIST_DISPATCH_CACHE or ~/.cache/tpudist; plain on the CPU) (no-op for the conv nets; on is refused for them)")

@@ -71,7 +71,8 @@ def flash_eligible(*, seq: int, head_dim: int, bias: bool = False,
         return False, (f"head_dim {head_dim} is not one of the kernels' "
                        f"head dims {HEAD_DIMS}")
     if dtype is not None and dtype not in DTYPES:
-        return False, f"the flash kernels take f32 and bf16, not {dtype}"
+        return False, (f"the flash kernels take f32, bf16 and float16, not "
+                       f"{dtype}")
     if seq < 16:
         return False, (f"seq {seq} is below one 16-row tile — blockwise "
                        f"streaming cannot win")

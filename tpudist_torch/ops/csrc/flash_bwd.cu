@@ -52,12 +52,16 @@
 //     axis (4 times at T = 197), from L2 for the most part;
 //   - tiles wholly above the causal diagonal are skipped.
 //
-// bf16 (the training path, --use_amp): tensor cores. Four warps a block, each
+// bf16 and float16 (the training paths, --use_amp --amp-dtype bfloat16 or
+// float16): tensor cores, flash_bwd_dq_mma<E, D> and flash_bwd_dkv_mma<E, D>,
+// one instantiation per 16-bit element type E. Four warps a block, each
 // owning 16 rows of the block's 64 (queries in the dQ pass, keys in the dKV
-// pass). Every product is mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32: bf16
-// operands, f32 accumulators (the PTX helpers, shared with the forward, are
-// in mma_bf16.cuh). That is exactly _flash_backward's arithmetic,
-// because every operand it feeds a product is already rounded to bf16:
+// pass). Every product is mma.sync.m16n8k16.row.col.f32.E.E.f32 (.bf16.bf16
+// or .f16.f16): 16-bit operands, f32 accumulators (the PTX helpers, shared
+// with the forward, are in mma_bf16.cuh). That is exactly _flash_backward's
+// arithmetic, because every operand it feeds a product is already rounded
+// to E (in float16 a P or dS below 2^-25 rounds to 0 and one past 65504 to
+// inf, at the same points in the plain version):
 //   S   = Qs K^T      A: Qs (dQ pass) or K (dKV: S^T = K Qs^T), B: the other
 //   dP  = dO V^T      A: dO or V, B: the other
 //   dQ += T(dS) K     A: T(dS) packed from S/dP's C fragments, B: K (.trans)
@@ -65,9 +69,11 @@
 //   dK += T(dS)^T Qs  A: T(dS^T) from the C fragments, B: Qs (.trans)
 // Only the order of the f32 sums differs from the plain version, so an entry
 // of P or dS lying at a bf16 rounding boundary can round the other way: the
-// results are within the Pallas backward's 1e-2 bound, not bit-equal.
+// results are within the Pallas backward's 1e-2 bound, not bit-equal. An
+// inf or NaN in dO (an overflow the dynamic loss scale must see) reaches
+// dq, dk and dv through delta and the products, as in the plain version.
 //   - tiles reach shared memory by cp.async (16 bytes a thread, zero-filled
-//     past Tq / Tk), as bf16 rows padded by 8 elements, so ldmatrix reads
+//     past Tq / Tk), as 16-bit rows padded by 8 elements, so ldmatrix reads
 //     8 rows at 8 distinct 16-byte bank groups for D = 32, 64 and 80;
 //   - the streamed tiles are double-buffered: the copy of tile i+1 is in
 //     flight while the warps multiply tile i;
@@ -79,7 +85,7 @@
 //     memory each query tile, which keeps its four accumulator sets (S^T,
 //     dP^T, dK, dV: 4 x 32 f32 a thread at D = 64) clear of spills;
 //   - S and dP's C fragments turn into P and dS in registers and are packed
-//     to bf16 A fragments (two n8 C tiles make one k16 A tile) with no trip
+//     to 16-bit A fragments (two n8 C tiles make one k16 A tile) with no trip
 //     through shared memory; lse and delta come per row from registers (dQ
 //     pass) or per column from shared memory (dKV pass).
 // A masked pair (key >= Tk, query >= Tq, or causal at the Tk - Tq offset) gets
@@ -99,6 +105,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -113,7 +120,8 @@ constexpr int TPR = 4;           // threads per row
 constexpr int THREADS = 64 * TPR;
 constexpr int CPT = 64 / TPR;    // partner rows per thread in a tile
 
-// The scalar kernels below run f32 only (bf16 takes the tensor-core ones).
+// The scalar kernels below run f32 only (bf16 and float16 take the
+// tensor-core ones).
 __device__ __forceinline__ float to_f(float x) { return x; }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
@@ -362,7 +370,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---- bf16: tensor-core kernels ---------------------------------------------
+// ---- bf16 and float16: tensor-core kernels ----------------------------------
 
 template <int D>
 constexpr size_t dq_mma_smem_bytes() { return 6 * tile_bytes<D>(); }
@@ -372,35 +380,36 @@ constexpr size_t dkv_mma_smem_bytes() {
   return 6 * tile_bytes<D>() + 4 * 64 * sizeof(float);
 }
 
-// The dQ pass in bf16: one block per (query tile, head, batch); warp w owns
-// query rows 16w..16w+15; lane (g, tg) = (lane / 4, lane % 4) holds rows g
-// and g + 8 and, of each n8 tile, columns 2tg and 2tg + 1.
-template <int D>
+// The dQ pass in bf16 or float16 (E): one block per (query tile, head,
+// batch); warp w owns query rows 16w..16w+15; lane (g, tg) = (lane / 4,
+// lane % 4) holds rows g and g + 8 and, of each n8 tile, columns 2tg and
+// 2tg + 1.
+template <typename E, int D>
 __global__ void __launch_bounds__(MMA_THREADS)
-flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+flash_bwd_dq_mma(const E* __restrict__ q, const E* __restrict__ k,
+                 const E* __restrict__ v, const E* __restrict__ dout,
                  const float* __restrict__ lse,
-                 const float* __restrict__ delta, bf16* __restrict__ dq, int H,
+                 const float* __restrict__ delta, E* __restrict__ dq, int H,
                  int Tq, int Tk, Strides st, int causal, float scale) {
   constexpr int LD = ld_of<D>();
   constexpr int TILE = 64 * LD;
   constexpr int KS = D / 16;     // k16 steps over D
   constexpr int NT = D / 8;      // n8 tiles over D
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // Qs
-  bf16* sO = sQ + TILE;                           // dO
-  bf16* sK = sO + TILE;                           // 2 buffers
-  bf16* sV = sK + 2 * TILE;                       // 2 buffers
+  E* sQ = reinterpret_cast<E*>(smem_raw);         // Qs
+  E* sO = sQ + TILE;                              // dO
+  E* sK = sO + TILE;                              // 2 buffers
+  E* sV = sK + 2 * TILE;                          // 2 buffers
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, tg = lane % 4;
   const int q0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
   const int offset = Tk - Tq;
 
-  const bf16* qb = q + b * st.q[0] + h * st.q[2];
-  const bf16* kb = k + b * st.k[0] + h * st.k[2];
-  const bf16* vb = v + b * st.v[0] + h * st.v[2];
-  const bf16* ob = dout + b * st.o[0] + h * st.o[2];
+  const E* qb = q + b * st.q[0] + h * st.q[2];
+  const E* kb = k + b * st.k[0] + h * st.k[2];
+  const E* vb = v + b * st.v[0] + h * st.v[2];
+  const E* ob = dout + b * st.o[0] + h * st.o[2];
 
   int nk = (Tk + 63) / 64;
   if (causal) {
@@ -408,12 +417,12 @@ flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     nk = min(nk, last < 0 ? 0 : last / 64 + 1);
   }
 
-  copy_tile<D>(sQ, qb, st.q[1], q0, Tq);
-  copy_tile<D>(sO, ob, st.o[1], q0, Tq);
+  copy_tile<D, E>(sQ, qb, st.q[1], q0, Tq);
+  copy_tile<D, E>(sO, ob, st.o[1], q0, Tq);
   cp_async_commit();
   if (nk > 0) {
-    copy_tile<D>(sK, kb, st.k[1], 0, Tk);
-    copy_tile<D>(sV, vb, st.v[1], 0, Tk);
+    copy_tile<D, E>(sK, kb, st.k[1], 0, Tk);
+    copy_tile<D, E>(sV, vb, st.v[1], 0, Tk);
   }
   cp_async_commit();
 
@@ -426,7 +435,7 @@ flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   cp_async_wait<1>();            // Q and dO have landed
   __syncthreads();
-  scale_tile<D>(sQ, scale);
+  scale_tile<D, E>(sQ, scale);
   __syncthreads();
 
   uint32_t aQ[KS][4], aO[KS][4];
@@ -444,11 +453,11 @@ flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int br = b_row(lane), bc = b_col(lane);
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * 64;
-    const bf16* cK = sK + (kt & 1) * TILE;
-    const bf16* cV = sV + (kt & 1) * TILE;
+    const E* cK = sK + (kt & 1) * TILE;
+    const E* cV = sV + (kt & 1) * TILE;
     if (kt + 1 < nk) {
-      copy_tile<D>(sK + ((kt + 1) & 1) * TILE, kb, st.k[1], k0 + 64, Tk);
-      copy_tile<D>(sV + ((kt + 1) & 1) * TILE, vb, st.v[1], k0 + 64, Tk);
+      copy_tile<D, E>(sK + ((kt + 1) & 1) * TILE, kb, st.k[1], k0 + 64, Tk);
+      copy_tile<D, E>(sV + ((kt + 1) & 1) * TILE, vb, st.v[1], k0 + 64, Tk);
     }
     cp_async_commit();
     cp_async_wait<1>();          // tile kt has landed
@@ -467,10 +476,10 @@ flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         uint32_t bk[4], bv[4];
         ldsm_x4(bk, cK + (j * 16 + br) * LD + ks * 16 + bc);
         ldsm_x4(bv, cV + (j * 16 + br) * LD + ks * 16 + bc);
-        mma_bf16(s[2 * j], aQ[ks], bk[0], bk[1]);
-        mma_bf16(s[2 * j + 1], aQ[ks], bk[2], bk[3]);
-        mma_bf16(dp[2 * j], aO[ks], bv[0], bv[1]);
-        mma_bf16(dp[2 * j + 1], aO[ks], bv[2], bv[3]);
+        mma16<E>(s[2 * j], aQ[ks], bk[0], bk[1]);
+        mma16<E>(s[2 * j + 1], aQ[ks], bk[2], bk[3]);
+        mma16<E>(dp[2 * j], aO[ks], bv[0], bv[1]);
+        mma16<E>(dp[2 * j + 1], aO[ks], bv[2], bv[3]);
       }
     }
 
@@ -491,13 +500,13 @@ flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       uint32_t aS[4];
-      pack_a(aS, s[2 * kk], s[2 * kk + 1]);
+      pack_a<E>(aS, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
       for (int j = 0; j < NT / 2; ++j) {
         uint32_t bk[4];
         ldsm_x4_t(bk, cK + (kk * 16 + a_row(lane)) * LD + j * 16 + ac);
-        mma_bf16(acc[2 * j], aS, bk[0], bk[1]);
-        mma_bf16(acc[2 * j + 1], aS, bk[2], bk[3]);
+        mma16<E>(acc[2 * j], aS, bk[0], bk[1]);
+        mma16<E>(acc[2 * j + 1], aS, bk[2], bk[3]);
       }
     }
     __syncthreads();             // buffer kt & 1 is free for tile kt + 2
@@ -511,34 +520,35 @@ flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int col = n * 8 + 2 * tg;
     if (row0 < Tq)
       *reinterpret_cast<uint32_t*>(dq + r0 + col) =
-          pack_bf16(acc[n][0] * scale, acc[n][1] * scale);
+          pack2<E>(acc[n][0] * scale, acc[n][1] * scale);
     if (row1 < Tq)
       *reinterpret_cast<uint32_t*>(dq + r1 + col) =
-          pack_bf16(acc[n][2] * scale, acc[n][3] * scale);
+          pack2<E>(acc[n][2] * scale, acc[n][3] * scale);
   }
 }
 
-// The dKV pass in bf16: one block per (key tile, head, batch); warp w owns
-// keys 16w..16w+15 and works in the transposed orientation (S^T = K Qs^T,
-// dP^T = V dO^T), so P^T and dS^T leave the accumulators already laid out
-// as A fragments for dV += T(P)^T dO and dK += T(dS)^T Qs.
-template <int D>
+// The dKV pass in bf16 or float16 (E): one block per (key tile, head,
+// batch); warp w owns keys 16w..16w+15 and works in the transposed
+// orientation (S^T = K Qs^T, dP^T = V dO^T), so P^T and dS^T leave the
+// accumulators already laid out as A fragments for dV += T(P)^T dO and
+// dK += T(dS)^T Qs.
+template <typename E, int D>
 __global__ void __launch_bounds__(MMA_THREADS)
-flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
+flash_bwd_dkv_mma(const E* __restrict__ q, const E* __restrict__ k,
+                  const E* __restrict__ v, const E* __restrict__ dout,
                   const float* __restrict__ lse,
-                  const float* __restrict__ delta, bf16* __restrict__ dk,
-                  bf16* __restrict__ dv, int H, int Tq, int Tk, Strides st,
+                  const float* __restrict__ delta, E* __restrict__ dk,
+                  E* __restrict__ dv, int H, int Tq, int Tk, Strides st,
                   int causal, float scale) {
   constexpr int LD = ld_of<D>();
   constexpr int TILE = 64 * LD;
   constexpr int KS = D / 16;
   constexpr int NT = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + TILE;
-  bf16* sQ = sV + TILE;          // 2 buffers, Qs once formed
-  bf16* sO = sQ + 2 * TILE;      // 2 buffers
+  E* sK = reinterpret_cast<E*>(smem_raw);
+  E* sV = sK + TILE;
+  E* sQ = sV + TILE;             // 2 buffers, Qs once formed
+  E* sO = sQ + 2 * TILE;         // 2 buffers
   float* sL = reinterpret_cast<float*>(sO + 2 * TILE);   // [2][64] lse
   float* sD = sL + 2 * 64;                               // [2][64] delta
 
@@ -547,10 +557,10 @@ flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int k0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
   const int offset = Tk - Tq;
 
-  const bf16* qb = q + b * st.q[0] + h * st.q[2];
-  const bf16* kb = k + b * st.k[0] + h * st.k[2];
-  const bf16* vb = v + b * st.v[0] + h * st.v[2];
-  const bf16* ob = dout + b * st.o[0] + h * st.o[2];
+  const E* qb = q + b * st.q[0] + h * st.q[2];
+  const E* kb = k + b * st.k[0] + h * st.k[2];
+  const E* vb = v + b * st.v[0] + h * st.v[2];
+  const E* ob = dout + b * st.o[0] + h * st.o[2];
   const float* lb = lse + (int64_t(b) * H + h) * Tq;
   const float* db = delta + (int64_t(b) * H + h) * Tq;
 
@@ -566,16 +576,16 @@ flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // Q, dO, lse and delta of query tile qt into buffer `buf`.
   auto copy_q_tile = [&](int qt, int buf) {
     const int q0 = qt * 64;
-    copy_tile<D>(sQ + buf * TILE, qb, st.q[1], q0, Tq);
-    copy_tile<D>(sO + buf * TILE, ob, st.o[1], q0, Tq);
+    copy_tile<D, E>(sQ + buf * TILE, qb, st.q[1], q0, Tq);
+    copy_tile<D, E>(sO + buf * TILE, ob, st.o[1], q0, Tq);
     const int i = tid & 63, t = q0 + i;
     const float* src = tid < 64 ? lb : db;
     float* dst = (tid < 64 ? sL : sD) + buf * 64 + i;
     cp_async4(dst, t < Tq ? src + t : src, t < Tq);
   };
 
-  copy_tile<D>(sK, kb, st.k[1], k0, Tk);
-  copy_tile<D>(sV, vb, st.v[1], k0, Tk);
+  copy_tile<D, E>(sK, kb, st.k[1], k0, Tk);
+  copy_tile<D, E>(sV, vb, st.v[1], k0, Tk);
   cp_async_commit();
   if (qt0 < nq) copy_q_tile(qt0, 0);
   cp_async_commit();
@@ -592,15 +602,15 @@ flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int qt = qt0; qt < nq; ++qt) {
     const int q0 = qt * 64;
     const int buf = (qt - qt0) & 1;
-    bf16* cQ = sQ + buf * TILE;
-    const bf16* cO = sO + buf * TILE;
+    E* cQ = sQ + buf * TILE;
+    const E* cO = sO + buf * TILE;
     const float* cL = sL + buf * 64;
     const float* cD = sD + buf * 64;
     if (qt + 1 < nq) copy_q_tile(qt + 1, buf ^ 1);
     cp_async_commit();
     cp_async_wait<1>();          // K, V and query tile qt have landed
     __syncthreads();
-    scale_tile<D>(cQ, scale);
+    scale_tile<D, E>(cQ, scale);
     __syncthreads();
 
     // S^T = K Qs^T and dP^T = V dO^T over the warp's 16 keys x 64 queries.
@@ -619,10 +629,10 @@ flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         uint32_t bq[4], bo[4];
         ldsm_x4(bq, cQ + (j * 16 + br) * LD + ks * 16 + bc);
         ldsm_x4(bo, cO + (j * 16 + br) * LD + ks * 16 + bc);
-        mma_bf16(s[2 * j], aK, bq[0], bq[1]);
-        mma_bf16(s[2 * j + 1], aK, bq[2], bq[3]);
-        mma_bf16(dp[2 * j], aV, bo[0], bo[1]);
-        mma_bf16(dp[2 * j + 1], aV, bo[2], bo[3]);
+        mma16<E>(s[2 * j], aK, bq[0], bq[1]);
+        mma16<E>(s[2 * j + 1], aK, bq[2], bq[3]);
+        mma16<E>(dp[2 * j], aV, bo[0], bo[1]);
+        mma16<E>(dp[2 * j + 1], aV, bo[2], bo[3]);
       }
     }
 
@@ -645,17 +655,17 @@ flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       uint32_t aP[4], aS[4];
-      pack_a(aP, s[2 * kk], s[2 * kk + 1]);
-      pack_a(aS, dp[2 * kk], dp[2 * kk + 1]);
+      pack_a<E>(aP, s[2 * kk], s[2 * kk + 1]);
+      pack_a<E>(aS, dp[2 * kk], dp[2 * kk + 1]);
 #pragma unroll
       for (int j = 0; j < NT / 2; ++j) {
         uint32_t bo[4], bq[4];
         ldsm_x4_t(bo, cO + (kk * 16 + a_row(lane)) * LD + j * 16 + ac);
         ldsm_x4_t(bq, cQ + (kk * 16 + a_row(lane)) * LD + j * 16 + ac);
-        mma_bf16(dv_acc[2 * j], aP, bo[0], bo[1]);
-        mma_bf16(dv_acc[2 * j + 1], aP, bo[2], bo[3]);
-        mma_bf16(dk_acc[2 * j], aS, bq[0], bq[1]);
-        mma_bf16(dk_acc[2 * j + 1], aS, bq[2], bq[3]);
+        mma16<E>(dv_acc[2 * j], aP, bo[0], bo[1]);
+        mma16<E>(dv_acc[2 * j + 1], aP, bo[2], bo[3]);
+        mma16<E>(dk_acc[2 * j], aS, bq[0], bq[1]);
+        mma16<E>(dk_acc[2 * j + 1], aS, bq[2], bq[3]);
       }
     }
     __syncthreads();             // buffer `buf` is free for tile qt + 2
@@ -669,15 +679,15 @@ flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int col = n * 8 + 2 * tg;
     if (key0 < Tk) {
       *reinterpret_cast<uint32_t*>(dk + r0 + col) =
-          pack_bf16(dk_acc[n][0], dk_acc[n][1]);
+          pack2<E>(dk_acc[n][0], dk_acc[n][1]);
       *reinterpret_cast<uint32_t*>(dv + r0 + col) =
-          pack_bf16(dv_acc[n][0], dv_acc[n][1]);
+          pack2<E>(dv_acc[n][0], dv_acc[n][1]);
     }
     if (key1 < Tk) {
       *reinterpret_cast<uint32_t*>(dk + r1 + col) =
-          pack_bf16(dk_acc[n][2], dk_acc[n][3]);
+          pack2<E>(dk_acc[n][2], dk_acc[n][3]);
       *reinterpret_cast<uint32_t*>(dv + r1 + col) =
-          pack_bf16(dv_acc[n][2], dv_acc[n][3]);
+          pack2<E>(dv_acc[n][2], dv_acc[n][3]);
     }
   }
 }
@@ -724,47 +734,47 @@ cudaError_t launch_dkv(const Args& a) {
   return cudaGetLastError();
 }
 
-template <int D>
+template <typename E, int D>
 cudaError_t launch_dq_mma(const Args& a) {
   constexpr size_t smem = dq_mma_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_mma<E, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
   if (err != cudaSuccess) return err;
   dim3 grid((a.Tq + 63) / 64, a.H, a.B);
-  flash_bwd_dq_mma<D><<<grid, MMA_THREADS, smem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+  flash_bwd_dq_mma<E, D><<<grid, MMA_THREADS, smem, a.stream>>>(
+      static_cast<const E*>(a.q), static_cast<const E*>(a.k),
+      static_cast<const E*>(a.v), static_cast<const E*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<bf16*>(a.out0), a.H, a.Tq, a.Tk, a.st, a.causal, a.scale);
+      static_cast<E*>(a.out0), a.H, a.Tq, a.Tk, a.st, a.causal, a.scale);
   return cudaGetLastError();
 }
 
-template <int D>
+template <typename E, int D>
 cudaError_t launch_dkv_mma(const Args& a) {
   constexpr size_t smem = dkv_mma_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dkv_mma<E, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
   if (err != cudaSuccess) return err;
   dim3 grid((a.Tk + 63) / 64, a.H, a.B);
-  flash_bwd_dkv_mma<D><<<grid, MMA_THREADS, smem, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+  flash_bwd_dkv_mma<E, D><<<grid, MMA_THREADS, smem, a.stream>>>(
+      static_cast<const E*>(a.q), static_cast<const E*>(a.k),
+      static_cast<const E*>(a.v), static_cast<const E*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<bf16*>(a.out0), static_cast<bf16*>(a.out1), a.H, a.Tq,
-      a.Tk, a.st, a.causal, a.scale);
+      static_cast<E*>(a.out0), static_cast<E*>(a.out1), a.H, a.Tq, a.Tk,
+      a.st, a.causal, a.scale);
   return cudaGetLastError();
 }
 
-// f32 runs the scalar kernels; bf16 the tensor-core ones.
+// f32 runs the scalar kernels; bf16 and float16 the tensor-core ones.
 template <bool DQ, typename T>
 cudaError_t dispatch_dim(int head_dim, const Args& a) {
-  if constexpr (std::is_same_v<T, bf16>) {
+  if constexpr (!std::is_same_v<T, float>) {
     switch (head_dim) {
-      case 32: return DQ ? launch_dq_mma<32>(a) : launch_dkv_mma<32>(a);
-      case 64: return DQ ? launch_dq_mma<64>(a) : launch_dkv_mma<64>(a);
-      case 80: return DQ ? launch_dq_mma<80>(a) : launch_dkv_mma<80>(a);
+      case 32: return DQ ? launch_dq_mma<T, 32>(a) : launch_dkv_mma<T, 32>(a);
+      case 64: return DQ ? launch_dq_mma<T, 64>(a) : launch_dkv_mma<T, 64>(a);
+      case 80: return DQ ? launch_dq_mma<T, 80>(a) : launch_dkv_mma<T, 80>(a);
       default: return cudaErrorInvalidValue;
     }
   } else {
@@ -794,7 +804,9 @@ int run(int dtype, int head_dim, const void* q, const void* k, const void* v,
   if (dtype == 0)
     err = dispatch_dim<DQ, float>(head_dim, a);
   else if (dtype == 1)
-    err = dispatch_dim<DQ, __nv_bfloat16>(head_dim, a);
+    err = dispatch_dim<DQ, bf16>(head_dim, a);
+  else if (dtype == 2)
+    err = dispatch_dim<DQ, f16>(head_dim, a);
   else
     err = cudaErrorInvalidValue;
   return int(err);
@@ -802,8 +814,8 @@ int run(int dtype, int head_dim, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. st: the (batch, seq, head) element
-// strides of q, k, v and dO in that order. lse (clamped) and delta are
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. st: the (batch, seq, head)
+// element strides of q, k, v and dO in that order. lse (clamped) and delta are
 // (B, H, Tq) f32. Each returns a cudaError_t (0 = launched).
 extern "C" int tpudist_flash_bwd_dq(int dtype, int head_dim, const void* q,
                                     const void* k, const void* v,

@@ -35,11 +35,14 @@
 // (causal) wholly above the diagonal for every row of the block, are skipped.
 // Each block owns its output rows, so two launches give the same bits.
 //
-// bf16 (serving and the --use_amp training path): tensor cores, flash_fwd_mma.
-// Four warps a block, each owning 16 query rows. Both products are
-// mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 (the helpers are in
-// mma_bf16.cuh), which is exactly _flash_forward's arithmetic: every operand
-// it feeds a product is already bf16.
+// bf16 and float16 (serving and the --use_amp training paths, --amp-dtype
+// bfloat16 or float16): tensor cores, flash_fwd_mma<E, D>, one instantiation
+// per 16-bit element type E. Four warps a block, each owning 16 query rows.
+// Both products are mma.sync.m16n8k16.row.col.f32.E.E.f32 (.bf16.bf16 or
+// .f16.f16; the helpers are in mma_bf16.cuh), which is exactly
+// _flash_forward's arithmetic: every operand it feeds a product is already
+// rounded to E. In float16, P below 2^-25 rounds to 0 where bf16 keeps it, and
+// O past 65504 rounds to inf; the plain version rounds at the same points.
 //   S   = Qs K^T   A: Qs, kept in registers for the whole key loop;
 //                  B: K by ldmatrix (a [key][d] tile is B's [n][k] order)
 //   O  += T(P) V   A: T(P) packed from two n8 C tiles of S into one k16 A
@@ -48,7 +51,7 @@
 //     D = 64 the scale is a power of two and the rounding is exact; at 32
 //     and 80 it is not);
 //   - K and V tiles reach shared memory by 16-byte cp.async (zero-filled past
-//     Tk) as bf16 rows padded by 8 elements, double-buffered: the copy of
+//     Tk) as 16-bit rows padded by 8 elements, double-buffered: the copy of
 //     tile i+1 is in flight while the warps multiply tile i;
 //   - the online softmax runs on S's C fragments: a lane holds two rows
 //     (g and g + 8), so the row max reduces over the lane quad with two
@@ -75,6 +78,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
@@ -213,7 +217,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ---- bf16: the tensor-core kernel -------------------------------------------
+// ---- bf16 and float16: the tensor-core kernel --------------------------------
 
 template <int D>
 constexpr size_t mma_smem_bytes() { return 5 * tile_bytes<D>(); }
@@ -221,10 +225,10 @@ constexpr size_t mma_smem_bytes() { return 5 * tile_bytes<D>(); }
 // One block per (query tile, head, batch); warp w owns query rows
 // 16w..16w+15; lane (g, tg) = (lane / 4, lane % 4) holds rows g and g + 8
 // and, of each n8 tile, columns 2tg and 2tg + 1.
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(MMA_THREADS)
-flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, bf16* __restrict__ o,
+flash_fwd_mma(const E* __restrict__ q, const E* __restrict__ k,
+              const E* __restrict__ v, E* __restrict__ o,
               float* __restrict__ lse, int H, int Tq, int Tk, Strides st,
               int causal, float scale) {
   constexpr int LD = ld_of<D>();
@@ -232,18 +236,18 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int KS = D / 16;     // k16 steps over D
   constexpr int NT = D / 8;      // n8 tiles over D
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // Qs
-  bf16* sK = sQ + TILE;                           // 2 buffers
-  bf16* sV = sK + 2 * TILE;                       // 2 buffers
+  E* sQ = reinterpret_cast<E*>(smem_raw);         // Qs
+  E* sK = sQ + TILE;                              // 2 buffers
+  E* sV = sK + 2 * TILE;                          // 2 buffers
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, tg = lane % 4;
   const int q0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
   const int offset = Tk - Tq;
 
-  const bf16* qb = q + b * st.q[0] + h * st.q[2];
-  const bf16* kb = k + b * st.k[0] + h * st.k[2];
-  const bf16* vb = v + b * st.v[0] + h * st.v[2];
+  const E* qb = q + b * st.q[0] + h * st.q[2];
+  const E* kb = k + b * st.k[0] + h * st.k[2];
+  const E* vb = v + b * st.v[0] + h * st.v[2];
 
   int nk = (Tk + 63) / 64;
   if (causal) {
@@ -251,17 +255,17 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     nk = min(nk, last < 0 ? 0 : last / 64 + 1);
   }
 
-  copy_tile<D>(sQ, qb, st.q[1], q0, Tq);
+  copy_tile<D, E>(sQ, qb, st.q[1], q0, Tq);
   cp_async_commit();
   if (nk > 0) {
-    copy_tile<D>(sK, kb, st.k[1], 0, Tk);
-    copy_tile<D>(sV, vb, st.v[1], 0, Tk);
+    copy_tile<D, E>(sK, kb, st.k[1], 0, Tk);
+    copy_tile<D, E>(sV, vb, st.v[1], 0, Tk);
   }
   cp_async_commit();
 
   cp_async_wait<1>();            // Q has landed
   __syncthreads();
-  scale_tile<D>(sQ, scale);
+  scale_tile<D, E>(sQ, scale);
   __syncthreads();
 
   uint32_t aQ[KS][4];
@@ -281,11 +285,11 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int br = b_row(lane), bc = b_col(lane);
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * 64;
-    const bf16* cK = sK + (kt & 1) * TILE;
-    const bf16* cV = sV + (kt & 1) * TILE;
+    const E* cK = sK + (kt & 1) * TILE;
+    const E* cV = sV + (kt & 1) * TILE;
     if (kt + 1 < nk) {
-      copy_tile<D>(sK + ((kt + 1) & 1) * TILE, kb, st.k[1], k0 + 64, Tk);
-      copy_tile<D>(sV + ((kt + 1) & 1) * TILE, vb, st.v[1], k0 + 64, Tk);
+      copy_tile<D, E>(sK + ((kt + 1) & 1) * TILE, kb, st.k[1], k0 + 64, Tk);
+      copy_tile<D, E>(sV + ((kt + 1) & 1) * TILE, vb, st.v[1], k0 + 64, Tk);
     }
     cp_async_commit();
     cp_async_wait<1>();          // tile kt has landed
@@ -301,8 +305,8 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int ks = 0; ks < KS; ++ks) {
         uint32_t bk[4];
         ldsm_x4(bk, cK + (j * 16 + br) * LD + ks * 16 + bc);
-        mma_bf16(s[2 * j], aQ[ks], bk[0], bk[1]);
-        mma_bf16(s[2 * j + 1], aQ[ks], bk[2], bk[3]);
+        mma16<E>(s[2 * j], aQ[ks], bk[0], bk[1]);
+        mma16<E>(s[2 * j + 1], aQ[ks], bk[2], bk[3]);
       }
     }
 
@@ -363,13 +367,13 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       uint32_t aP[4];
-      pack_a(aP, s[2 * kk], s[2 * kk + 1]);
+      pack_a<E>(aP, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
       for (int j = 0; j < NT / 2; ++j) {
         uint32_t bv[4];
         ldsm_x4_t(bv, cV + (kk * 16 + a_row(lane)) * LD + j * 16 + ac);
-        mma_bf16(acc[2 * j], aP, bv[0], bv[1]);
-        mma_bf16(acc[2 * j + 1], aP, bv[2], bv[3]);
+        mma16<E>(acc[2 * j], aP, bv[0], bv[1]);
+        mma16<E>(acc[2 * j + 1], aP, bv[2], bv[3]);
       }
     }
     __syncthreads();             // buffer kt & 1 is free for tile kt + 2
@@ -388,11 +392,11 @@ flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int row = row0 + 8 * r;
     if (row >= Tq) continue;
     const float l = ls[r];
-    bf16* orow = o + ((int64_t(b) * Tq + row) * H + h) * D;
+    E* orow = o + ((int64_t(b) * Tq + row) * H + h) * D;
 #pragma unroll
     for (int n = 0; n < NT; ++n)
       *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * tg) =
-          pack_bf16(acc[n][2 * r] / l, acc[n][2 * r + 1] / l);
+          pack2<E>(acc[n][2 * r] / l, acc[n][2 * r + 1] / l);
     if (tg == 0) lse[(int64_t(b) * H + h) * Tq + row] = m[r] + logf(l);
   }
 }
@@ -417,20 +421,20 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <int D>
+template <typename E, int D>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
                        void* lse, int B, int H, int Tq, int Tk,
                        const Strides& st, int causal, float scale,
                        cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_mma<E, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       int(smem));
   if (err != cudaSuccess) return err;
   dim3 grid((Tq + 63) / 64, H, B);
-  flash_fwd_mma<D><<<grid, MMA_THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+  flash_fwd_mma<E, D><<<grid, MMA_THREADS, smem, stream>>>(
+      static_cast<const E*>(q), static_cast<const E*>(k),
+      static_cast<const E*>(v), static_cast<E*>(o),
       static_cast<float*>(lse), H, Tq, Tk, st, causal, scale);
   return cudaGetLastError();
 }
@@ -441,9 +445,9 @@ using Launch = cudaError_t (*)(const void*, const void*, const void*, void*,
 
 }  // namespace
 
-// dtype: 0 = float32 (the scalar kernel), 1 = bfloat16 (the tensor-core
-// kernel). st: the (batch, seq, head) element strides of q, k and v in that
-// order. Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32 (the scalar kernel), 1 = bfloat16, 2 = float16 (the
+// tensor-core kernel). st: the (batch, seq, head) element strides of q, k
+// and v in that order. Returns a cudaError_t (0 = launched).
 extern "C" int tpudist_flash_fwd(int dtype, int head_dim, const void* q,
                                  const void* k, const void* v, void* o,
                                  void* lse, int B, int H, int Tq, int Tk,
@@ -458,11 +462,20 @@ extern "C" int tpudist_flash_fwd(int dtype, int head_dim, const void* q,
   }
   Launch launch = nullptr;
   switch (head_dim) {
-    case 32: launch = dtype == 0 ? launch_f32<32> : launch_mma<32>; break;
-    case 64: launch = dtype == 0 ? launch_f32<64> : launch_mma<64>; break;
-    case 80: launch = dtype == 0 ? launch_f32<80> : launch_mma<80>; break;
+    case 32:
+      launch = dtype == 0 ? launch_f32<32>
+               : dtype == 1 ? launch_mma<bf16, 32> : launch_mma<f16, 32>;
+      break;
+    case 64:
+      launch = dtype == 0 ? launch_f32<64>
+               : dtype == 1 ? launch_mma<bf16, 64> : launch_mma<f16, 64>;
+      break;
+    case 80:
+      launch = dtype == 0 ? launch_f32<80>
+               : dtype == 1 ? launch_mma<bf16, 80> : launch_mma<f16, 80>;
+      break;
   }
-  if (launch == nullptr || (dtype != 0 && dtype != 1))
+  if (launch == nullptr || dtype < 0 || dtype > 2)
     return int(cudaErrorInvalidValue);
   return int(launch(q, k, v, o, lse, B, H, Tq, Tk, sd, causal, scale, s));
 }

@@ -9,15 +9,24 @@
 //   tpudist_bn_act_bwd_res  <- _bwd_res_kernel  as above with the mask recomputed
 //                                               through the forward's rounding to T,
 //                                               and dr = T(g)
-// x, r, y, dy, dx, dr are (M, C) row-major in the storage type T (float or
-// bfloat16): an NHWC activation, i.e. a channels_last NCHW tensor viewed as
-// rows of C channels. a and b are the per-channel f32 vectors the caller
-// folds from the batch statistics (a = scale*rsqrt(var+eps), b = bias -
-// mean*a); the statistics, the fold and the reduction of the partials stay
-// in PyTorch, so autograd carries da and db back to scale, bias, mean and
-// var. All arithmetic is f32. x*a and the + b are rounded separately
-// (__fmul_rn, __fadd_rn), as the plain PyTorch version computes them, so the
-// forward agrees with it bit for bit; relu'(0) = 0 (the mask is pre > 0).
+// x, r, y, dy, dx, dr are (M, C) row-major in the storage type T (float,
+// bfloat16 or float16): an NHWC activation, i.e. a channels_last NCHW
+// tensor viewed as rows of C channels. a and b are the per-channel f32
+// vectors the caller folds from the batch statistics (a =
+// scale*rsqrt(var+eps), b = bias - mean*a); the statistics, the fold and
+// the reduction of the partials stay in PyTorch, so autograd carries da and
+// db back to scale, bias, mean and var. All arithmetic is f32. x*a and the
+// + b are rounded separately (__fmul_rn, __fadd_rn), as the plain PyTorch
+// version computes them, so the forward agrees with it bit for bit;
+// relu'(0) = 0 (the mask is pre > 0).
+//
+// Non-finite values pass as they pass through the Pallas kernels, so that a
+// float16 overflow reaches the gradients and the dynamic loss scale sees it:
+// a value past float16's 65504 rounds to inf in T (round to nearest, as
+// torch's cast); the ReLU keeps NaN (a compare, not fmaxf, which would drop
+// it); the backward mask is pre > 0, so a NaN pre-activation gives g = 0 and
+// an inf one passes dy; g * a, T(g) and the partials keep whatever inf or NaN
+// dy brings.
 //
 // What bounds them on this card: one multiply-add and a max per element
 // against 4 (fwd), 6 (fwd_res, bwd) or 10 (bwd_res) bytes per element in
@@ -44,6 +53,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace {
@@ -54,11 +64,15 @@ constexpr int BWD_LANES = 8;     // row lanes per backward block
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // x rounded to T and widened back to f32.
@@ -179,7 +193,8 @@ bool bad_shape(long long M, int C) { return M < 1 || C < 1; }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, r, y, dy, dx, dr all share it).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (x, r, y, dy, dx, dr all
+// share it).
 // a, b: (C,) f32. Partials da_p, db_p: (ceil(M/rows), C) f32.
 // Each returns a cudaError_t (0 = launched).
 extern "C" int tpudist_bn_act_fwd(int dtype, const void* x, const void* a,
@@ -189,6 +204,7 @@ extern "C" int tpudist_bn_act_fwd(int dtype, const void* x, const void* a,
   if (bad_shape(M, C)) return int(cudaErrorInvalidValue);
   if (dtype == 0) return int(launch_fwd<float, false>(x, nullptr, a, b, y, M, C, s));
   if (dtype == 1) return int(launch_fwd<__nv_bfloat16, false>(x, nullptr, a, b, y, M, C, s));
+  if (dtype == 2) return int(launch_fwd<__half, false>(x, nullptr, a, b, y, M, C, s));
   return int(cudaErrorInvalidValue);
 }
 
@@ -199,6 +215,7 @@ extern "C" int tpudist_bn_act_fwd_res(int dtype, const void* x, const void* r,
   if (bad_shape(M, C)) return int(cudaErrorInvalidValue);
   if (dtype == 0) return int(launch_fwd<float, true>(x, r, a, b, y, M, C, s));
   if (dtype == 1) return int(launch_fwd<__nv_bfloat16, true>(x, r, a, b, y, M, C, s));
+  if (dtype == 2) return int(launch_fwd<__half, true>(x, r, a, b, y, M, C, s));
   return int(cudaErrorInvalidValue);
 }
 
@@ -212,6 +229,8 @@ extern "C" int tpudist_bn_act_bwd(int dtype, const void* x, const void* dy,
     return int(launch_bwd<float, false>(x, nullptr, dy, a, b, dx, nullptr, da_p, db_p, M, C, rows, s));
   if (dtype == 1)
     return int(launch_bwd<__nv_bfloat16, false>(x, nullptr, dy, a, b, dx, nullptr, da_p, db_p, M, C, rows, s));
+  if (dtype == 2)
+    return int(launch_bwd<__half, false>(x, nullptr, dy, a, b, dx, nullptr, da_p, db_p, M, C, rows, s));
   return int(cudaErrorInvalidValue);
 }
 
@@ -226,5 +245,7 @@ extern "C" int tpudist_bn_act_bwd_res(int dtype, const void* x, const void* r,
     return int(launch_bwd<float, true>(x, r, dy, a, b, dx, dr, da_p, db_p, M, C, rows, s));
   if (dtype == 1)
     return int(launch_bwd<__nv_bfloat16, true>(x, r, dy, a, b, dx, dr, da_p, db_p, M, C, rows, s));
+  if (dtype == 2)
+    return int(launch_bwd<__half, true>(x, r, dy, a, b, dx, dr, da_p, db_p, M, C, rows, s));
   return int(cudaErrorInvalidValue);
 }

@@ -26,10 +26,11 @@ on the card and how they are laid out.
 Shapes are ``(B, T, H, D)`` as in the JAX API; ``lse`` and ``delta`` are
 ``(B, H, Tq)`` f32 (the JAX kernel's ``(B, H, Tq_pad, 1)`` without padding).
 The inputs may be strided views (the model passes slices of its fused QKV
-output); only the head dim has to be contiguous, and in bf16, where every
-kernel copies its tiles 16 bytes at a time, the address and the (batch,
-seq, head) strides must be 16-byte multiples (``aligned_16``; the fused
-QKV views are). The gradients come out contiguous, in the inputs' dtype.
+output); only the head dim has to be contiguous, and in bf16 and float16,
+where every kernel copies its tiles 16 bytes at a time, the address and
+the (batch, seq, head) strides must be 16-byte multiples (``aligned_16``;
+the fused QKV views are). The gradients come out contiguous, in the
+inputs' dtype.
 """
 
 from __future__ import annotations
@@ -51,7 +52,11 @@ LAUNCHES = dict.fromkeys(KERNELS, 0)
 RELAYOUTS = 0
 
 HEAD_DIMS = (32, 64, 80)
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# The dtypes whose kernels copy their tiles 16 bytes at a time.
+TENSOR_CORE_DTYPES = (torch.bfloat16, torch.float16)
+
+_DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float16: "float16"}
 
 # The library (a source under csrc/) of each kernel.
 _LIBRARY = {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd",
@@ -209,17 +214,17 @@ def _check_bwd(q, k, v, do, lse, delta) -> None:
 def aligned_16(address: int, strides, element_size: int) -> bool:
     """Whether 16-byte ``cp.async`` copies can read a (B, T, H, D) operand
     row by row: its address and its (batch, seq, head) strides in bytes
-    are multiples of 16. The bf16 kernels, forward and backward, copy
-    their tiles so."""
+    are multiples of 16. The bf16 and float16 kernels, forward and
+    backward, copy their tiles so."""
     return address % 16 == 0 and all(
         s * element_size % 16 == 0 for s in tuple(strides)[:3])
 
 
 def _kernel_ready(*ts: torch.Tensor) -> None:
     """Raise unless the CUDA kernels take these (B, T, H, D) operands as
-    they are. bf16 operands must be 16-byte aligned (``aligned_16``): the
-    tensor-core kernels of both directions copy their tiles 16 bytes at a
-    time."""
+    they are. bf16 and float16 operands must be 16-byte aligned
+    (``aligned_16``): the tensor-core kernels of both directions copy their
+    tiles 16 bytes at a time."""
     q = ts[0]
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, got "
@@ -233,10 +238,11 @@ def _kernel_ready(*ts: torch.Tensor) -> None:
     if any(t.stride(-1) != 1 for t in ts):
         raise ValueError("flash_attention needs a contiguous head dim "
                          "(stride(-1) == 1) on q, k, v and dO")
-    if q.dtype == torch.bfloat16 and not all(
+    if q.dtype in TENSOR_CORE_DTYPES and not all(
             aligned_16(t.data_ptr(), t.stride(), t.element_size())
             for t in ts):
-        raise ValueError("the bf16 flash kernels need 16-byte alignment: "
+        raise ValueError(f"the {_DTYPE_NAMES[q.dtype]} flash kernels need "
+                         "16-byte alignment: "
                          "the address and the (batch, seq, head) strides "
                          "in bytes of q, k, v (and dO) must be multiples "
                          "of 16")
@@ -246,8 +252,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = False):
     """Fused attention forward: ``(o, lse)`` with o ``(B, Tq, H, D)`` in
     q's dtype and lse ``(B, H, Tq)`` f32. On the card the dtype picks the
-    kernel: bf16 the tensor-core ``flash_fwd_mma``, f32 the scalar
-    ``flash_fwd_kernel``; one launch either way."""
+    kernel: bf16 and float16 the tensor-core ``flash_fwd_mma``, f32 the
+    scalar ``flash_fwd_kernel``; one launch either way."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal)

@@ -17,6 +17,12 @@ source note says what bounds them on the card and how they are laid out.
   the plain-PyTorch version of the same kernel body (``bn_act_fwd_plain``,
   ``bn_act_bwd_plain``, with the same ``(ceil(M/rows), C)`` partials), so
   the CPU tests exercise the ``Function``s' own backward.
+- The storage dtype is float32, bfloat16 or float16; the arithmetic is f32
+  in all three, rounded to the storage dtype where the Pallas kernels
+  round. In float16 a value past 65504 rounds to inf, and inf and NaN pass
+  as they pass through the Pallas kernels (the ReLU keeps NaN; the
+  backward's mask ``pre > 0`` drops a NaN pre-activation), so an overflow
+  reaches the gradients the dynamic loss scale checks.
 - ``LAUNCHES`` counts kernel launches per kernel, and nothing else;
   ``RELAYOUTS`` counts the backward's copies of an incoming gradient that
   was not laid out as rows of channels.
@@ -47,7 +53,7 @@ RELAYOUTS = 0
 # Rows per backward block: one row of the partials per block of rows.
 BWD_BLOCK_ROWS = 256
 
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _fns: dict = {}
 
@@ -154,8 +160,8 @@ def _kernel_ready(x2, r2, a, b, others=()) -> None:
         raise ValueError(f"fused_norm runs on cuda or cpu tensors, got "
                          f"{x2.device}")
     if x2.dtype not in DTYPES:
-        raise ValueError(f"fused_norm kernel supports float32 and bfloat16, "
-                         f"got {x2.dtype}")
+        raise ValueError(f"fused_norm kernel supports float32, bfloat16 and "
+                         f"float16, got {x2.dtype}")
     for t in [t for t in (r2, *others) if t is not None]:
         if t.dtype != x2.dtype:
             raise ValueError(f"fused_norm kernel needs one storage dtype, got "

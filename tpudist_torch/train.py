@@ -25,9 +25,29 @@ one card a rank.
   tensors of two or more dims (matrices, convs, the ViT's class token and
   position embedding), none on biases and norm scales.
 - Mixed precision is the model's compute dtype: parameters stay f32 (the
-  master weights), activations run in bf16 under ``--use_amp``, the loss
-  is f32. No ``torch.autocast`` (it would move the rounding points) and no
-  loss scaling (bf16 has f32's exponent range).
+  master weights), activations run in bf16 (``--use_amp``) or float16
+  (``--use_amp --amp-dtype float16``), the loss is f32. No
+  ``torch.autocast`` (it would move the rounding points). bf16 has f32's
+  exponent range and needs no loss scaling; float16 takes tpudist's
+  dynamic loss scaling (``dynamic_scale.DynamicScale``, flax's rule), the
+  counterpart of the reference's ``GradScaler`` (recipe 3).
+- A float16 step (``scaler`` given) keeps tpudist's order: each
+  microbatch's loss is multiplied by the step's scale before its backward
+  (the scale is fixed for the whole step, under ``--accum-steps`` too);
+  the accumulated, reduced f32 gradients are divided by the scale (and by
+  the number of microbatches); the finite flag is taken over every
+  gradient after that, read on the host once a step (as ``GradScaler.step``
+  reads it); on a non-finite step the optimizer does not step, so the
+  parameters and the optimizer state (SGD momentum, AdamW moments and
+  step) keep their values bit for bit; the scale updates once; the loss
+  returned is the unscaled one. As in tpudist without the doctor, a
+  skipped step still moves the BatchNorm running statistics (its forward
+  ran), averages them across ranks, and updates the EMA toward the
+  unchanged parameters. Under DDP the bucketed all-reduce averages the
+  scaled gradients and the step unscales after it, where tpudist unscales
+  before its ``pmean``: the scale is a power of two, so dividing by it
+  commutes with the sum and the mean bit for bit (for a power-of-two
+  world, short of f32 overflow).
 
 - The parameter EMA (``--model-ema-decay d``, ``update_ema``) lives in a
   second module of the same arch, in eval mode without gradients: after
@@ -49,8 +69,7 @@ one card a rank.
   step, rank), ``apply_mix`` on the device. The pair labels go with their
   microbatch.
 
-fp16 loss scaling, the doctor guard and gradient compression are not in
-the port yet.
+The doctor guard and gradient compression are not in the port yet.
 """
 
 from __future__ import annotations
@@ -64,6 +83,7 @@ import torch
 from torch.nn.parallel import DistributedDataParallel
 
 from tpudist_torch import dist as dist_lib
+from tpudist_torch.dynamic_scale import DynamicScale, unscale_and_check
 from tpudist_torch.ops.loss import cross_entropy_loss
 from tpudist_torch.ops.metrics import accuracy
 from tpudist_torch.ops import mixup
@@ -87,11 +107,15 @@ def lr_for_epoch(cfg, epoch: int) -> float:
 def compute_dtype(cfg) -> torch.dtype:
     if not cfg.use_amp:
         return torch.float32
-    if cfg.amp_dtype != "bfloat16":
-        raise NotImplementedError(
-            f"--amp-dtype {cfg.amp_dtype}: float16 loss scaling is not in "
-            f"the port yet")
-    return torch.bfloat16
+    return torch.bfloat16 if cfg.amp_dtype == "bfloat16" else torch.float16
+
+
+def make_scaler(cfg) -> DynamicScale | None:
+    """tpudist's ``create_train_state``: a ``DynamicScale`` with flax's
+    defaults when float16 is the compute dtype, else None."""
+    if cfg.use_amp and cfg.amp_dtype == "float16":
+        return DynamicScale()
+    return None
 
 
 def make_optimizer(model: torch.nn.Module, cfg) -> torch.optim.Optimizer:
@@ -175,7 +199,8 @@ def update_ema(ema: torch.nn.Module, model: torch.nn.Module,
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     cfg, ema: torch.nn.Module | None = None,
                     draw_fn: Callable | None = None,
-                    first_step: int = 0) -> Callable:
+                    first_step: int = 0,
+                    scaler: DynamicScale | None = None) -> Callable:
     """``step(images, labels, lr) → {"loss", "acc1"}``:
     forward in train mode (BN statistics update the running buffers), f32
     CE loss, backward, the optimizer update, and with ``ema`` the EMA
@@ -188,7 +213,12 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     The mixing draw of a call is seeded by its optimizer step: the
     ``first_step``-th for the first call (a resumed run's step count), one
     more for each call after it. ``draw_fn(step, n, h, w)`` replaces the
-    seeded draw (``mixup.MixDraw``)."""
+    seeded draw (``mixup.MixDraw``).
+
+    With ``scaler`` (float16) the step scales each microbatch's loss by
+    ``scaler.scale``, unscales and checks the gradients, steps the
+    optimizer only if every one is finite, and updates ``scaler`` in
+    place; its metrics add ``finite`` (a host bool)."""
     smoothing = float(getattr(cfg, "label_smoothing", 0.0))
     ddp = isinstance(model, DistributedDataParallel)
     net = model.module if ddp else model
@@ -217,10 +247,11 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                 images, labels, draw_fn(index, *images.shape[:3]))
         model.train()
         optimizer.zero_grad(set_to_none=True)
+        scale = None if scaler is None else scaler.scale
         if accum == 1:
             logits = model(images)
             loss = mixed_ce(logits, labels, labels2, lam, smoothing)
-            loss.backward()
+            (loss if scale is None else loss * scale).backward()
             with torch.no_grad():
                 acc1 = accuracy(logits, labels, topk=1)
             loss = loss.detach()
@@ -242,12 +273,23 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     loss_i = mixed_ce(logits, labels[sl],
                                       None if labels2 is None
                                       else labels2[sl], lam, smoothing)
-                    (loss_i / accum).backward()
+                    # float16: the step's scale on every microbatch; the
+                    # sum is divided by accum with the unscale.
+                    (loss_i / accum if scale is None
+                     else loss_i * scale).backward()
                 with torch.no_grad():
                     loss = loss + loss_i.detach()
                     acc1 = acc1 + accuracy(logits, labels[sl], topk=1)
             loss, acc1 = loss / accum, acc1 / accum
-        optimizer.step()
+        finite = True
+        if scaler is not None:
+            with torch.no_grad():
+                finite = unscale_and_check(
+                    [p.grad for p in net.parameters() if p.grad is not None],
+                    scale, accum)
+            scaler.update(finite)
+        if finite:
+            optimizer.step()
         with torch.no_grad():
             metrics = {"loss": loss, "acc1": acc1}
             if ddp:
@@ -255,6 +297,8 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                 metrics = _mean_over_ranks(metrics)
             if ema is not None:
                 update_ema(ema, net, decay)
+        if scaler is not None:
+            metrics["finite"] = finite
         return metrics
 
     return step

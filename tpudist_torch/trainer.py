@@ -98,7 +98,7 @@ from tpudist_torch.ops import (attention_dispatch, dispatch, flash_attention,
                                fused_norm, norm_dispatch)
 from tpudist_torch.train import (compute_dtype, data_parallel, lr_for_epoch,
                                  make_ema, make_eval_step, make_optimizer,
-                                 make_train_step)
+                                 make_scaler, make_train_step)
 from tpudist_torch.utils import (AverageMeter, ProgressMeter, get_logger,
                                  output_process)
 
@@ -266,6 +266,11 @@ class Trainer:
                      + ", ".join(f"{k} {v}" for k, v in probed.items())
                      + ")")
         self.optimizer = make_optimizer(self.model, cfg)
+        # --amp-dtype float16: tpudist's DynamicScale, in the state a
+        # checkpoint carries; None otherwise.
+        self.scaler = make_scaler(cfg)
+        # Optimizer updates that landed (a float16 run skips overflows).
+        self.opt_steps = 0
         self.best_acc1 = 0.0
         self.start_epoch = cfg.start_epoch
         self.global_step = 0
@@ -277,6 +282,7 @@ class Trainer:
         self._epoch_consumed = 0
         self._epoch_cursor0 = 0
         self._pending_cursor: Optional[dict] = None
+        self._epoch_skipped = 0
         resume = cfg.resume
         if resume == "auto":
             resume = ckpt_lib.find_resumable(cfg.outpath)
@@ -296,7 +302,8 @@ class Trainer:
         # a resumed run continues.
         self.train_step = make_train_step(step_model, self.optimizer, cfg,
                                           ema=self.ema,
-                                          first_step=self.global_step)
+                                          first_step=self.global_step,
+                                          scaler=self.scaler)
         # --model-ema-decay: validation (and so 'best') measures the EMA.
         self.eval_step = (make_eval_step(step_model, cfg) if self.ema is None
                           else make_eval_step(self.ema, cfg,
@@ -532,7 +539,8 @@ class Trainer:
                     best_acc1=self.best_acc1, step=self.global_step,
                     ema=self.ema, topology=ckpt_lib.topology_tag(
                         self.world, cfg.per_device_batch_size,
-                        cfg.batch_size))
+                        cfg.batch_size),
+                    scaler=self.scaler, opt_steps=self.opt_steps)
                 ckpt_lib.save_checkpoint(state, is_best, cfg.outpath,
                                          keep=cfg.keep_checkpoints)
                 if cfg.torch_checkpoints:
@@ -591,7 +599,8 @@ class Trainer:
                     topology=ckpt_lib.topology_tag(
                         self.world, cfg.per_device_batch_size,
                         cfg.batch_size),
-                    data_cursor=self._data_cursor(epoch, train_loader))
+                    data_cursor=self._data_cursor(epoch, train_loader),
+                    scaler=self.scaler, opt_steps=self.opt_steps)
                 ckpt_lib.save_checkpoint(state, False, cfg.outpath, keep=0)
         finally:
             if self.telemetry is not None:
@@ -632,13 +641,19 @@ class Trainer:
         try:
             self.global_step = ckpt_lib.restore(
                 ckpt, self.model, self.optimizer, self.ema, arch=cfg.arch,
-                world=self.world, log=self.log)
+                world=self.world, log=self.log, scaler=self.scaler,
+                train=not cfg.evaluate)
         except (ValueError, RuntimeError) as e:
             raise ValueError(f"cannot resume from '{path}': {e}") from e
+        self.opt_steps = ckpt_lib.optimizer_count(ckpt)
         self.best_acc1 = float(ckpt.get("best_acc1", 0.0))
         self.start_epoch = int(ckpt.get("epoch", 0))
         self.log(f"=> resumed from '{path}' (epoch {self.start_epoch}, "
                  f"best_acc1 {self.best_acc1:.3f})")
+        if self.scaler is not None:
+            self.log(f"=> dynamic loss scale restored: scale "
+                     f"{self.scaler.scale:g}, fin_steps "
+                     f"{self.scaler.fin_steps}")
         cur = ckpt.get("data_cursor")
         if cur and int(cur.get("consumed", 0)) > 0:
             # An emergency save: fit() applies it to its epoch.
@@ -662,6 +677,7 @@ class Trainer:
         pf = DevicePrefetcher(loader, self.device) if cfg.device_prefetch \
             else None
         tel = self.telemetry
+        self._epoch_skipped = 0
         # Continue from the resumed cursor (fit() sets it), else 0.
         self._epoch_consumed, self._epoch_cursor0 = self._epoch_cursor0, 0
         end = t_prev = time.time()
@@ -689,6 +705,10 @@ class Trainer:
                 t_done = time.time()
                 h2d_s, compute_s = t_c - t_h, t_done - t_c
                 self._epoch_consumed += int(images.shape[0]) * self.world
+                if metrics.pop("finite", True):
+                    self.opt_steps += 1
+                else:
+                    self._epoch_skipped += 1
                 if counted:
                     self._log_first_step_launches(*counted, launches)
                 prefetch_s = pf.poke() if pf is not None else None
@@ -721,6 +741,11 @@ class Trainer:
         drain.drain()
         self.log(f"||==> Train: Epoch[{epoch}]\tLoss {losses.avg:.4e}\t"
                  f"Acc@1 {top1.avg:6.2f}")
+        if self.scaler is not None:
+            self.log(f"=> dynamic loss scale after epoch {epoch}: scale "
+                     f"{self.scaler.scale:g}, fin_steps "
+                     f"{self.scaler.fin_steps}; {self._epoch_skipped} of "
+                     f"{len(loader)} steps skipped (non-finite gradients)")
         skipped, retried = _data_meters(loader)
         if skipped or retried:
             # Skips spent the corruption budget; retries healed a load.
@@ -815,6 +840,10 @@ class Trainer:
                     if skipped or retried:
                         extra.update(samples_skipped=skipped,
                                      samples_retried=retried)
+                    if self.scaler is not None:
+                        extra.update(loss_scale=self.scaler.scale,
+                                     fin_steps=self.scaler.fin_steps,
+                                     scaler_skipped=self._epoch_skipped)
                     self.telemetry.emit(
                         "epoch", epoch=epoch, seconds=round(epoch_time, 3),
                         **extra)
