@@ -37,7 +37,10 @@ line and raising on failure:
       256 at 224 px in bf16 and float16 and three odd shapes in f32; in
       float16 with inf and NaN planted in x, r and dy and an affine past
       65,504, y, dx and dr equal the plain version's (NaN where it is
-      NaN) and every partial is non-finite where the plain one is;
+      NaN) and every partial is non-finite where the plain one is; then B1
+      and B3 in bf16 at the new conv families' shapes (``ZOO_SHAPES``:
+      vgg16_bn's 822 M-element first BatchNorms, 16, 48, 72, 80, 104,
+      120, 440, 992 and 2,208 channels);
 3. serving end to end: ``python -m tpudist_torch.serve`` serves ViT-B/16
    at 224 px in bf16 under a short open-loop load; every bucket call must
    have gone through the flash kernel, and the logits of a ``--flash on``
@@ -158,25 +161,44 @@ line and raising on failure:
    into a fresh model with bit-equal logits through B5, two ViT-B/16 steps
    start from that file (B5–B7 12/12/12 a step), and ``--pretrained``
    with an empty ``$TORCH_HOME`` fails, naming where it searched;
-11. one ``{"phase_seconds": {...}}`` line, each phase's seconds;
-12. one ``{"kernels": [...]}`` line: each kernel in bf16 (its f32 cases
+11. the BatchNorm+ReLU conv families (in this process, after
+   ``fp16_cli``): ``zoo_train`` takes vgg16_bn, densenet121, googlenet,
+   inception_v3 (299 px, aux head on), mobilenet_v3_large and
+   regnet_y_400mf at full width, bf16, batch 256 through three SGD steps
+   kernels on against off, each site launching B1 and B3 once a step (13,
+   121, 57, 96, 11 and 33 sites), then times each run's step and reads its
+   ``max_memory_allocated``, and holds each model's weights after one f32
+   step at batch 64 kernels on against off; ``zoo_cli`` runs ``python -m tpudist_torch -a
+   densenet121 --use_amp`` for one 4-step epoch at ``--fused-bn on`` and
+   at ``auto`` (a fresh dispatch cache: every workload timed, the
+   dispatch's seconds, its verdicts), with launches a step from the
+   counters and the host step's data/compute split; ``zoo_breakdown``
+   breaks a densenet121 step down by kernel category; ``zoo_serve``
+   serves each family at bucket 8 against its own eval forward;
+12. one ``{"phase_seconds": {...}}`` line, each phase's seconds;
+13. one ``{"kernels": [...]}`` line: each kernel in bf16 (its f32 cases
     beside) and its float16 instantiation, `` (float16)`` in the name;
-13. last, ``{"ok": true, "device": {...}}``.
+14. last, ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, without a CUDA card or without the
-rest of the repository. ``python3 chip_smoke.py --mutations`` runs only
-the ``--flash on``/``off`` comparison under in-memory faults of the
+rest of the repository.
+``python3 chip_smoke.py --mutations`` runs only the ``--flash on``/``off``
+comparison under in-memory faults of the
 backward (dq 10 % off; one key tile's dk and dv dropped), then builds two
 faulty copies of the forward kernel (one key tile's contribution to O
 dropped; l summed from the rounded P) and holds each against the bf16
 forward cases, the served logits on/off and the bf16 training on/off; it
-exits 0 only if every fault breaks a bound.
+then runs each zoo model with B3 faulted (dx zeroed at one site; one
+site's dx and partials zeroed; dx 10 % low at every site) against its
+sound ``off`` run under ``zoo_train``'s bounds; it exits 0 only if every
+fault breaks a bound.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import gc
 import hashlib
 import io
 import json
@@ -898,8 +920,9 @@ def _abs_partials(x, r, dy, a, b):
     return gx, g
 
 
-def _norm_case(label, m, c, dtype, peaks, seed):
-    """All four epilogue kernels at one (M, C): each against its plain
+def _norm_case(label, m, c, dtype, peaks, seed, variants=(False, True)):
+    """The epilogue kernels at one (M, C), the plain (B1, B3) and with
+    ``variants`` the residual ones (B2, B4) too: each against its plain
     version (y, dx and dr bit for bit: both round x·a and + b separately
     and g·a once; the partials and their sums within F32_SUM_TOL·(1 +
     Σ|term|)), timed beside the plain version, with the card's bound for
@@ -911,13 +934,14 @@ def _norm_case(label, m, c, dtype, peaks, seed):
         return torch.randn(*shape, generator=g, device="cuda",
                            dtype=torch.float32).to(dt)
 
-    x, r, dy = rand(m, c), rand(m, c), rand(m, c)
+    x, dy = rand(m, c), rand(m, c)
+    r = rand(m, c) if True in variants else None
     a, b = rand(c, dt=torch.float32), rand(c, dt=torch.float32)
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     elt = x.element_size()
     large = m * c > 10_000_000
     rows = {}
-    for res in (False, True):
+    for res in variants:
         rr = r if res else None
         y = fn.bn_act_fwd(x, rr, a, b)
         dx, dr, da_p, db_p = fn.bn_act_bwd(x, rr, dy, a, b)
@@ -1040,6 +1064,12 @@ def phase_fused_norm_vs_plain(peaks: dict) -> dict:
     for i, (label, m, c, dtype) in enumerate(cases):
         for name, row in _norm_case(label, m, c, dtype, peaks, i).items():
             rows.append(dict(row, kernel=name))
+    # The new families' shapes feed B1 and B3 alone.
+    for i, (label, m, c) in enumerate(ZOO_SHAPES):
+        for name, row in _norm_case(label, m, c, torch.bfloat16, peaks,
+                                    200 + i, variants=(False,)).items():
+            rows.append(dict(row, kernel=name))
+        torch.cuda.empty_cache()
     out = {"phase": "fused_norm_vs_plain", "cases": rows,
            "nonfinite": _nonfinite_norm(),
            "library_ms": "null: no single PyTorch call computes the "
@@ -1151,63 +1181,115 @@ def _leaves(model) -> dict:
             for k, v in model.state_dict().items()}
 
 
-def _device_batch(seed: int, batch: int = TRAIN_B):
+def _device_batch(seed: int, batch: int = TRAIN_B, px: int = TRAIN_PX):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    images = torch.randn(batch, TRAIN_PX, TRAIN_PX, 3, generator=g,
-                         device="cuda")
+    images = torch.randn(batch, px, px, 3, generator=g, device="cuda")
     labels = torch.randint(0, 1000, (batch,), generator=g, device="cuda")
     return images, labels
 
 
-def compare_on_off(setup, dtype, batch: int, lr: float,
-                   scale=None) -> dict:
-    """TRAIN_CMP_STEPS train steps with the kernels on (``setup(True,
-    dtype)``) and off from one seed on the same device batches: the
-    losses, and per parameter and running statistic max|on − off| over the
-    off run's largest change, after the first step and (reported only)
-    after the last; the kernel launches of the ``on`` run. In float16 both
-    runs start from the loss scale ``scale``, and whether each step landed
-    is reported."""
-    batches = [_device_batch(100 + i, batch) for i in range(TRAIN_CMP_STEPS)]
-    losses, first, last, landed = {}, {}, {}, {}
-    for mode in ("on", "off"):
-        model, step = (setup(mode == "on", dtype) if dtype != torch.float16
-                       else setup(mode == "on", dtype,
-                                  scaler=_scaler(dtype, scale)))
-        init = _leaves(model)
-        losses[mode], landed[mode] = [], []
-        before = {**fn.LAUNCHES, **fa.LAUNCHES}
+def _steps(setup, on: bool, dtype, batches, lr: float, scale=None,
+           timed: int = 0, patch=contextlib.nullcontext) -> dict:
+    """One run of ``compare_on_off``: ``setup(on, dtype)``, then a train
+    step on each batch inside ``patch()``: the losses, whether each step
+    landed, the leaves at the start, after the first step and after the
+    last, the kernel launches, and with ``timed`` the synchronised wall
+    (median of that many more steps on the last batch) and the
+    ``max_memory_allocated``."""
+    torch.cuda.reset_peak_memory_stats()
+    model, step = (setup(on, dtype) if dtype != torch.float16
+                   else setup(on, dtype, scaler=_scaler(dtype, scale)))
+    run = {"init": _leaves(model), "losses": [], "landed": []}
+    before = {**fn.LAUNCHES, **fa.LAUNCHES}
+    with patch():
         for i, (x, y) in enumerate(batches):
             m = step(x, y, lr)
-            losses[mode].append(float(m["loss"]))
-            landed[mode].append(bool(m.get("finite", True)))
+            run["losses"].append(float(m["loss"]))
+            run["landed"].append(bool(m.get("finite", True)))
             if i == 0:
-                first[mode] = _leaves(model)
-        last[mode] = _leaves(model)
-        if mode == "on":
-            launches = {k: v - before[k] for k, v in {
-                **fn.LAUNCHES, **fa.LAUNCHES}.items() if v != before[k]}
-        del model, step
+                run["first"] = _leaves(model)
+    run["last"] = _leaves(model)
+    run["launches"] = {k: v - before[k] for k, v in {
+        **fn.LAUNCHES, **fa.LAUNCHES}.items() if v != before[k]}
+    if timed:
+        times = []
+        for _ in range(timed):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(*batches[-1], lr)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        run["wall"] = statistics.median(times)
+        run["peak"] = torch.cuda.max_memory_allocated() / 1e9
+    del model, step
+    return run
 
-    def ratios(leaves):
+
+def _on_off_row(on: dict, off: dict, dtype) -> dict:
+    """Two ``_steps`` runs from one seed compared: the losses; per
+    parameter and running statistic after the first step, the difference
+    over the off run's change, as max|on − off| / max|Δoff| (and after the
+    last step, reported only) and as ‖on − off‖₂ / ‖Δoff‖₂ (its median
+    over every leaf, its largest over the weights: the leaves of two or
+    more dimensions); and the leaves that the off run moved and the on run
+    left unmoved."""
+    init = off["init"]
+
+    def ratios(key, order):
         out = {}
-        for k, want in leaves["off"].items():
-            change = (want - init[k]).abs().max().item()
-            out[k] = (leaves["on"][k] - want).abs().max().item() \
-                / max(change, 1e-30)
+        for k, want in off[key].items():
+            change = torch.linalg.vector_norm(want - init[k], order).item()
+            out[k] = torch.linalg.vector_norm(
+                on[key][k] - want, order).item() / max(change, 1e-30)
         return out
 
-    ratio, drift = ratios(first), ratios(last)
-    worst = max(ratio, key=ratio.get)
+    ratio = ratios("first", float("inf"))
+    drift = ratios("last", float("inf"))
+    l2 = ratios("first", 2)
+    weights = {k: v for k, v in l2.items() if init[k].ndim >= 2}
+    worst, worst_l2 = max(ratio, key=ratio.get), max(l2, key=l2.get)
+    worst_w = max(weights, key=weights.get)
     return {"dtype": str(dtype).replace("torch.", ""),
-            "landed_on": landed["on"], "landed_off": landed["off"],
-            "launches_on": launches,
-            "losses_on": losses["on"], "losses_off": losses["off"],
-            "loss_abs_diff": [abs(a - b) for a, b in zip(losses["on"],
-                                                          losses["off"])],
+            "landed_on": on["landed"], "landed_off": off["landed"],
+            "launches_on": on["launches"],
+            "losses_on": on["losses"], "losses_off": off["losses"],
+            "loss_abs_diff": [abs(a - b) for a, b in zip(on["losses"],
+                                                          off["losses"])],
             "state_ratio_max": ratio[worst], "state_ratio_worst_leaf": worst,
             "state_ratio_median": statistics.median(ratio.values()),
-            "state_ratio_max_after_last_step": max(drift.values())}
+            "state_ratio_max_after_last_step": max(drift.values()),
+            "state_l2_ratio_max": l2[worst_l2],
+            "state_l2_ratio_worst_leaf": worst_l2,
+            "state_l2_ratio_median": statistics.median(l2.values()),
+            "weight_l2_ratio_max": weights[worst_w],
+            "weight_l2_ratio_worst_leaf": worst_w,
+            "unmoved_on": [k for k, v in on["first"].items()
+                           if torch.equal(v, init[k])
+                           and not torch.equal(off["first"][k], init[k])],
+            **({"step_ms_p50": {"on": on["wall"], "off": off["wall"]},
+                "max_memory_allocated_gb": {"on": on["peak"],
+                                            "off": off["peak"]}}
+               if "wall" in on else {})}
+
+
+def _cmp_batches(batch: int, px: int = TRAIN_PX,
+                 steps: int = TRAIN_CMP_STEPS) -> list:
+    return [_device_batch(100 + i, batch, px) for i in range(steps)]
+
+
+def compare_on_off(setup, dtype, batch: int, lr: float,
+                   scale=None, px: int = TRAIN_PX, timed: int = 0) -> dict:
+    """TRAIN_CMP_STEPS train steps with the kernels on (``setup(True,
+    dtype)``) and off from one seed on the same device batches of ``px``
+    images, compared by ``_on_off_row``, with the kernel launches of the
+    ``on`` run. In float16 both runs start from the loss scale ``scale``,
+    and whether each step landed is reported. With ``timed``, each run
+    then times that many more steps on its last batch (synchronised wall,
+    median) and reports its ``max_memory_allocated``."""
+    batches = _cmp_batches(batch, px)
+    on = _steps(setup, True, dtype, batches, lr, scale, timed)
+    off = _steps(setup, False, dtype, batches, lr, scale, timed)
+    return _on_off_row(on, off, dtype)
 
 
 def _held_on_off(row: dict, loss_tol: dict, state_tol: dict,
@@ -2621,7 +2703,8 @@ def _forward_mutation(name: str, path: str) -> bool:
 def run_mutations() -> int:
     """The --flash on/off comparison with a fault in the backward's
     result, each fault in turn, then each forward fault against every
-    bound that can see it: 0 if every fault breaks a bound (a backward
+    bound that can see it, then the B3 faults in each zoo model
+    (``zoo_mutations``): 0 if every fault breaks a bound (a flash backward
     fault: the training bounds in both dtypes)."""
     caught = {}
     for name, (kernel, fault) in MUTATIONS.items():
@@ -2644,6 +2727,7 @@ def run_mutations() -> int:
             caught[name] = _forward_mutation(name, path)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    caught.update(zoo_mutations())
     emit({"mutations_caught": caught})
     return 0 if all(caught.values()) else 1
 
@@ -4140,6 +4224,415 @@ def phase_torch_checkpoint(root: str, card: dict, r18_dir: str,
     return out
 
 
+# -- phase 11: the BatchNorm+ReLU conv families --------------------------------
+
+# (arch, input px, fused sites a step): tpudist's count of act="relu"
+# BatchNorm calls of each model, which tests/test_torch_zoo.py holds the
+# port's train-mode forward to on the CPU. B2 and B4 (the residual
+# epilogue) have no site in these families.
+ZOO_MODELS = [("vgg16_bn", 224, 13), ("densenet121", 224, 121),
+              ("googlenet", 224, 57), ("inception_v3", 299, 96),
+              ("mobilenet_v3_large", 224, 11), ("regnet_y_400mf", 224, 33)]
+ZOO_B = 256
+ZOO_LR = 0.1
+ZOO_TIMED = 3
+# Each zoo model trains kernels on against off twice from the same seed on
+# the same batches at ZOO_LR: in bf16 at batch 256 for TRAIN_CMP_STEPS
+# steps (timed after), and in f32 at batch ZOO_F32_B for ZOO_F32_STEPS.
+# The two runs of one epilogue are bit-equal (the plain run twice reads 0
+# everywhere), so what parts them is the two epilogues' rounding of
+# x·a + b, which these nets' backward at init amplifies: on the CPU,
+# inception_v3's f32 gradients at batch 8 and 299 px differ from its
+# float64 ones by 3-5 % per leaf (tests/test_torch_inception.py). In bf16
+# (2^-8, 65536x f32's 2^-24) that saturates: after step one the weights'
+# ‖on − off‖₂ / ‖Δoff‖₂ reads 0.10 (mobilenet_v3_large) to 1.18
+# (inception_v3) and its median over leaves 0.05 to 0.71, with the worst
+# max|on − off| / max|Δoff| on the conv biases ahead of a batch-statistics
+# BatchNorm (vgg16_bn: their gradient is 0 but for rounding) and on BN
+# scales and biases. So the bf16 run holds the losses and that no leaf is
+# left unmoved (its L2 ratios reported), and the f32 run holds the weights:
+# its largest weight ratio (0.0019 mobilenet_v3_large, 0.0079 vgg16_bn,
+# 0.0097 densenet121, 0.0101 googlenet, 0.0132 regnet_y_400mf, 0.0268
+# inception_v3) and its median leaf (0.00047 to 0.0157), each bound at
+# about 3x its reading. A B3 that zeroes dx at one site reads 1.0-1.1 on
+# the weights there, one that drops a site's backward 1.0 and leaves its
+# bias unmoved, and dx 10 % low at every site 0.60-0.97: every bound set
+# breaks (python3 chip_smoke.py --mutations). The losses: resnet18's
+# bound (TRAIN_LOSS_TOL, 2e-3 of max(1, |loss|)) where a model reads
+# within a third of it, else about 3x the reading (bf16: vgg16_bn 7.9e-3
+# after its loss climbs at lr 0.1, inception_v3 3.7e-3; f32: inception_v3
+# 4.7e-3). Read on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6).
+ZOO_F32_B = 64
+ZOO_F32_STEPS = 2
+ZOO_LOSS_TOL = {
+    "bfloat16": {"vgg16_bn": 2.5e-2, "densenet121": 2e-3, "googlenet": 2e-3,
+                 "inception_v3": 1.2e-2, "mobilenet_v3_large": 2e-3,
+                 "regnet_y_400mf": 2e-3},
+    "float32": {"vgg16_bn": 2e-3, "densenet121": 2e-3, "googlenet": 2e-3,
+                "inception_v3": 1.5e-2, "mobilenet_v3_large": 2e-3,
+                "regnet_y_400mf": 2e-3}}
+ZOO_F32_WEIGHT_TOL = {"vgg16_bn": 0.024, "densenet121": 0.03,
+                      "googlenet": 0.03, "inception_v3": 0.08,
+                      "mobilenet_v3_large": 0.006, "regnet_y_400mf": 0.04}
+ZOO_F32_MEDIAN_TOL = {"vgg16_bn": 0.019, "densenet121": 0.013,
+                      "googlenet": 0.015, "inception_v3": 0.047,
+                      "mobilenet_v3_large": 0.0015, "regnet_y_400mf": 0.025}
+# The B1/B3 cases at the new families' (rows, C), batch 256 in bf16:
+# vgg16_bn's first two BatchNorms (822 M elements, 6.4x resnet18's stem),
+# googlenet's 5x5 reduce (16 channels, 28x28), inception_v3's 1x1 to 80
+# channels on its 73x73 map (299 px) and its 48-channel 5x5 reduce on
+# 35x35, mobilenet_v3_large's 72 and 120 channels, regnet_y_400mf's 104
+# (56x56) and 440 (14x14), densenet121's widest norm1 (992 channels, 14x14)
+# and densenet161's norm5 (2,208 channels, 7x7).
+ZOO_SHAPES = [("vgg16_bn_c64", 256 * 224 * 224, 64),
+              ("googlenet_c16", 256 * 28 * 28, 16),
+              ("inception_c80", 256 * 73 * 73, 80),
+              ("inception_c48", 256 * 35 * 35, 48),
+              ("mobilenet_c72", 256 * 56 * 56, 72),
+              ("mobilenet_c120", 256 * 28 * 28, 120),
+              ("regnet_c104", 256 * 56 * 56, 104),
+              ("regnet_c440", 256 * 14 * 14, 440),
+              ("densenet_c992", 256 * 14 * 14, 992),
+              ("densenet161_c2208", 256 * 7 * 7, 2208)]
+
+
+def _zoo_setup(arch: str, px: int, batch: int):
+    """``setup(on, dtype)`` for ``compare_on_off``: ``arch`` at full width
+    with seed-0 weights, SGD at ``ZOO_LR``, every BN+ReLU site on the
+    kernels (``on``) or the plain epilogue."""
+    def setup(fused: bool, dtype):
+        cfg = config_lib.Config(arch=arch, batch_size=batch, image_size=px,
+                                fused_bn="on" if fused else "off")
+        model = create_model(arch, dtype=dtype, fused_bn=fused)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        model.cuda()
+        opt = train_lib.make_optimizer(model, cfg)
+        step = train_lib.make_train_step(model, opt, cfg)
+        step.optimizer = opt
+        return model, step
+    return setup
+
+
+def _held_zoo(row: dict, arch: str) -> list[str]:
+    """What breaks the zoo's on/off bounds in one comparison row (none:
+    []): the losses and every leaf moved; in f32 also the largest weight's
+    and the median leaf's ‖on − off‖₂ / ‖Δoff‖₂ after step one."""
+    dtype = row["dtype"]
+    tol = ZOO_LOSS_TOL[dtype][arch]
+    what = f"{arch} {dtype} --fused-bn on vs off"
+    bad = [f"{what} losses {row['losses_on']} vs {row['losses_off']}"
+           for d, ref in zip(row["loss_abs_diff"], row["losses_off"])
+           if not np.isfinite(d) or d > tol * max(1.0, abs(ref))][:1]
+    if row["unmoved_on"]:
+        bad.append(f"{what}: the on run left {row['unmoved_on'][:4]} "
+                   f"unmoved")
+    if dtype == "float32":
+        for key, bound in (("weight_l2_ratio_max", ZOO_F32_WEIGHT_TOL[arch]),
+                           ("state_l2_ratio_median",
+                            ZOO_F32_MEDIAN_TOL[arch])):
+            if not row[key] <= bound:
+                bad.append(f"{what}: {key} {row[key]} (bound {bound}; worst "
+                           f"weight {row['weight_l2_ratio_worst_leaf']})")
+    return bad
+
+
+def _zoo_f32_runs(arch: str, px: int):
+    """The f32 comparison's setup and batches for ``arch``."""
+    return (_zoo_setup(arch, px, ZOO_F32_B),
+            _cmp_batches(ZOO_F32_B, px, ZOO_F32_STEPS))
+
+
+def phase_zoo_train() -> dict:
+    """The six families at full width, kernels on against off
+    (``_held_zoo``): in bf16 at batch 256 (inception_v3 at 299 px with its
+    aux head), three SGD steps, B1 and B3 launched once a step at each of
+    tpudist's fused sites (B2, B4 never), then ``ZOO_TIMED`` synchronised
+    steps of each run (median wall) and its ``max_memory_allocated``; and
+    in f32 at batch ``ZOO_F32_B``, ``ZOO_F32_STEPS`` steps. A model that
+    does not fit at batch 256 fails the phase."""
+    rows, bad = {}, []
+    for arch, px, sites in ZOO_MODELS:
+        row = compare_on_off(_zoo_setup(arch, px, ZOO_B), torch.bfloat16,
+                             ZOO_B, ZOO_LR, px=px, timed=ZOO_TIMED)
+        want = {"bn_act_fwd": TRAIN_CMP_STEPS * sites,
+                "bn_act_bwd": TRAIN_CMP_STEPS * sites}
+        if row["launches_on"] != want:
+            bad.append(f"{arch}: launches {row['launches_on']} over "
+                       f"{TRAIN_CMP_STEPS} steps, want {want}")
+        setup, batches = _zoo_f32_runs(arch, px)
+        f32 = _on_off_row(
+            _steps(setup, True, torch.float32, batches, ZOO_LR),
+            _steps(setup, False, torch.float32, batches, ZOO_LR),
+            torch.float32)
+        want = {k: ZOO_F32_STEPS * sites for k in want}
+        if f32["launches_on"] != want:
+            bad.append(f"{arch} float32: launches {f32['launches_on']} over "
+                       f"{ZOO_F32_STEPS} steps, want {want}")
+        bad += _held_zoo(row, arch) + _held_zoo(f32, arch)
+        rows[arch] = dict(row, batch=ZOO_B, image_size=px, sites=sites,
+                          launches_per_step={k: v / TRAIN_CMP_STEPS
+                                             for k, v in
+                                             row["launches_on"].items()},
+                          images_per_s=ZOO_B / row["step_ms_p50"]["on"]
+                          * 1e3,
+                          loss_tol_relative=ZOO_LOSS_TOL["bfloat16"][arch],
+                          float32=dict(
+                              f32, batch=ZOO_F32_B, steps=ZOO_F32_STEPS,
+                              loss_tol_relative=ZOO_LOSS_TOL["float32"][arch],
+                              weight_l2_tol=ZOO_F32_WEIGHT_TOL[arch],
+                              median_l2_tol=ZOO_F32_MEDIAN_TOL[arch]))
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = {"phase": "zoo_train", "steps": TRAIN_CMP_STEPS, "lr": ZOO_LR,
+           "dtype": "bfloat16", "models": rows}
+    emit(out)
+    if bad:
+        raise RuntimeError("zoo_train: " + "; ".join(bad))
+    return out
+
+
+@contextlib.contextmanager
+def _b3_fault(kind: str, sites: int):
+    """B3's result made wrong inside the block, in a model with ``sites``
+    fused sites a step: ``zero_dx`` zeroes dx at one site (the middle call
+    of each backward), ``dropped`` zeroes all that site's results (dx and
+    the scale's and bias's partials), ``dx_90`` scales dx by 0.9 at every
+    site."""
+    real, calls = fn.bn_act_bwd, [0]
+
+    def faulty(x2, r2, dy2, a, b):
+        dx, dr, da_p, db_p = real(x2, r2, dy2, a, b)
+        site = calls[0] % sites
+        calls[0] += 1
+        if kind == "dx_90":
+            dx = dx * 0.9
+        elif site == sites // 2:
+            dx = torch.zeros_like(dx)
+            if kind == "dropped":
+                da_p, db_p = torch.zeros_like(da_p), torch.zeros_like(db_p)
+        return dx, dr, da_p, db_p
+
+    fn.bn_act_bwd = faulty
+    try:
+        yield
+    finally:
+        fn.bn_act_bwd = real
+
+
+ZOO_FAULTS = ("zero_dx", "dropped", "dx_90")
+
+
+def zoo_mutations() -> dict:
+    """Each of ``ZOO_FAULTS`` in B3, in each zoo model's f32 on run
+    against its sound off run (``phase_zoo_train``'s f32 comparison):
+    whether ``_held_zoo`` fails it."""
+    caught = {}
+    for arch, px, sites in ZOO_MODELS:
+        setup, batches = _zoo_f32_runs(arch, px)
+        off = _steps(setup, False, torch.float32, batches, ZOO_LR)
+        for kind in ZOO_FAULTS:
+            on = _steps(setup, True, torch.float32, batches, ZOO_LR,
+                        patch=lambda: _b3_fault(kind, sites))
+            row = _on_off_row(on, off, torch.float32)
+            why = _held_zoo(row, arch)
+            caught[f"{arch}/{kind}"] = bool(why)
+            emit({"phase": "mutation", "mutation": f"b3_{kind}",
+                  "arch": arch, "breaks_bounds": bool(why), "why": why,
+                  "row": row})
+        del on, off
+        gc.collect()
+        torch.cuda.empty_cache()
+    return caught
+
+
+ZOO_CLI = ["--synthetic", "-a", "densenet121", "--image-size", "224",
+           "--num-classes", "1000", "-b", str(ZOO_B), "--use_amp",
+           "--synthetic-size", str(4 * ZOO_B), "--epochs", "1", "-p", "1",
+           "--keep-checkpoints", "0", "--telemetry", "--seed", "0"]
+DENSENET_SITES = 121
+
+
+def _zoo_cli_run(mode: str, root: str) -> dict:
+    """``python -m tpudist_torch`` on ``ZOO_CLI`` at ``--fused-bn mode`` in
+    this process: its launches a step from the counters (validation
+    launches none), the dispatch's verdicts and the seconds it took (its
+    probes under ``auto``), and the host step's data/compute split from
+    the ``step`` events."""
+    from tpudist_torch.trainer import Trainer
+    spent = []
+    resolve = Trainer._resolve_fused_norm_dispatch
+
+    def timed(self):
+        t0 = time.perf_counter()
+        try:
+            return resolve(self)
+        finally:
+            spent.append(time.perf_counter() - t0)
+
+    Trainer._resolve_fused_norm_dispatch = timed
+    outdir = os.path.join(root, mode)
+    try:
+        t0 = time.perf_counter()
+        text, events, launches = _run_cli(
+            ZOO_CLI + ["--fused-bn", mode, "--outpath", outdir],
+            f"densenet121 --fused-bn {mode}")
+        wall_s = time.perf_counter() - t0
+    finally:
+        Trainer._resolve_fused_norm_dispatch = resolve
+        shutil.rmtree(outdir, ignore_errors=True)
+    steps = [e for e in events if e["type"] == "step"]
+    n = len(steps)
+    probe = _counts(text, PROBE_LINE_RE)
+    verdicts = [{"key": m.group(1), "sites": int(m.group(3)),
+                 "cuda_ms": m.group(4) and float(m.group(4)),
+                 "plain_ms": m.group(5) and float(m.group(5)),
+                 "kernel": m.group(7), "source": m.group(8)}
+                for m in _verdicts(text, NORM_VERDICT_RE)]
+    fused = sum(v["sites"] for v in verdicts if v["kernel"] == "cuda")
+    per_step = {k: (launches[k] - probe.get(k, 0)) / n for k in fn.KERNELS}
+    want = {"bn_act_fwd": fused, "bn_act_fwd_res": 0, "bn_act_bwd": fused,
+            "bn_act_bwd_res": 0}
+    first = _counts(text, LAUNCH_LINE_RE)
+    if sum(v["sites"] for v in verdicts) != DENSENET_SITES \
+            or per_step != want or (fused and first != want) or n != 4:
+        raise RuntimeError(f"densenet121 --fused-bn {mode}: {n} steps, "
+                           f"launches {launches} (probes {probe}, first "
+                           f"step {first}), verdicts {verdicts}")
+    split = {k: statistics.median(e[k] for e in steps[1:])
+             for k in ("data_s", "h2d_s", "compute_s", "step_s")}
+    agg = [e for e in events if e["type"] == "fused_norm_dispatch"][-1]
+    return {"wall_s": wall_s, "steps": n, "dispatch_s": spent[-1],
+            "n_workloads": agg.get("n_sites"), "n_fused": agg.get("n_fused"),
+            "source": agg.get("source"), "verdicts": verdicts,
+            "fused_sites": fused, "probe_launches": probe,
+            "launches": {k: launches[k] for k in fn.KERNELS},
+            "launches_per_step": per_step,
+            "host_step_median_s": split}
+
+
+def phase_zoo_cli() -> dict:
+    """densenet121 at full width through the CLI, one 4-step epoch: at
+    ``--fused-bn on`` every one of its 121 sites launches B1 and B3 once a
+    step; at the default ``auto``, under a fresh ``TPUDIST_DISPATCH_CACHE``,
+    the dispatch times every workload and each site that chose the kernel
+    launches it once a step."""
+    root = tempfile.mkdtemp(prefix="tpudist_torch_zoo_cli_")
+    prev = os.environ.get("TPUDIST_DISPATCH_CACHE")
+    os.environ["TPUDIST_DISPATCH_CACHE"] = os.path.join(root, "cache")
+    try:
+        out = {"phase": "zoo_cli", "arch": "densenet121", "batch": ZOO_B,
+               "on": _zoo_cli_run("on", root),
+               "auto": _zoo_cli_run("auto", root)}
+    finally:
+        if prev is None:
+            os.environ.pop("TPUDIST_DISPATCH_CACHE", None)
+        else:
+            os.environ["TPUDIST_DISPATCH_CACHE"] = prev
+        shutil.rmtree(root, ignore_errors=True)
+    if out["auto"]["source"] != "measured":
+        raise RuntimeError(f"zoo_cli: --fused-bn auto did not measure: "
+                           f"{out['auto']}")
+    emit(out)
+    return out
+
+
+def _zoo_category(kernel: str) -> str:
+    n = kernel.lower()
+    if "catarray" in n or "cat_" in n:
+        return "concat_copies"
+    return _train_category(kernel)
+
+
+def phase_zoo_breakdown() -> dict:
+    """One densenet121 train step (batch 256, 224 px, bf16, every site on
+    the kernels) on a device-resident batch: synchronised wall (median of
+    5), device ms by category over 3 steps under torch.profiler (conv,
+    BatchNorm statistics, fused-norm, casts, elementwise, the channel
+    concatenations), busy, the idle share and the backward's re-layouts."""
+    model, step = _zoo_setup("densenet121", TRAIN_PX, ZOO_B)(
+        True, torch.bfloat16)
+    x, y = _device_batch(7, ZOO_B)
+    for _ in range(2):
+        step(x, y, ZOO_LR)
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(x, y, ZOO_LR)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(walls)
+    n = 3
+    fn.reset_counts()
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        for _ in range(n):
+            step(x, y, ZOO_LR)
+        torch.cuda.synchronize()
+    total = dict(fn.LAUNCHES)
+    launches = {k: v / n for k, v in total.items()}
+    relayouts = fn.RELAYOUTS / n
+    by_cat, kernels = _device_kernels(prof, n, _zoo_category)
+    busy = sum(by_cat.values())
+    del model, step
+    out = {"phase": "zoo_breakdown", "arch": "densenet121", "batch": ZOO_B,
+           "image_size": TRAIN_PX, "dtype": "bfloat16", "fused_bn": "on",
+           "wall_ms_p50": wall, "images_per_s": ZOO_B / wall * 1e3,
+           "device_busy_ms": busy if busy else "not measured",
+           "idle_share": 1.0 - busy / wall if busy else "not measured",
+           "by_category_ms": by_cat or "not measured",
+           "kernel_launches_per_step": sum(k["calls"] for k in kernels),
+           "fused_norm_launches_per_step": launches,
+           "fused_norm_launches": total,
+           "fused_norm_device_ms_per_step": _fused_norm_device_ms(prof, n)
+           or "not measured",
+           "relayouts_per_step": relayouts,
+           "top_kernels": kernels[:20]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+def phase_zoo_serve() -> dict:
+    """Each family served at bucket 8 in bf16 (fresh seed-0 weights): the
+    served logits against the model's own eval forward of the same images
+    (within ``LOGITS_TOL`` × max(1, max|logit|); eval-mode BatchNorm is the
+    plain epilogue, so no kernel launches)."""
+    rows = {}
+    fn.reset_counts()
+    for arch, px, _ in ZOO_MODELS:
+        model = load_serve_state(arch, num_classes=1000, image_size=px,
+                                 max_batch=8, dtype=torch.bfloat16,
+                                 seed=0)
+        engine = ServeEngine(model, image_size=px, buckets=(8,))
+        images = np.random.default_rng(5).standard_normal(
+            (8, px, px, 3)).astype(np.float32)
+        t0 = time.perf_counter()
+        got = engine.infer(images)
+        served_ms = (time.perf_counter() - t0) * 1e3
+        with torch.inference_mode():
+            want = model(torch.from_numpy(images).cuda()).float().cpu() \
+                .numpy()
+        err = float(np.abs(got.astype(np.float32) - want).max())
+        bound = LOGITS_TOL * max(1.0, float(np.abs(want).max()))
+        rows[arch] = {"image_size": px, "logits_max_abs_diff": err,
+                      "bound": bound, "served_ms": served_ms,
+                      "finite": bool(np.isfinite(got).all())}
+        if not err <= bound or not rows[arch]["finite"] \
+                or got.shape != (8, 1000):
+            raise RuntimeError(f"zoo_serve {arch}: {rows[arch]}")
+        del engine, model
+    if any(fn.LAUNCHES.values()):
+        raise RuntimeError(f"zoo_serve: eval launched {fn.LAUNCHES}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"phase": "zoo_serve", "bucket": 8, "models": rows}
+    emit(out)
+    return out
+
+
 def _launches_by_path(ck: dict, name: str, dtype: str) -> dict:
     """A kernel's launches on each path of one storage dtype (counted from
     0 in each run's process, or set to 0 before each run in this one):
@@ -4211,6 +4704,19 @@ def _launches_by_path(ck: dict, name: str, dtype: str) -> dict:
         probe = disp["serve"]["probe_launches"]
         out["dispatch_auto_serve"] = disp["serve"]["launches"][name] - probe
         out["dispatch_auto_serve_probe"] = probe
+    if name in fn.KERNELS:
+        for arch, row in ck["zoo_train"]["models"].items():
+            out[f"zoo_train_{arch}"] = row["launches_on"].get(name, 0)
+            out[f"zoo_train_{arch}_float32"] = row["float32"][
+                "launches_on"].get(name, 0)
+        for mode in ("on", "auto"):
+            row = ck["zoo_cli"][mode]
+            probe = row["probe_launches"].get(name, 0)
+            out[f"zoo_cli_densenet121_{mode}"] = row["launches"][name] - probe
+            if probe:
+                out[f"zoo_cli_densenet121_{mode}_probe"] = probe
+        out["zoo_breakdown_densenet121"] = \
+            ck["zoo_breakdown"]["fused_norm_launches"][name]
     return out
 
 
@@ -4422,7 +4928,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = _timed("card_and_build", phase_card_and_build)
-    if argv:
+    if argv == ["--mutations"]:
         return run_mutations()
     _timed("startup", phase_startup)
     _, peaks = peaks_for(card["device_name"])
@@ -4444,6 +4950,10 @@ def main(argv=None) -> int:
     accum = _timed("accum_mixup", phase_accum_mixup)
     fp16 = _timed("fp16_train", phase_fp16_train)
     fp16_cli = _timed("fp16_cli", phase_fp16_cli)
+    zoo = {"zoo_train": _timed("zoo_train", phase_zoo_train),
+           "zoo_cli": _timed("zoo_cli", phase_zoo_cli),
+           "zoo_breakdown": _timed("zoo_breakdown", phase_zoo_breakdown)}
+    _timed("zoo_serve", phase_zoo_serve)
     root = tempfile.mkdtemp(prefix="tpudist_torch_ckpt_")
     try:
         ddp = {"train_ddp": _timed("train_ddp", phase_train_ddp, root),
@@ -4491,7 +5001,7 @@ def main(argv=None) -> int:
 
     ck.update(train_syncbn_ddp=ddp["train_syncbn_ddp"],
               train_vit_ddp=ddp["train_vit_ddp"], fp16_train=fp16,
-              fp16_cli=fp16_cli)
+              fp16_cli=fp16_cli, **zoo)
     emit({"kernels": _fwd_kernel_entries(kern, serve, vit, ck, card)
           + _bwd_kernel_entries(bwd, vit, ck, card)
           + _norm_kernel_entries(norm, train, ck, card)})

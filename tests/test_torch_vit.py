@@ -78,9 +78,17 @@ def test_unknown_arch_lists_the_available():
     with pytest.raises(ValueError, match="resnet18, .*vit_b_16"):
         create_model("alexnet")
     assert model_names() == [
+        "densenet121", "densenet161", "densenet169", "densenet201",
+        "googlenet", "inception_v3", "mobilenet_v2", "mobilenet_v3_large",
+        "mobilenet_v3_small", "regnet_x_16gf", "regnet_x_1_6gf",
+        "regnet_x_32gf", "regnet_x_3_2gf", "regnet_x_400mf",
+        "regnet_x_800mf", "regnet_x_8gf", "regnet_y_16gf", "regnet_y_1_6gf",
+        "regnet_y_32gf", "regnet_y_3_2gf", "regnet_y_400mf",
+        "regnet_y_800mf", "regnet_y_8gf",
         "resnet101", "resnet152", "resnet18", "resnet34", "resnet50",
-        "resnext101_32x8d", "resnext50_32x4d", "vit_b_16", "vit_b_32",
-        "vit_h_14", "vit_l_16", "vit_l_32", "wide_resnet101_2",
+        "resnext101_32x8d", "resnext50_32x4d", "vgg11", "vgg11_bn", "vgg13",
+        "vgg13_bn", "vgg16", "vgg16_bn", "vgg19", "vgg19_bn", "vit_b_16",
+        "vit_b_32", "vit_h_14", "vit_l_16", "vit_l_32", "wide_resnet101_2",
         "wide_resnet50_2"]
 
 

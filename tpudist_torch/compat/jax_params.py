@@ -13,8 +13,10 @@ so each leaf maps by name with at most a transpose:
   ``[h][q|k|v][head_dim]``;
 - ViT: ``ln*/scale``, ``bias`` → ``weight``, ``bias``; ``class_token`` and
   ``pos_embedding`` as they are;
-- ResNet: BatchNorm ``scale``/``bias`` and the ``batch_stats``
-  ``mean``/``var`` keep their names.
+- the BatchNorm conv nets (resnet, vgg, densenet, googlenet,
+  inception_v3, mobilenet, regnet): BatchNorm ``scale``/``bias``, a
+  conv's ``bias`` and the ``batch_stats`` ``mean``/``var`` keep their
+  names.
 
 ``jax_tree`` goes the other way, for the checkpoint writer: ``weight``
 ``(out, in, kh, kw)`` → HWIO ``kernel``, ``(out, in)`` → ``(in, out)``
@@ -59,24 +61,30 @@ def vit_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
     return out
 
 
-def resnet_state_dict_from_jax(params: Mapping, batch_stats: Mapping
+def bn_net_state_dict_from_jax(params: Mapping, batch_stats: Mapping
                                ) -> dict[str, torch.Tensor]:
-    """Convert a flax ResNet's ``params`` and ``batch_stats`` trees
-    (without their collection level) to a ``state_dict`` that
-    ``ResNet.load_state_dict`` takes with ``strict=True``."""
+    """Convert a flax BatchNorm conv net's ``params`` and ``batch_stats``
+    trees (without their collection level) to a ``state_dict`` that the
+    port's model of the same arch takes with ``strict=True``: conv and
+    Dense ``kernel`` → ``weight``, the rest by name."""
     out: dict[str, torch.Tensor] = {}
     for path, arr in _flatten(params):
         *mods, leaf = path
         if leaf == "kernel":
             arr, leaf = _kernel(arr, path), "weight"
         elif leaf not in ("scale", "bias"):
-            raise ValueError(f"unexpected ResNet parameter {'/'.join(path)}")
+            raise ValueError(f"unexpected conv-net parameter "
+                             f"{'/'.join(path)}")
         out[".".join([*mods, leaf])] = _tensor(arr)
     for path, arr in _flatten(batch_stats):
         if path[-1] not in ("mean", "var"):
             raise ValueError(f"unexpected batch statistic {'/'.join(path)}")
         out[".".join(path)] = _tensor(arr)
     return out
+
+
+# The ResNet family's converter is the same.
+resnet_state_dict_from_jax = bn_net_state_dict_from_jax
 
 
 def _kernel(arr: np.ndarray, path: tuple) -> np.ndarray:
@@ -96,11 +104,11 @@ def _tensor(arr: np.ndarray) -> torch.Tensor:
 def state_dict_from_jax(arch: str, params: Mapping,
                         batch_stats: Mapping | None = None
                         ) -> dict[str, torch.Tensor]:
-    """The converter for ``arch``: ``vit*`` or the ResNet family (a ViT
-    has no ``batch_stats``)."""
+    """The converter for ``arch``: ``vit*``, or any BatchNorm conv net
+    (a ViT has no ``batch_stats``)."""
     if arch.startswith("vit"):
         return vit_state_dict_from_jax(params)
-    return resnet_state_dict_from_jax(params, batch_stats or {})
+    return bn_net_state_dict_from_jax(params, batch_stats or {})
 
 
 def jax_tree(named: Mapping[str, torch.Tensor] | Sequence) -> dict:

@@ -1,8 +1,9 @@
 """The reference's ``.pth.tar`` files, in and out of the port.
 
 The port's copy of ``tpudist/compat/torch_checkpoint.py`` for the
-families the port has: ``resnet``, ``resnext``, ``wide_resnet`` and
-``vit``. The reference saves ``{"epoch", "arch", "state_dict",
+families the port has: ``resnet``, ``resnext``, ``wide_resnet``, ``vit``,
+``vgg``, ``densenet``, ``googlenet``, ``inception``, ``mobilenet`` and
+``regnet``. The reference saves ``{"epoch", "arch", "state_dict",
 "best_acc1"}`` with ``torch.save`` (``checkpoint.pth.tar``,
 ``model_best.pth.tar``), the ``state_dict`` in torchvision's names and
 layouts. The port's parameter names are flax's paths
@@ -19,18 +20,32 @@ tpudist's for the same weights:
 - the ViT's ``in_proj`` is head-major (``[h][q|k|v][head_dim]``),
   torch's ``in_proj_weight`` qkv-major: ``_vit_inproj_perm`` maps one to
   the other;
+- vgg: ``features_N``/``classifier_N`` ↔ ``features.N``/
+  ``classifier.N``; densenet: the flax names under ``features.`` with
+  ``denseblockB.denselayerL.`` and ``transitionT.`` dotted (a file in
+  torchvision's legacy names, ``norm.1`` for ``norm1``, as its released
+  weights, is read as torchvision's own loader reads it); googlenet and
+  inception_v3: torchvision's names with ``_`` for ``.``, with rules for
+  the names that hold a ``_`` of their own (``Conv2d_1a_3x3``,
+  ``branch3x3dbl_1``); mobilenet: a table built from the block configs
+  (torchvision's nested ``features.i.block.j`` indices depend on whether a
+  block expands and has SE); regnet: ``trunk_output.blockS.blockS-I.f.a.0``
+  ↔ ``blockS_I_f_a_conv``, the stem ``stem.0``/``.1``. A googlenet file
+  with aux-head weights loads into the default model without aux heads
+  (torchvision's released weights carry them), as in tpudist;
 - ``num_batches_tracked`` is written as 0 and dropped on import;
 - the file holds contiguous tensors in torch's layout whatever the
   strides of the port's weights (a 1x1 conv's are channels_last).
 
 An import is strict: a missing tensor, an unknown one, or one of another
-shape raises, naming it. Any other family raises, naming these four.
+shape raises, naming it. Any other family raises, naming these.
 """
 
 from __future__ import annotations
 
 import os
 import re
+from functools import lru_cache
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -38,7 +53,123 @@ import torch
 
 from tpudist_torch.compat.jax_params import jax_tree, state_dict_from_jax
 
-SUPPORTED_FAMILIES = ("resnet", "resnext", "wide_resnet", "vit")
+SUPPORTED_FAMILIES = ("resnet", "resnext", "wide_resnet", "vit", "vgg",
+                      "densenet", "googlenet", "inception", "mobilenet",
+                      "regnet")
+
+
+@lru_cache(maxsize=None)
+def _mobilenet_map(arch: str) -> Dict[str, str]:
+    """torch module → flax module for MobileNetV2/V3 (tpudist's table):
+    torchvision nests the inverted residuals in Sequentials whose indices
+    depend on whether the block expands (V2: ``features.{i}.conv.{j}``)
+    and whether it has SE (V3: ``features.{i}.block.{j}``); the port's
+    blocks are flat ``features_{i}_{expand,dw,se,project}``."""
+    from tpudist_torch.models.mobilenet import _V2_CFG, _V3_LARGE, _V3_SMALL
+    m = {"features.0.0": "features_0_conv", "features.0.1": "features_0_bn"}
+    if arch == "mobilenet_v2":
+        i = 1
+        for t, _c, n, _s in _V2_CFG:
+            for _j in range(n):
+                tp, f = f"features.{i}.conv", f"features_{i}"
+                k = 0
+                if t != 1:                      # expand iff ratio > 1
+                    m[f"{tp}.0.0"] = f"{f}_expand_conv"
+                    m[f"{tp}.0.1"] = f"{f}_expand_bn"
+                    k = 1
+                m[f"{tp}.{k}.0"] = f"{f}_dw_conv"
+                m[f"{tp}.{k}.1"] = f"{f}_dw_bn"
+                m[f"{tp}.{k + 1}"] = f"{f}_project_conv"   # bare conv + BN
+                m[f"{tp}.{k + 2}"] = f"{f}_project_bn"
+                i += 1
+        m[f"features.{i}.0"] = f"features_{i}_conv"
+        m[f"features.{i}.1"] = f"features_{i}_bn"
+        m["classifier.1"] = "classifier_1"
+        return m
+    if arch not in ("mobilenet_v3_large", "mobilenet_v3_small"):
+        raise ValueError(f"unknown mobilenet variant '{arch}'")
+    cfg = _V3_LARGE if arch == "mobilenet_v3_large" else _V3_SMALL
+    c_in = 16
+    for i, (_k, exp, out, se, _nl, _s) in enumerate(cfg, start=1):
+        tp, f = f"features.{i}.block", f"features_{i}"
+        j = 0
+        if exp != c_in:                         # expand iff widened
+            m[f"{tp}.0.0"] = f"{f}_expand_conv"
+            m[f"{tp}.0.1"] = f"{f}_expand_bn"
+            j = 1
+        m[f"{tp}.{j}.0"] = f"{f}_dw_conv"
+        m[f"{tp}.{j}.1"] = f"{f}_dw_bn"
+        j += 1
+        if se:
+            m[f"{tp}.{j}.fc1"] = f"{f}_se_fc1"
+            m[f"{tp}.{j}.fc2"] = f"{f}_se_fc2"
+            j += 1
+        m[f"{tp}.{j}.0"] = f"{f}_project_conv"
+        m[f"{tp}.{j}.1"] = f"{f}_project_bn"
+        c_in = out
+    n = len(cfg) + 1
+    m[f"features.{n}.0"] = f"features_{n}_conv"
+    m[f"features.{n}.1"] = f"features_{n}_bn"
+    m["classifier.0"] = "classifier_0"
+    m["classifier.3"] = "classifier_3"
+    return m
+
+
+_MAP_FAMILIES = {"mobilenet": _mobilenet_map}
+
+_REGNET_TO_FLAX = (
+    (r"^stem\.0$", "stem_conv"), (r"^stem\.1$", "stem_bn"),
+    (r"^trunk_output\.block(\d+)\.block\1-(\d+)\.f\.(a|b|c)\.0$",
+     r"block\1_\2_f_\3_conv"),
+    (r"^trunk_output\.block(\d+)\.block\1-(\d+)\.f\.(a|b|c)\.1$",
+     r"block\1_\2_f_\3_bn"),
+    (r"^trunk_output\.block(\d+)\.block\1-(\d+)\.f\.se\.(fc1|fc2)$",
+     r"block\1_\2_f_se_\3"),
+    (r"^trunk_output\.block(\d+)\.block\1-(\d+)\.proj\.0$",
+     r"block\1_\2_proj_conv"),
+    (r"^trunk_output\.block(\d+)\.block\1-(\d+)\.proj\.1$",
+     r"block\1_\2_proj_bn"),
+    (r"^fc$", "fc"),
+)
+_REGNET_FROM_FLAX = (
+    (r"^stem_conv$", "stem.0"), (r"^stem_bn$", "stem.1"),
+    (r"^block(\d+)_(\d+)_f_(a|b|c)_conv$",
+     r"trunk_output.block\1.block\1-\2.f.\3.0"),
+    (r"^block(\d+)_(\d+)_f_(a|b|c)_bn$",
+     r"trunk_output.block\1.block\1-\2.f.\3.1"),
+    (r"^block(\d+)_(\d+)_f_se_(fc1|fc2)$",
+     r"trunk_output.block\1.block\1-\2.f.se.\3"),
+    (r"^block(\d+)_(\d+)_proj_conv$",
+     r"trunk_output.block\1.block\1-\2.proj.0"),
+    (r"^block(\d+)_(\d+)_proj_bn$",
+     r"trunk_output.block\1.block\1-\2.proj.1"),
+    (r"^fc$", "fc"),
+)
+# GoogLeNet / Inception3: the flax names are torch's with "." → "_"
+# (BasicConv2d keeps torchvision's conv/bn children), so the import is the
+# generic rewrite; the export needs rules, because torch's names hold
+# literal underscores (Conv2d_1a_3x3, branch3x3dbl_1, aux1).
+_DOTS_TO_UNDERSCORES = ((r"\.", "_"), (r"^(fc)$", r"\1"))
+_GOOGLENET_FROM_FLAX = (
+    (r"^(conv[123])_(conv|bn)$", r"\1.\2"),
+    (r"^(inception\d[a-e])_(branch\d)_(\d)_(conv|bn)$", r"\1.\2.\3.\4"),
+    (r"^(inception\d[a-e])_(branch\d)_(conv|bn)$", r"\1.\2.\3"),
+    (r"^(aux[12])_conv_(conv|bn)$", r"\1.conv.\2"),
+    (r"^(aux[12])_(fc[12])$", r"\1.\2"),
+    (r"^fc$", "fc"),
+)
+_INCEPTION_FROM_FLAX = (
+    (r"^(Conv2d_\d\w_\dx\d)_(conv|bn)$", r"\1.\2"),
+    (r"^(Mixed_\d[a-e])_(.+)_(conv|bn)$", r"\1.\2.\3"),
+    (r"^AuxLogits_(conv\d)_(conv|bn)$", r"AuxLogits.\1.\2"),
+    (r"^AuxLogits_fc$", "AuxLogits.fc"),
+    (r"^fc$", "fc"),
+)
+# torchvision's densenet loader renames the legacy ``norm.1``-style keys
+# of its released files (``denselayerL.norm.1.weight`` → ``norm1.weight``).
+_DENSENET_LEGACY = re.compile(
+    r"^(.*denselayer\d+\.(?:norm|relu|conv))\.((?:[12])\.(?:weight|bias|"
+    r"running_mean|running_var))$")
 
 _VIT_TO_FLAX = (
     (r"^conv_proj$", "conv_proj"),
@@ -94,11 +225,21 @@ def _apply_rules(rules, name: str) -> Optional[str]:
     return None
 
 
-def _translate_module(fam: str, module: str) -> str:
+_REGEX_FAMILIES = {"regnet": (_REGNET_TO_FLAX, _REGNET_FROM_FLAX),
+                   "googlenet": (_DOTS_TO_UNDERSCORES, _GOOGLENET_FROM_FLAX),
+                   "inception": (_DOTS_TO_UNDERSCORES, _INCEPTION_FROM_FLAX),
+                   "vit": (_VIT_TO_FLAX, _VIT_FROM_FLAX)}
+
+
+def _translate_module(fam: str, module: str, arch: str) -> str:
     """torch module path → the flax module path joined with ``_``."""
-    if fam == "vit":
-        out = _apply_rules(_VIT_TO_FLAX, module)
+    if fam in _MAP_FAMILIES:
+        return _MAP_FAMILIES[fam](arch).get(module, f"<unmapped:{module}>")
+    if fam in _REGEX_FAMILIES:
+        out = _apply_rules(_REGEX_FAMILIES[fam][0], module)
         return out if out is not None else f"<unmapped:{module}>"
+    if fam == "densenet":
+        module = re.sub(r"^features\.", "", module)
     module = module.replace("downsample.0", "downsample_conv")
     module = module.replace("downsample.1", "downsample_bn")
     return module.replace(".", "_")
@@ -106,12 +247,26 @@ def _translate_module(fam: str, module: str) -> str:
 
 def _untranslate(fam: str, mod: str, arch: str) -> str:
     """The flax module path joined with ``_`` → torch's module path."""
-    if fam == "vit":
-        out = _apply_rules(_VIT_FROM_FLAX, mod)
+    if fam in _MAP_FAMILIES:
+        inverse = {v: k for k, v in _MAP_FAMILIES[fam](arch).items()}
+        if mod not in inverse:
+            raise ValueError(f"no torch name for module '{mod}' (arch "
+                             f"'{arch}')")
+        return inverse[mod]
+    if fam in _REGEX_FAMILIES:
+        out = _apply_rules(_REGEX_FAMILIES[fam][1], mod)
         if out is None:
             raise ValueError(f"no torch name for module '{mod}' (arch "
                              f"'{arch}')")
         return out
+    if fam == "densenet":
+        if not mod.startswith("classifier"):
+            mod = "features_" + mod
+        mod = re.sub(r"(denseblock\d+)_(denselayer\d+)_", r"\1.\2.", mod)
+        mod = re.sub(r"features_", "features.", mod)
+        return re.sub(r"(transition\d+)_", r"\1.", mod)
+    if fam == "vgg":
+        return re.sub(r"^(features|classifier)_(\d+)", r"\1.\2", mod)
     m = re.match(r"^(layer\d+)_(\d+)_(.*)$", mod)
     if m:
         mod = f"{m.group(1)}.{m.group(2)}.{m.group(3)}"
@@ -172,6 +327,8 @@ def torch_state_dict_to_flax(state_dict: Dict[str, Any], arch: str,
     for key, tensor in state_dict.items():
         if key.endswith("num_batches_tracked"):
             continue
+        if fam == "densenet":
+            key = _DENSENET_LEGACY.sub(r"\1\2", key)
         # A DataParallel/DDP-saved file prefixes "module."; the ViT's
         # class_token is a root parameter with no module.
         module, _, param = key.removeprefix("module.").rpartition(".")
@@ -187,7 +344,12 @@ def torch_state_dict_to_flax(state_dict: Dict[str, Any], arch: str,
                     f"model wants {tuple(template.shape)}")
             new_p[path] = arr
             continue
-        mod = _translate_module(fam, module)
+        if fam == "googlenet" and module.startswith(("aux1", "aux2")) \
+                and "aux1_fc1" not in p_index:
+            # torchvision's released googlenet carries aux-head weights its
+            # model (aux_logits=False) discards; so does this one.
+            continue
+        mod = _translate_module(fam, module, arch)
         if mod not in p_index and mod not in s_index:
             raise ValueError(
                 f"checkpoint key '{key}' (module '{mod}') does not match any "

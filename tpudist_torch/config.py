@@ -175,6 +175,12 @@ class Config:
 
 # The attention archs the trainer takes (models/__init__.py registers them).
 VIT_ARCHS = ("vit_b_16", "vit_b_32", "vit_l_16", "vit_l_32", "vit_h_14")
+# The conv families the trainer takes, by name prefix: the resnet family
+# and the BatchNorm+ReLU families. tpudist's other families (alexnet,
+# squeezenet, efficientnet, mnasnet, shufflenet, convnext, swin, maxvit,
+# vit_moe, vit_pipe) are refused by name.
+CONV_FAMILIES = ("resnet", "resnext", "wide_resnet", "vgg", "densenet",
+                 "googlenet", "inception_v3", "mobilenet", "regnet")
 
 # Flags the port does not support yet: a value other than the default is
 # refused at startup, naming the flag and what is missing.
@@ -218,10 +224,10 @@ def refuse_unsupported(cfg: Config) -> None:
            for name, (flag, what) in _NOT_YET.items()
            if getattr(cfg, name) != getattr(default, name)]
     vit = cfg.arch in VIT_ARCHS
-    if not (vit or cfg.arch.startswith(("resnet", "resnext",
-                                         "wide_resnet"))):
-        bad.append(f"-a {cfg.arch} (the port trains the resnet and vit "
-                   f"families so far)")
+    if not (vit or cfg.arch.startswith(CONV_FAMILIES)):
+        bad.append(f"-a {cfg.arch} (the port trains the resnet, vit, vgg, "
+                   f"densenet, googlenet, inception_v3, mobilenet and "
+                   f"regnet families so far)")
     if not vit and cfg.flash == "on":
         bad.append(f"--flash on (it applies to attention archs (vit*); got "
                    f"'{cfg.arch}')")

@@ -2,8 +2,9 @@
 
 Counterpart of ``tpudist/models/__init__.py``: ``create_model('resnet18',
 num_classes=1000, ...)`` builds by name and an unknown name raises with
-the list of those available. The port registers the ResNet family and the
-ViT family so far.
+the list of those available. The port registers the ResNet and ViT
+families and the BatchNorm+ReLU conv families: vgg (+bn), densenet,
+googlenet, inception_v3, mobilenet and regnet.
 """
 
 from __future__ import annotations
@@ -12,7 +13,13 @@ from typing import Any, Callable, Dict
 
 from torch import nn
 
+from tpudist_torch.models import densenet as _densenet_mod
+from tpudist_torch.models import googlenet as _googlenet_mod
+from tpudist_torch.models import inception as _inception_mod
+from tpudist_torch.models import mobilenet as _mobilenet_mod
+from tpudist_torch.models import regnet as _regnet_mod
 from tpudist_torch.models import resnet as _resnet_mod
+from tpudist_torch.models import vgg as _vgg_mod
 from tpudist_torch.models import vit as _vit_mod
 from tpudist_torch.models.resnet import ResNet  # noqa: F401
 from tpudist_torch.models.vit import VisionTransformer  # noqa: F401
@@ -32,6 +39,18 @@ for _n in ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
 
 for _n in ("vit_b_16", "vit_b_32", "vit_l_16", "vit_l_32", "vit_h_14"):
     register_model(_n, getattr(_vit_mod, _n))
+
+for _n in ("vgg11", "vgg13", "vgg16", "vgg19",
+           "vgg11_bn", "vgg13_bn", "vgg16_bn", "vgg19_bn"):
+    register_model(_n, getattr(_vgg_mod, _n))
+for _n in ("densenet121", "densenet161", "densenet169", "densenet201"):
+    register_model(_n, getattr(_densenet_mod, _n))
+register_model("googlenet", _googlenet_mod.googlenet)
+register_model("inception_v3", _inception_mod.inception_v3)
+for _n in ("mobilenet_v2", "mobilenet_v3_large", "mobilenet_v3_small"):
+    register_model(_n, getattr(_mobilenet_mod, _n))
+for _n in _regnet_mod._VARIANTS:
+    register_model(_n, getattr(_regnet_mod, _n))
 
 
 def model_names() -> list[str]:

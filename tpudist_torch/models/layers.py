@@ -1,10 +1,12 @@
 """Building-block layers with tpudist's semantics.
 
 Counterpart of ``tpudist/models/layers.py`` (``BatchNorm``,
-``conv_kaiming``, ``DenseTorch``). The conv nets run on NCHW tensors laid
-out ``torch.channels_last``: the NHWC memory tpudist works in, so a
-``permute(0, 2, 3, 1)`` gives the NHWC view without a copy and the
-``(N·H·W, C)`` rows the fused epilogue kernels read.
+``conv_kaiming``, ``BasicConv2d``, ``DenseTorch``, ``adaptive_avg_pool``,
+``max_pool_ceil``), plus flax's ``nn.Dropout`` (``Dropout``, whose masks
+come from a seeded generator: ``dropout_seed``). The conv nets run on
+NCHW tensors laid out ``torch.channels_last``: the NHWC memory tpudist
+works in, so a ``permute(0, 2, 3, 1)`` gives the NHWC view without a
+copy and the ``(N·H·W, C)`` rows the fused epilogue kernels read.
 
 Precision follows flax's ``dtype=`` promotion: parameters stay f32 (the
 master weights) and each forward casts its input and weights to the
@@ -14,7 +16,9 @@ cuDNN's BatchNorm: its statistics are tpudist's (below).
 
 from __future__ import annotations
 
+import contextlib
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -131,57 +135,189 @@ class BatchNorm(nn.Module):
         return yh.permute(0, 3, 1, 2)
 
 
-class Conv2d(nn.Module):
-    """``conv_kaiming``: a bias-free conv with torchvision's BN-follows
-    init (flax ``variance_scaling(2.0, "fan_out", "normal")``: an
-    untruncated normal of std ``sqrt(2 / (kh·kw·out))``); ``groups`` covers
-    ResNeXt's grouped convs. The weight is ``(out, in/groups, kh, kw)``
-    f32; the forward casts it and the input to the compute dtype
-    (flax's promotion when ``dtype`` is None)."""
+def _pair(v) -> tuple[int, int]:
+    return (v, v) if isinstance(v, int) else (int(v[0]), int(v[1]))
 
-    def __init__(self, in_features: int, features: int, kernel_size: int,
+
+class Conv2d(nn.Module):
+    """``conv_kaiming``: a conv with torchvision's BN-follows init (flax
+    ``variance_scaling(2.0, "fan_out", "normal")``: an untruncated normal
+    of std ``sqrt(2 / (kh·kw·out))``), or with ``stddev`` set the
+    inception family's ``truncated_normal(stddev)`` (a normal of std
+    ``stddev`` cut at ±2 std); ``groups`` covers ResNeXt's grouped and
+    MobileNet's depthwise convs. ``kernel_size`` and ``padding`` are an
+    int or ``(h, w)`` (inception's 1x7 / 7x1 factorisations); ``padding``
+    defaults to ``k // 2`` on each side. ``use_bias`` adds a bias (flax's
+    init: zeros) after the conv's rounding, as ``nn.Conv(dtype=dt)`` does.
+    The weight is ``(out, in/groups, kh, kw)`` f32; the forward casts it
+    and the input to the compute dtype (flax's promotion when ``dtype`` is
+    None)."""
+
+    def __init__(self, in_features: int, features: int, kernel_size,
                  strides: int = 1, *, groups: int = 1, padding=None,
+                 use_bias: bool = False, stddev: float | None = None,
                  dtype=None, device=None):
         super().__init__()
+        kh, kw = _pair(kernel_size)
         self.stride = strides
-        self.padding = kernel_size // 2 if padding is None else padding
+        self.padding = (kh // 2, kw // 2) if padding is None \
+            else _pair(padding)
         self.groups = groups
+        self.stddev = stddev
         self.dtype = dtype
         # The forward's channels_last cast hands a 1x1 kernel's gradient
         # back with channels_last strides: the same memory order as a
         # contiguous kernel, but DDP's gradient buckets compare strides, so
         # a 1x1 master weight is laid out so too.
-        layout = (torch.channels_last if kernel_size == 1
+        layout = (torch.channels_last if (kh, kw) == (1, 1)
                   else torch.contiguous_format)
         self.weight = nn.Parameter(torch.empty(
-            features, in_features // groups, kernel_size, kernel_size,
+            features, in_features // groups, kh, kw,
             dtype=torch.float32, device=device, memory_format=layout))
+        self.bias = (nn.Parameter(torch.zeros(features, dtype=torch.float32,
+                                              device=device))
+                     if use_bias else None)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         out, _, kh, kw = self.weight.shape
         # Drawn on the CPU, so the weights do not depend on the device.
         w = torch.empty(self.weight.shape, dtype=torch.float32)
-        w.normal_(0.0, math.sqrt(2.0 / (kh * kw * out)), generator=generator)
+        if self.stddev is None:
+            w.normal_(0.0, math.sqrt(2.0 / (kh * kw * out)),
+                      generator=generator)
+        else:
+            s = self.stddev
+            nn.init.trunc_normal_(w, 0.0, s, -2 * s, 2 * s,
+                                  generator=generator)
         self.weight.copy_(w)
+        if self.bias is not None:
+            self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
         w = self.weight.to(dtype=dt, memory_format=torch.channels_last)
-        return F.conv2d(x.to(dt), w, None, self.stride, self.padding, 1,
-                        self.groups)
+        y = F.conv2d(x.to(dt), w, None, self.stride, self.padding, 1,
+                     self.groups)
+        return y if self.bias is None else \
+            y + self.bias.to(dt).view(1, -1, 1, 1)
+
+
+class BasicConv2d(nn.Module):
+    """torchvision's inception-family block (``BasicConv2d``): a bias-free
+    conv with the truncated-normal init of std ``stddev`` (0.1 for
+    inception_v3, 0.01 for googlenet), then ``BatchNorm`` with eps 1e-3 and
+    its ReLU fused (``act="relu"``). ``padding`` defaults to none, as
+    tpudist's ``(0, 0)``."""
+
+    def __init__(self, in_features: int, features: int, kernel=1,
+                 strides: int = 1, *, padding=0, stddev: float = 0.1,
+                 bn=None, dtype=None, device=None):
+        super().__init__()
+        self.conv = Conv2d(in_features, features, kernel, strides,
+                           padding=padding, stddev=stddev, dtype=dtype,
+                           device=device)
+        self.bn = BatchNorm(features, epsilon=1e-3, dtype=dtype,
+                            device=device, **(bn or {}))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.bn(self.conv(x), act="relu")
+
+
+# The seed of the train step's dropout masks (``dropout_seed``), and a
+# generator for it on each device the masks are drawn on.
+_DROPOUT: dict = {"seed": None, "gens": {}}
+
+
+@contextlib.contextmanager
+def dropout_seed(seed: int):
+    """Within the block, every train-mode ``Dropout`` draws its mask from
+    one generator seeded with ``seed`` (one per device, made at the first
+    draw there), in the order the forward reaches the layers: the train
+    step seeds each microbatch from (seed, optimizer step, rank,
+    microbatch), so a resumed run draws what a straight run drew. Outside
+    the block a mask comes from torch's default generator."""
+    prev = dict(_DROPOUT)
+    _DROPOUT.update(seed=int(seed), gens={})
+    try:
+        yield
+    finally:
+        _DROPOUT.clear()
+        _DROPOUT.update(prev)
+
+
+def _dropout_generator(device: torch.device):
+    if _DROPOUT["seed"] is None:
+        return None
+    gen = _DROPOUT["gens"].get(device)
+    if gen is None:
+        gen = torch.Generator(device=device).manual_seed(_DROPOUT["seed"])
+        _DROPOUT["gens"][device] = gen
+    return gen
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout(rate)``: in train mode each entry is kept with
+    probability ``1 − rate`` and scaled by ``1/(1 − rate)``, in x's dtype
+    (``where(keep, x / keep_prob, 0)``); in eval mode, or at rate 0, the
+    identity. The keep mask is ``rand < keep_prob`` on x's device, from
+    ``dropout_seed``'s generator."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep_prob = 1.0 - self.rate
+        keep = torch.rand(x.shape, generator=_dropout_generator(x.device),
+                          device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, x.new_zeros(()))
+
+
+def adaptive_avg_pool(x: torch.Tensor, out_hw: tuple[int, int]
+                      ) -> torch.Tensor:
+    """torch ``AdaptiveAvgPool2d`` over an NCHW channels_last tensor, as
+    tpudist's ``adaptive_avg_pool`` computes it: the identity at the
+    output size, a plain average pool where the size divides, else torch's
+    bins (output (i, j) averages rows ``[floor(i·H/oh), ceil((i+1)·H/oh))``
+    and the same over columns)."""
+    h, w = x.shape[2:]
+    oh, ow = out_hw
+    if (h, w) == (oh, ow):
+        return x
+    if h % oh == 0 and w % ow == 0:
+        k = (h // oh, w // ow)
+        return F.avg_pool2d(x, k, k)
+    return F.adaptive_avg_pool2d(x, (oh, ow))
+
+
+def max_pool_ceil(x: torch.Tensor, window: int, strides: int,
+                  padding: int = 0) -> torch.Tensor:
+    """torch ``MaxPool2d(..., ceil_mode=True)``, which tpudist's
+    ``max_pool_ceil`` reproduces in flax by padding the bottom and right
+    with -inf: the last partial window is kept, and a trailing window that
+    would start in the padding is dropped. torch's own ``ceil_mode`` is
+    that rule; no padded copy is made, so the output keeps x's
+    channels_last layout."""
+    return F.max_pool2d(x, window, strides, padding, ceil_mode=True)
 
 
 class DenseTorch(nn.Module):
     """Linear layer with torch.nn.Linear's default init, U(±1/√fan_in) for
     both weight and bias, computed as tpudist does:
     ``x.astype(dt) @ W.astype(dt) + b.astype(dt)`` (the bias added after
-    the product's rounding)."""
+    the product's rounding). ``kernel_init`` and ``bias_init`` override
+    the init as tpudist's ``kernel_init``/``bias_init`` do:
+    ``("normal", std)``, ``("trunc_normal", std)`` (cut at ±2 std) or
+    ``"zeros"``."""
 
     def __init__(self, in_features: int, features: int, *, dtype=None,
-                 device=None):
+                 kernel_init=None, bias_init=None, device=None):
         super().__init__()
         self.dtype = dtype
+        self.inits = (kernel_init, bias_init)
         f32 = dict(dtype=torch.float32, device=device)
         self.weight = nn.Parameter(torch.empty(features, in_features, **f32))
         self.bias = nn.Parameter(torch.empty(features, **f32))
@@ -189,9 +325,19 @@ class DenseTorch(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         bound = 1.0 / math.sqrt(self.weight.shape[1])
-        for p in (self.weight, self.bias):
+        for p, init in zip((self.weight, self.bias), self.inits):
             w = torch.empty(p.shape, dtype=torch.float32)
-            w.uniform_(-bound, bound, generator=generator)
+            if init is None:
+                w.uniform_(-bound, bound, generator=generator)
+            elif init == "zeros":
+                w.zero_()
+            elif init[0] == "normal":
+                w.normal_(0.0, init[1], generator=generator)
+            elif init[0] == "trunc_normal":
+                nn.init.trunc_normal_(w, 0.0, init[1], -2 * init[1],
+                                      2 * init[1], generator=generator)
+            else:
+                raise ValueError(f"unknown init {init!r}")
             p.copy_(w)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -199,3 +345,34 @@ class DenseTorch(nn.Module):
         return torch.matmul(x.to(dt), self.weight.to(dt).t()) \
             + self.bias.to(dt)
 
+
+def reset_parameters(model: nn.Module, generator: torch.Generator) -> None:
+    """The flax init of every conv, dense and BatchNorm layer of
+    ``model``, drawn from ``generator`` (a CPU generator) in module
+    order."""
+    for mod in model.modules():
+        if isinstance(mod, (Conv2d, DenseTorch, BatchNorm)):
+            mod.reset_parameters(generator)
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """The mean over H and W of an NCHW channels_last tensor, taken on its
+    NHWC view (tpudist's ``jnp.mean(x, axis=(1, 2))``)."""
+    return x.permute(0, 2, 3, 1).mean(dim=(1, 2))
+
+
+class AuxOutputs(NamedTuple):
+    """A train-mode forward of a model with aux heads (googlenet with
+    ``aux_logits``, inception_v3): the main logits and the aux heads'
+    logits in tpudist's order (its sown ``intermediates``, by name). The
+    loss adds ``aux_loss_weight`` × each aux head's loss; eval mode
+    returns the main logits alone."""
+    logits: torch.Tensor
+    aux: tuple
+
+
+def split_aux(out) -> tuple[torch.Tensor, tuple]:
+    """``(logits, aux logits)`` of a forward's output."""
+    if isinstance(out, AuxOutputs):
+        return out.logits, tuple(out.aux)
+    return out, ()

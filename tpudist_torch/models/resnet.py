@@ -24,7 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpudist_torch.models.layers import BatchNorm, Conv2d, DenseTorch
+from tpudist_torch.models.layers import (BatchNorm, Conv2d, DenseTorch,
+                                         global_avg_pool, reset_parameters)
 
 
 class _StemConvS2D(Conv2d):
@@ -168,9 +169,7 @@ class ResNet(nn.Module):
         """The flax init, drawn from ``generator`` (a CPU generator):
         kaiming-normal (fan_out) convs, U(±1/√fan_in) fc, unit BN scales,
         zero BN biases, running mean 0 and var 1."""
-        for mod in self.modules():
-            if isinstance(mod, (Conv2d, DenseTorch, BatchNorm)):
-                mod.reset_parameters(generator)
+        reset_parameters(self, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """``x``: ``(B, H, W, 3)`` images; returns ``(B, num_classes)``
@@ -180,8 +179,7 @@ class ResNet(nn.Module):
         x = F.max_pool2d(x, 3, 2, 1)
         for name in self.block_names:
             x = getattr(self, name)(x)
-        x = x.permute(0, 2, 3, 1).mean(dim=(1, 2))       # global avg pool
-        return self.fc(x)
+        return self.fc(global_avg_pool(x))
 
 
 def _resnet(stage_sizes, block, groups: int = 1, width_per_group: int = 64):

@@ -122,25 +122,26 @@ def build_measure_fns(rows: int, channels: int, dtype, residual: bool,
     """``(cuda_fn, plain_fn, args)``: each fn takes the forward and the
     gradient (in x, scale, bias and the residual) of a scalar loss over the
     epilogue at the exact workload: the fused ``Function`` (B1 + B3, or
-    B2 + B4) against the plain epilogue ``--fused-bn off`` runs."""
-    import numpy as np
-
+    B2 + B4) against the plain epilogue ``--fused-bn off`` runs. The
+    inputs are drawn on the device from a seeded generator: a model with
+    dozens of workloads (densenet121 has 65) would otherwise spend most of
+    its probes drawing hundreds of millions of normals on the host."""
     from tpudist_torch.ops.fused_norm import fused_bn_act, reference_bn_act
 
     device = device or torch.device("cuda", torch.cuda.current_device())
-    rng = np.random.default_rng(0)
+    gen = torch.Generator(device=device).manual_seed(0)
 
-    def put(a, dt, grad):
-        return torch.from_numpy(np.asarray(a, np.float32)).to(
-            device=device, dtype=dt).requires_grad_(grad)
+    def put(shape, dt, grad, low=None):
+        t = (torch.randn(shape, generator=gen, device=device) if low is None
+             else torch.rand(shape, generator=gen, device=device) + low)
+        return t.to(dt).requires_grad_(grad)
 
-    x = put(rng.standard_normal((rows, channels)), dtype, True)
-    res = (put(rng.standard_normal((rows, channels)), dtype, True)
-           if residual else None)
-    scale = put(rng.standard_normal(channels), torch.float32, True)
-    bias = put(rng.standard_normal(channels), torch.float32, True)
-    mean = put(rng.standard_normal(channels), torch.float32, False)
-    var = put(rng.random(channels) + 0.5, torch.float32, False)
+    x = put((rows, channels), dtype, True)
+    res = put((rows, channels), dtype, True) if residual else None
+    scale = put(channels, torch.float32, True)
+    bias = put(channels, torch.float32, True)
+    mean = put(channels, torch.float32, False)
+    var = put(channels, torch.float32, False, low=0.5)
     args = (x, scale, bias) + ((res,) if residual else ())
 
     def grads(fn):

@@ -68,6 +68,17 @@ one card a rank.
   ``draw_mix`` on the host from a generator seeded by (seed, optimizer
   step, rank), ``apply_mix`` on the device. The pair labels go with their
   microbatch.
+- Dropout (vgg, googlenet, inception_v3, mobilenet) draws its masks on
+  the device from a generator seeded by (seed, optimizer step, rank,
+  microbatch) (``layers.dropout_seed``), where tpudist folds the step and
+  the shard into its dropout key and splits it per microbatch: a resumed
+  or preempted run draws what a straight run drew, the ranks draw apart,
+  and each microbatch draws its own masks.
+- The aux heads (googlenet with ``aux_logits``, inception_v3): a
+  train-mode forward returns ``layers.AuxOutputs``, and the loss adds
+  ``aux_loss_weight`` × each aux head's loss with the same mix labels,
+  ``lam`` and smoothing (tpudist's ``_loss_fn``), per microbatch under
+  accumulation; accuracy reads the main logits.
 
 The doctor guard and gradient compression are not in the port yet.
 """
@@ -79,11 +90,13 @@ import inspect
 import math
 from typing import Callable
 
+import numpy as np
 import torch
 from torch.nn.parallel import DistributedDataParallel
 
 from tpudist_torch import dist as dist_lib
 from tpudist_torch.dynamic_scale import DynamicScale, unscale_and_check
+from tpudist_torch.models.layers import dropout_seed, split_aux
 from tpudist_torch.ops.loss import cross_entropy_loss
 from tpudist_torch.ops.metrics import accuracy
 from tpudist_torch.ops import mixup
@@ -196,6 +209,29 @@ def update_ema(ema: torch.nn.Module, model: torch.nn.Module,
     torch._foreach_add_(ema_t, torch._foreach_mul(src, 1.0 - decay))
 
 
+def forward_loss(model: torch.nn.Module, images: torch.Tensor,
+                 labels: torch.Tensor, labels2, lam, smoothing: float,
+                 aux_weight: float = 0.0):
+    """tpudist's ``_loss_fn``: a train-mode forward, the (mixed, smoothed)
+    f32 CE of the main logits, plus ``aux_weight`` × each aux head's with
+    the same labels, in tpudist's order. Returns ``(loss, logits)``."""
+    logits, aux = split_aux(model(images))
+    loss = mixed_ce(logits, labels, labels2, lam, smoothing)
+    for aux_logits in aux:
+        loss = loss + aux_weight * mixed_ce(aux_logits, labels, labels2,
+                                            lam, smoothing)
+    return loss, logits
+
+
+def dropout_step_seed(seed: int, step: int, rank: int,
+                      microbatch: int) -> int:
+    """The dropout seed of one microbatch of one optimizer step on one
+    rank (a stream apart from the mixing draw's)."""
+    state = np.random.SeedSequence([seed, step, rank, microbatch, 1]
+                                   ).generate_state(2, np.uint32)
+    return (int(state[0]) << 31) ^ int(state[1])
+
+
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     cfg, ema: torch.nn.Module | None = None,
                     draw_fn: Callable | None = None,
@@ -222,15 +258,15 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     smoothing = float(getattr(cfg, "label_smoothing", 0.0))
     ddp = isinstance(model, DistributedDataParallel)
     net = model.module if ddp else model
+    aux_weight = float(getattr(net, "aux_loss_weight", 0.0))
     decay = float(getattr(cfg, "model_ema_decay", 0.0))
     accum = max(1, int(getattr(cfg, "accum_steps", 1) or 1))
     alphas = (float(getattr(cfg, "mixup_alpha", 0.0)),
               float(getattr(cfg, "cutmix_alpha", 0.0)))
     mixing = alphas[0] > 0.0 or alphas[1] > 0.0
+    seed = cfg.seed if cfg.seed is not None else 0
+    rank = dist_lib.data_rank_world()[0]
     if mixing and draw_fn is None:
-        seed = cfg.seed if cfg.seed is not None else 0
-        rank = dist_lib.data_rank_world()[0]
-
         def draw_fn(step_index, n, h, w):
             return mixup.draw_mix(mixup.step_generator(seed, step_index, rank),
                                   n, h, w, *alphas)
@@ -249,8 +285,9 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         optimizer.zero_grad(set_to_none=True)
         scale = None if scaler is None else scaler.scale
         if accum == 1:
-            logits = model(images)
-            loss = mixed_ce(logits, labels, labels2, lam, smoothing)
+            with dropout_seed(dropout_step_seed(seed, index, rank, 0)):
+                loss, logits = forward_loss(model, images, labels, labels2,
+                                            lam, smoothing, aux_weight)
             (loss if scale is None else loss * scale).backward()
             with torch.no_grad():
                 acc1 = accuracy(logits, labels, topk=1)
@@ -269,10 +306,12 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                 sync = (model.no_sync() if ddp and i < accum - 1
                         else contextlib.nullcontext())
                 with sync:
-                    logits = model(images[sl])
-                    loss_i = mixed_ce(logits, labels[sl],
-                                      None if labels2 is None
-                                      else labels2[sl], lam, smoothing)
+                    with dropout_seed(dropout_step_seed(seed, index, rank,
+                                                        i)):
+                        loss_i, logits = forward_loss(
+                            model, images[sl], labels[sl],
+                            None if labels2 is None else labels2[sl], lam,
+                            smoothing, aux_weight)
                     # float16: the step's scale on every microbatch; the
                     # sum is divided by accum with the unscale.
                     (loss_i / accum if scale is None

@@ -232,13 +232,21 @@ class Trainer:
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
         seed = cfg.seed if cfg.seed is not None else 0
-        self.is_vit = cfg.arch in VIT_ARCHS
+        # As tpudist's trainer: the class count and dtype; a ViT its image
+        # size (flax infers it) and --flash, a conv net --sync_batchnorm;
+        # aux_logits stays each model's default (googlenet off,
+        # inception_v3 on).
         kw = dict(num_classes=cfg.num_classes, dtype=dtype)
-        if self.is_vit:
+        if cfg.arch in VIT_ARCHS:
             kw.update(image_size=cfg.image_size, flash=cfg.flash == "on")
         else:
             kw.update(sync_batchnorm=cfg.sync_batchnorm)
         self.model = create_model(cfg.arch, **kw)
+        # What the model has decides the dispatch: attention (the flash
+        # kernels) or BatchNorm sites (the fused-norm kernels).
+        self.has_attention = hasattr(self.model, "set_flash")
+        self.has_bn = any(isinstance(m, BatchNorm)
+                          for m in self.model.modules())
         self.model.reset_parameters(torch.Generator().manual_seed(seed))
         self.model.to(self.device)
         if cfg.pretrained:
@@ -255,7 +263,7 @@ class Trainer:
             self._build_kernels()
         before = {**fused_norm.LAUNCHES, **flash_attention.LAUNCHES}
         self.attention_decision = (self._resolve_attention_dispatch()
-                                   if self.is_vit else None)
+                                   if self.has_attention else None)
         self.fused_norm_decision = self._resolve_fused_norm_dispatch()
         probed = {k: v - before[k] for k, v in {
             **fused_norm.LAUNCHES, **flash_attention.LAUNCHES}.items()
@@ -297,7 +305,7 @@ class Trainer:
             self.log(f"=> data-parallel: world {self.world}, backend "
                      f"{dist_lib.backend()}, DDP (buffers averaged after "
                      f"the step)" + (", SyncBN" if cfg.sync_batchnorm
-                                     and not self.is_vit else ""))
+                                     and self.has_bn else ""))
         # The step's mixing draws are seeded by the optimizer step, which
         # a resumed run continues.
         self.train_step = make_train_step(step_model, self.optimizer, cfg,
@@ -315,10 +323,10 @@ class Trainer:
         step; the time is a ``kernel_build`` compile event."""
         cfg = self.cfg
         names = []
-        if self.is_vit and cfg.flash != "off":
+        if self.has_attention and cfg.flash != "off":
             names += ["flash_fwd"] + ([] if cfg.evaluate else ["flash_bwd"])
-        if cfg.fused_bn != "off" and not (self.is_vit or cfg.evaluate
-                                          or cfg.sync_batchnorm):
+        if cfg.fused_bn != "off" and self.has_bn and not (
+                cfg.evaluate or cfg.sync_batchnorm):
             names.append("fused_norm")
         if not names:
             return
@@ -379,8 +387,9 @@ class Trainer:
     def _resolve_fused_norm_dispatch(self) -> dict:
         """Resolve ``--fused-bn`` for every train-mode BN+ReLU workload of
         the model and set each site's verdict (``BatchNorm.fused``). The
-        structural cases come first, as in tpudist: ``off``, the ViTs (no
-        BatchNorm), eval-only runs and SyncBN take the plain epilogue; the
+        structural cases come first, as in tpudist: ``off``, a model
+        without BatchNorm (the ViTs, the plain vggs), eval-only runs and
+        SyncBN take the plain epilogue; the
         CPU takes it under ``auto`` without measuring. Otherwise the
         workloads are recorded at the microbatch's rows and decided one by
         one: forced under ``on`` (the CUDA kernels on the card, their plain
@@ -394,7 +403,7 @@ class Trainer:
                "n_sites": 0, "n_fused": 0}
         if cfg.fused_bn == "off":
             agg.update(source="forced")
-        elif self.is_vit:
+        elif not self.has_bn:
             agg.update(source="ineligible",
                        reason=f"{cfg.arch} has no BatchNorm")
         elif cfg.evaluate:
@@ -486,7 +495,7 @@ class Trainer:
         the card, or None where it launches none."""
         if self.device.type != "cuda":
             return None
-        if self.is_vit:
+        if self.has_attention:
             return (("flash", flash_attention)
                     if self.attention_decision["kernel"] == "flash" else None)
         return (("fused-norm", fused_norm)
