@@ -90,7 +90,7 @@ line and raising on failure:
 7. data-parallel training, world 1 over NCCL: the reference's recipe 3
    through ``python -m tpudist_torch.launch -n 1 -- python -m
    tpudist_torch --distributed``, resnet18 at 224 px, batch 256, float16,
-   ``--fused-bn on`` for three epochs of 8 steps (the log and
+   ``--fused-bn on`` for two epochs of 8 steps (the log and
    ``run_start`` name backend nccl, the first step launches B1–B4
    9/8/9/8 times, ``init_s`` > 0, the checkpoint carries a finite
    ``dynamic_scale``; its rank reports its imports); then, in this
@@ -175,10 +175,28 @@ line and raising on failure:
    counters and the host step's data/compute split; ``zoo_breakdown``
    breaks a densenet121 step down by kernel category; ``zoo_serve``
    serves each family at bucket 8 against its own eval forward;
-12. one ``{"phase_seconds": {...}}`` line, each phase's seconds;
-13. one ``{"kernels": [...]}`` line: each kernel in bf16 (its f32 cases
+12. the rest of the one-card zoo (in this process, after ``zoo_serve``),
+   ten representatives at full width and 224 px with seed-0 weights
+   drawn once on the host (``REST_MODELS``: alexnet, squeezenet1_1,
+   mnasnet1_0, shufflenet_v2_x1_0, efficientnet_b0, efficientnet_v2_s on
+   SGD, convnext_tiny, swin_t, swin_v2_t, maxvit_t on AdamW):
+   ``rest_train`` trains each at batch 128 in bf16 for three steps with
+   dropout and stochastic depth live (every loss finite, every leaf
+   moved, B1–B7 launched 0 times: these families reach no kernel, as in
+   tpudist), then times three synchronised steps and reads
+   ``max_memory_allocated``; ``rest_vs_cpu`` runs one f32 train-mode
+   forward and backward of each (TF32 off, batch 2, the dropout and
+   stochastic-depth masks drawn on the host in the CPU run and replayed
+   on the card) on the CPU and on the card and holds the loss, logits,
+   BatchNorm statistics and every gradient; ``rest_cli`` runs ``python -m
+   tpudist_torch -a swin_v2_t --optimizer adamw`` for 3 steps with
+   tpudist's defaults (the no-decay group is tpudist's ``no_decay_mask``
+   by name; the dispatch records no workload and probes nothing);
+   ``rest_serve`` serves the ten at bucket 8 against their eval forward;
+13. one ``{"phase_seconds": {...}}`` line, each phase's seconds;
+14. one ``{"kernels": [...]}`` line: each kernel in bf16 (its f32 cases
     beside) and its float16 instantiation, `` (float16)`` in the name;
-14. last, ``{"ok": true, "device": {...}}``.
+15. last, ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, without a CUDA card or without the
 rest of the repository.
@@ -233,6 +251,7 @@ from tpudist_torch.data import native as data_native
 from tpudist_torch.data import transforms as data_tf
 from tpudist_torch.dynamic_scale import DynamicScale
 from tpudist_torch.models import create_model
+from tpudist_torch.models import layers as model_layers
 from tpudist_torch.ops import _build
 from tpudist_torch.ops import flash_attention as fa
 from tpudist_torch.ops import fused_norm as fn
@@ -1546,7 +1565,7 @@ def _ddp_in_process(args: list, what: str, outdir: str):
 def phase_train_ddp(root: str) -> dict:
     """The reference's recipe 3 through the launcher at full width:
     resnet18 at 224 px, 1000 classes, global batch 256, float16 with
-    tpudist's dynamic loss scaling, --fused-bn on, three epochs of 8 steps,
+    tpudist's dynamic loss scaling, --fused-bn on, two epochs of 8 steps,
     world 1 over NCCL (CKPT_R18_ARGS): every train step, skipped ones
     included, launches the fused-norm kernels 9/8/9/8 times and validation
     none; the checkpoint carries a finite ``dynamic_scale``, at least one
@@ -1562,7 +1581,7 @@ def phase_train_ddp(root: str) -> dict:
     first = ("=> fused-norm kernels launched by the first train step: "
              "34 (bn_act_fwd 9, bn_act_fwd_res 8, bn_act_bwd 9, "
              "bn_act_bwd_res 8)")
-    if n != 24 or got != want or first not in text.splitlines():
+    if n != 16 or got != want or first not in text.splitlines():
         raise RuntimeError(f"DDP fused-norm launches {got} for {n} steps; "
                            f"want {want} and the line {first!r}")
     out = {"phase": "train_ddp", "arch": "resnet18", "batch": TRAIN_B,
@@ -1698,7 +1717,7 @@ def phase_ddp_vs_plain() -> dict:
 CKPT_R18_ARGS = ["-a", "resnet18", "--use_amp", "--amp-dtype", "float16",
                  "--fused-bn", "on", "-b",
                  str(TRAIN_B), "--synthetic", "--image-size", str(TRAIN_PX),
-                 "--num-classes", "1000", "--epochs", "3", "--synthetic-size",
+                 "--num-classes", "1000", "--epochs", "2", "--synthetic-size",
                  "2048", "--step", "1", "-p", "4"]
 CKPT_VIT_ARGS = ["--synthetic", "-a", "vit_b_16", "--image-size", "224",
                  "--num-classes", "1000", "-b", str(VIT_B), "--use_amp",
@@ -1878,7 +1897,7 @@ def _checkpoint_numbers(events: list, path: str) -> dict:
 
 
 def phase_checkpoint_resume(root: str, card: dict, straight: dict) -> dict:
-    """resnet18 at train_ddp's settings (float16) for 3 epochs through the
+    """resnet18 at train_ddp's settings (float16) for 2 epochs through the
     launcher: run A is train_ddp's run, straight through; run B with
     ``--max-restarts 1 --resume auto --overwrite keep`` under
     CRASH_WRAPPER, whose attempt 0 dies after the first epoch's save. The
@@ -1909,7 +1928,7 @@ def phase_checkpoint_resume(root: str, card: dict, straight: dict) -> dict:
            "b1": {k: row_b["launches"][k] for k in fn.KERNELS}}
     if not any("restart 1/1" in ln for ln in row_b["launcher_lines"]) \
             or resumed is None or int(resumed.group(2)) < 1 \
-            or steps_a != 24 or crash["step"] != 8 or steps_b1 != 16 \
+            or steps_a != 16 or crash["step"] != 8 or steps_b1 != 8 \
             or got != want:
         raise RuntimeError(
             f"checkpoint_resume: launcher {row_b['launcher_lines']}, resumed "
@@ -1929,7 +1948,7 @@ def phase_checkpoint_resume(root: str, card: dict, straight: dict) -> dict:
     held = _resumed_vs_straight(tree_a, tree_b, parts, rerun)
     live = os.path.join(run_a, ckpt_lib.CKPT_NAME)
     out = {"phase": "checkpoint_resume", "arch": "resnet18",
-           "batch": TRAIN_B, "dtype": "float16", "epochs": 3,
+           "batch": TRAIN_B, "dtype": "float16", "epochs": 2,
            "card": card["nvidia_smi"],
            "files_equal": open(live + ".sha256").read().split()[0]
            == open(os.path.join(run_b, ckpt_lib.CKPT_NAME)
@@ -3952,7 +3971,7 @@ def phase_preempt_resume(root: str, card: dict, run_a: str) -> dict:
     if resumed is None or int(resumed.group(2)) != 1 or cont not in text_r \
             or len(runs) != 2 or any(got != want for _, got, want
                                      in counts.values()) \
-            or sum(n for n, _, _ in counts.values()) != 24:
+            or sum(n for n, _, _ in counts.values()) != 16:
         raise RuntimeError(f"preempt_resume: resumed "
                            f"{resumed and resumed.group(0)}, cursor line "
                            f"{cont in text_r}, launches {counts}")
@@ -4260,16 +4279,22 @@ ZOO_TIMED = 3
 # breaks (python3 chip_smoke.py --mutations). The losses: resnet18's
 # bound (TRAIN_LOSS_TOL, 2e-3 of max(1, |loss|)) where a model reads
 # within a third of it, else about 3x the reading (bf16: vgg16_bn 7.9e-3
-# after its loss climbs at lr 0.1, inception_v3 3.7e-3; f32: inception_v3
-# 4.7e-3). Read on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6).
+# after its loss climbs at lr 0.1; inception_v3 1.8e-2 in bf16 at step 3
+# and 1.56e-2 in f32 at step 2, since its padded branch pool is routed
+# around torch's faulty CUDA backward (layers.avg_pool_padded): its first
+# SGD step now follows the true gradient, after which the two epilogues'
+# losses part more, while the weights after step one part as before,
+# 0.0276 against 0.0268; under the faulty backward the readings were
+# 3.7e-3 and 4.7e-3). Read on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md
+# §6).
 ZOO_F32_B = 64
 ZOO_F32_STEPS = 2
 ZOO_LOSS_TOL = {
     "bfloat16": {"vgg16_bn": 2.5e-2, "densenet121": 2e-3, "googlenet": 2e-3,
-                 "inception_v3": 1.2e-2, "mobilenet_v3_large": 2e-3,
+                 "inception_v3": 5.5e-2, "mobilenet_v3_large": 2e-3,
                  "regnet_y_400mf": 2e-3},
     "float32": {"vgg16_bn": 2e-3, "densenet121": 2e-3, "googlenet": 2e-3,
-                "inception_v3": 1.5e-2, "mobilenet_v3_large": 2e-3,
+                "inception_v3": 4.7e-2, "mobilenet_v3_large": 2e-3,
                 "regnet_y_400mf": 2e-3}}
 ZOO_F32_WEIGHT_TOL = {"vgg16_bn": 0.024, "densenet121": 0.03,
                       "googlenet": 0.03, "inception_v3": 0.08,
@@ -4633,6 +4658,361 @@ def phase_zoo_serve() -> dict:
     return out
 
 
+# -- phase 12: the rest of the one-card zoo ------------------------------------
+
+# Ten representatives of the families that reach no kernel of the port (as
+# in tpudist: efficientnet's, mnasnet's, shufflenet's and maxvit's
+# BatchNorms are followed by SiLU, a ReLU outside the norm or GELU; alexnet
+# and squeezenet have none; convnext and swin LayerNorm; swin's and
+# maxvit's attention carries a relative-position bias), with torchvision's
+# recipe optimizers: (arch, optimizer, lr).
+REST_MODELS = [("alexnet", "sgd", 0.01), ("squeezenet1_1", "sgd", 0.01),
+               ("mnasnet1_0", "sgd", 0.1), ("shufflenet_v2_x1_0", "sgd", 0.1),
+               ("efficientnet_b0", "sgd", 0.1),
+               ("efficientnet_v2_s", "sgd", 0.1),
+               ("convnext_tiny", "adamw", 1e-3), ("swin_t", "adamw", 1e-3),
+               ("swin_v2_t", "adamw", 1e-3), ("maxvit_t", "adamw", 1e-3)]
+REST_B = 128                    # torchvision's per-card recipe batch
+REST_STEPS = 3
+REST_TIMED = 3
+REST_CMP_B = 2                  # the card against the CPU, f32
+# The card's f32 gradients against the CPU's, ‖card − cpu‖₂ / ‖cpu‖₂ of
+# the worst leaf, per model: about 3x the first reading on the card (an
+# NVIDIA H100 80GB HBM3 at 700 W, PERF.md §6), at most 1e-2 where the
+# reading allows. A leaf under REST_GRAD_FLOOR of the largest leaf's norm
+# (a BatchNorm bias whose output the next BatchNorm normalises away: 1e-8
+# to 6e-8 of the largest) is 0 but for rounding and is held by
+# REST_CMP_TOL · (1 + max|cpu|) alone; convnext's blocks, behind a layer
+# scale of 1e-6, sit at 4e-7 and are held relatively. The first readings:
+# alexnet 1.6e-6, squeezenet1_1 9.0e-7, efficientnet_b0 1.9e-5,
+# efficientnet_v2_s 6.5e-5, convnext_tiny 1.6e-6, swin_t 1.5e-6,
+# swin_v2_t 9.3e-6, maxvit_t 7.5e-6 (after the padded average pool was
+# worked around: 0.98 before, layers.avg_pool_padded). mnasnet1_0 and
+# shufflenet_v2_x1_0 read 1.13e-2 and 8.65e-3: a ReLU after a BatchNorm
+# over 2 images at init flips where the two devices' f32 accumulation
+# orders put a pre-activation on either side of 0, and the BatchNorm
+# backward spreads each flip over its channel (chip_numerics.py: the CPU
+# with 1 thread against 4 reads 3.3e-3 for mnasnet1_0; efficientnet's
+# SiLU is smooth and reads 1.9e-5); their bound is 5e-2, above 1e-2, and
+# a zeroed or wrong gradient still reads ≈ 1 (the average pool's 0.98).
+REST_CMP_TOL = 1e-4
+REST_GRAD_FLOOR = 1e-7
+REST_GRAD_TOL = {"alexnet": 5e-6, "squeezenet1_1": 3e-6,
+                 "mnasnet1_0": 5e-2, "shufflenet_v2_x1_0": 5e-2,
+                 "efficientnet_b0": 6e-5, "efficientnet_v2_s": 2e-4,
+                 "convnext_tiny": 5e-6, "swin_t": 5e-6, "swin_v2_t": 3e-5,
+                 "maxvit_t": 2.5e-5}
+
+
+def _rest_cfg(arch: str, optimizer: str, lr: float):
+    return config_lib.Config(
+        arch=arch, batch_size=REST_B, image_size=TRAIN_PX,
+        optimizer=optimizer, lr=lr,
+        weight_decay=0.05 if optimizer == "adamw" else 1e-4, seed=0)
+
+
+def _rest_weights(arch: str) -> dict:
+    """``arch``'s seed-0 f32 weights, drawn once on the host."""
+    model = create_model(arch, dtype=torch.float32)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    return {k: v.clone() for k, v in model.state_dict().items()}
+
+
+def phase_rest_train(weights: dict) -> dict:
+    """The ten at full width, 224 px, batch REST_B, bf16: ``REST_STEPS``
+    steps of the train step (dropout and stochastic depth live, drawn on
+    the card from the step's seed) on device batches, every loss finite,
+    every leaf (parameters and BatchNorm statistics) moved, and B1–B7
+    launched 0 times; then ``REST_TIMED`` synchronised steps (median wall,
+    images/s) and ``max_memory_allocated``. A model that does not fit at
+    REST_B fails the phase."""
+    rows, bad = {}, []
+    for arch, optimizer, lr in REST_MODELS:
+        torch.cuda.reset_peak_memory_stats()
+        model = create_model(arch, dtype=torch.bfloat16)
+        model.load_state_dict(weights[arch])
+        model.cuda()
+        cfg = _rest_cfg(arch, optimizer, lr)
+        step = train_lib.make_train_step(
+            model, train_lib.make_optimizer(model, cfg), cfg)
+        init = _leaves(model)
+        batches = _cmp_batches(REST_B, TRAIN_PX, REST_STEPS)
+        fn.reset_counts()
+        fa.reset_counts()
+        t0 = time.perf_counter()
+        losses = [float(step(x, y, lr)["loss"]) for x, y in batches]
+        first_steps_s = time.perf_counter() - t0
+        launches = {**fn.LAUNCHES, **fa.LAUNCHES}
+        last = _leaves(model)
+        unmoved = [k for k, v in last.items() if torch.equal(v, init[k])]
+        walls = []
+        for _ in range(REST_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(*batches[-1], lr)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall = statistics.median(walls)
+        rows[arch] = {"optimizer": optimizer, "lr": lr, "losses": losses,
+                      "leaves": len(last), "unmoved": unmoved,
+                      "launches": launches, "step_ms_p50": wall,
+                      "first_steps_s": first_steps_s,
+                      "step_ms": walls, "images_per_s": REST_B / wall * 1e3,
+                      "max_memory_allocated_gb":
+                      torch.cuda.max_memory_allocated() / 1e9}
+        if not all(np.isfinite(losses)) or unmoved \
+                or any(launches.values()):
+            bad.append(f"{arch}: losses {losses}, unmoved {unmoved[:4]}, "
+                       f"launches {launches}")
+        del model, step, init, last, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = {"phase": "rest_train", "batch": REST_B, "image_size": TRAIN_PX,
+           "dtype": "bfloat16", "steps": REST_STEPS, "timed": REST_TIMED,
+           "models": rows}
+    emit(out)
+    if bad:
+        raise RuntimeError("rest_train: " + "; ".join(bad))
+    return out
+
+
+def _train_pass(model, images, labels, masks: list, replay: bool):
+    """One train-mode forward and backward of ``model`` (the loss, logits,
+    gradients and BatchNorm statistics on the host). The dropout and
+    stochastic-depth masks are recorded into ``masks`` (drawn on the host
+    from a fixed seed) or, with ``replay``, taken from it in order."""
+    real = model_layers._keep_mask
+    queue = iter(masks)
+
+    def keep(shape, keep_prob, device):
+        if replay:
+            want_p, mask = next(queue)
+            if want_p != keep_prob or tuple(mask.shape) != tuple(shape):
+                raise RuntimeError(f"mask ({keep_prob}, {shape}) asked "
+                                   f"where ({want_p}, {mask.shape}) drew")
+            return mask.to(device)
+        mask = real(shape, keep_prob, device)
+        masks.append((keep_prob, mask.cpu()))
+        return mask
+
+    model_layers._keep_mask = keep
+    try:
+        with model_layers.dropout_seed(11):
+            loss, logits = train_lib.forward_loss(model.train(), images,
+                                                  labels, None, None, 0.0)
+        loss.backward()
+    finally:
+        model_layers._keep_mask = real
+    if replay and next(queue, None) is not None:
+        raise RuntimeError("the card drew fewer masks than the CPU")
+    return (float(loss.detach()), logits.detach().cpu(),
+            {k: p.grad.detach().cpu() for k, p in model.named_parameters()},
+            {k: b.detach().cpu() for k, b in model.named_buffers()
+             if b.is_floating_point()})
+
+
+def phase_rest_vs_cpu(weights: dict) -> dict:
+    """The card computes what the CPU-tested path computes: each of the
+    ten, f32 with TF32 off, the same seed-0 weights, batch REST_CMP_B at
+    224 px, the same dropout and stochastic-depth masks (drawn once on the
+    host in the CPU run and handed to the card's), one train-mode forward
+    and backward on the CPU and on the card: the loss and logits within
+    REST_CMP_TOL × (1 + max|cpu|), the BatchNorm statistics too, and each
+    gradient's ‖card − cpu‖₂ / ‖cpu‖₂ within REST_GRAD_TOL (no kernel of
+    the port on the card: B1–B7 launch 0 times)."""
+    rng = np.random.default_rng(21)
+    images = torch.from_numpy(rng.standard_normal(
+        (REST_CMP_B, TRAIN_PX, TRAIN_PX, 3)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, 1000, REST_CMP_B))
+    rows, bad = {}, []
+    fn.reset_counts()
+    fa.reset_counts()
+    for arch, _, _ in REST_MODELS:
+        masks: list = []
+        cpu_model = create_model(arch, dtype=torch.float32)
+        cpu_model.load_state_dict(weights[arch])
+        t0 = time.perf_counter()
+        loss_c, logits_c, grads_c, stats_c = _train_pass(
+            cpu_model, images, labels, masks, replay=False)
+        cpu_s = time.perf_counter() - t0
+        card = create_model(arch, dtype=torch.float32)
+        card.load_state_dict(weights[arch])
+        card.cuda()
+        loss_g, logits_g, grads_g, stats_g = _train_pass(
+            card, images.cuda(), labels.cuda(), masks, replay=True)
+        top = max(float(g.norm()) for g in grads_c.values())
+        rel, floor_abs, share = {}, {}, {}
+        for k, want in grads_c.items():
+            diff = grads_g[k] - want
+            share[k] = float(want.norm()) / top
+            if share[k] >= REST_GRAD_FLOOR:
+                rel[k] = float(diff.norm() / want.norm())
+            else:
+                floor_abs[k] = float(diff.abs().max()) / (
+                    1 + float(want.abs().max()))
+        worst = max(rel, key=rel.get)
+        logit_err = float((logits_g - logits_c).abs().max()) / (
+            1 + float(logits_c.abs().max()))
+        stat_err = max([float((stats_g[k] - v).abs().max())
+                        / (1 + float(v.abs().max()))
+                        for k, v in stats_c.items()] or [0.0])
+        row = {"loss_cpu": loss_c, "loss_card": loss_g,
+               "loss_err": abs(loss_g - loss_c) / (1 + abs(loss_c)),
+               "logits_err": logit_err, "stats_err": stat_err,
+               "masks": len(masks), "grad_l2_rel_max": rel[worst],
+               "grad_l2_rel_worst_leaf": worst,
+               "grad_l2_rel_median": statistics.median(rel.values()),
+               "grad_worst_leaves": [(k, rel[k], share[k]) for k in sorted(
+                   rel, key=rel.get, reverse=True)[:4]],
+               "floor_leaves": len(floor_abs),
+               "floor_abs_max": max(floor_abs.values(), default=0.0),
+               "grad_tol": REST_GRAD_TOL[arch], "cpu_s": cpu_s}
+        rows[arch] = row
+        if not (row["loss_err"] <= REST_CMP_TOL
+                and logit_err <= REST_CMP_TOL and stat_err <= REST_CMP_TOL
+                and rel[worst] <= REST_GRAD_TOL[arch]
+                and row["floor_abs_max"] <= REST_CMP_TOL):
+            bad.append(f"{arch}: {row}")
+        del cpu_model, card, grads_c, grads_g
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = {**fn.LAUNCHES, **fa.LAUNCHES}
+    out = {"phase": "rest_vs_cpu", "batch": REST_CMP_B, "dtype": "float32",
+           "tf32": False, "masks": "drawn on the host in the CPU run, "
+           "replayed on the card", "launches": launches, "models": rows}
+    emit(out)
+    if bad or any(launches.values()):
+        raise RuntimeError(f"rest_vs_cpu: launches {launches}; "
+                           + "; ".join(bad))
+    return out
+
+
+REST_CLI = ["--synthetic", "-a", "swin_v2_t", "--image-size", "224",
+            "--num-classes", "1000", "-b", str(REST_B), "--use_amp",
+            "--optimizer", "adamw", "--lr", "1e-3", "--weight-decay", "0.05",
+            "--synthetic-size", str(3 * REST_B), "--epochs", "1", "-p", "1",
+            "--keep-checkpoints", "0", "--telemetry", "--seed", "0"]
+NO_BN_LINE = ("=> fused-norm dispatch: plain epilogue (mode auto, "
+              "ineligible; swin_v2_t has no BatchNorm)")
+
+
+def _no_decay_by_tpudists_rule(model) -> set:
+    """The parameters tpudist's ``no_decay_mask`` keeps out of weight
+    decay, by name: fewer than two dims, ``relative_position_bias_table``,
+    ``logit_scale``, and everything under a ``cpb_mlp`` module."""
+    out = set()
+    for name, p in model.named_parameters():
+        *mods, leaf = name.split(".")
+        if p.ndim < 2 or leaf in ("relative_position_bias_table",
+                                  "logit_scale") \
+                or any("cpb_mlp" in m for m in mods):
+            out.add(name)
+    return out
+
+
+def phase_rest_cli() -> dict:
+    """``python -m tpudist_torch -a swin_v2_t --optimizer adamw`` in this
+    process, one epoch of 3 steps at 224 px, batch REST_B, bf16, with
+    tpudist's defaults ``--fused-bn auto --flash auto``: the optimizer's
+    no-decay group holds exactly the parameters tpudist's
+    ``no_decay_mask`` excludes (by name), the fused-norm dispatch logs
+    the plain epilogue for a model without BatchNorm and records no
+    workload, no attention dispatch and no probe run, no kernel launches,
+    and the epoch's train and validation losses are finite."""
+    from tpudist_torch import trainer as trainer_mod
+    made = []
+    real = trainer_mod.make_optimizer
+
+    def recording(model, cfg):
+        opt = real(model, cfg)
+        made.append((model, opt))
+        return opt
+
+    root = tempfile.mkdtemp(prefix="tpudist_torch_rest_cli_")
+    trainer_mod.make_optimizer = recording
+    try:
+        t0 = time.perf_counter()
+        text, events, launches = _run_cli(
+            REST_CLI + ["--outpath", os.path.join(root, "run")],
+            "swin_v2_t --optimizer adamw")
+        wall_s = time.perf_counter() - t0
+    finally:
+        trainer_mod.make_optimizer = real
+        shutil.rmtree(root, ignore_errors=True)
+    model, opt = made[-1]
+    params = dict(model.named_parameters())
+    names = {id(p): n for n, p in params.items()}
+    groups = [{names[id(p)] for p in g["params"]} for g in opt.param_groups]
+    decay = [g["weight_decay"] for g in opt.param_groups]
+    want = _no_decay_by_tpudists_rule(model)
+    steps = [e for e in events if e["type"] == "step"]
+    disp = [e for e in events if e["type"] == "fused_norm_dispatch"]
+    attn = [e for e in events if e["type"] == "attention_dispatch"]
+    losses = _epoch_losses(text, "Train") + _epoch_losses(text, "Val")
+    out = {"phase": "rest_cli", "arch": "swin_v2_t", "batch": REST_B,
+           "steps": len(steps), "losses": losses, "wall_s": wall_s,
+           "weight_decay": decay, "decay_params": len(groups[0]),
+           "no_decay_params": len(groups[1]),
+           "no_decay_by_tpudists_rule": len(want),
+           "no_decay_ndim_ge_2": sorted(n for n in groups[1]
+                                        if params[n].ndim >= 2)[:6],
+           "fused_norm_dispatch": disp[-1] if disp else None,
+           "attention_dispatch_events": len(attn), "launches": launches}
+    emit(out)
+    if decay != [0.05, 0.0] or groups[1] != want \
+            or groups[0] != set(names.values()) - want \
+            or len(steps) != 3 or len(losses) != 2 \
+            or not all(np.isfinite(losses)) \
+            or NO_BN_LINE not in text.splitlines() \
+            or not disp or disp[-1].get("n_sites") != 0 or attn \
+            or PROBE_LINE_RE.search(text) is not None \
+            or any(launches.values()):
+        raise RuntimeError(f"rest_cli: {out}")
+    return out
+
+
+def phase_rest_serve(weights: dict) -> dict:
+    """The ten served at bucket 8 in bf16 (the seed-0 weights): the served
+    logits against the model's own eval forward of the same images
+    (within ``LOGITS_TOL`` × max(1, max|logit|)), and no kernel
+    launches."""
+    rows = {}
+    fn.reset_counts()
+    fa.reset_counts()
+    images = np.random.default_rng(6).standard_normal(
+        (8, TRAIN_PX, TRAIN_PX, 3)).astype(np.float32)
+    for arch, _, _ in REST_MODELS:
+        model = load_serve_state(arch, num_classes=1000, image_size=TRAIN_PX,
+                                 max_batch=8, dtype=torch.bfloat16, seed=0)
+        model.load_state_dict(weights[arch])
+        engine = ServeEngine(model, image_size=TRAIN_PX, buckets=(8,))
+        engine.infer(images)                              # warm
+        t0 = time.perf_counter()
+        got = engine.infer(images)
+        served_ms = (time.perf_counter() - t0) * 1e3
+        with torch.inference_mode():
+            want = model(torch.from_numpy(images).cuda()).float().cpu() \
+                .numpy()
+        err = float(np.abs(got.astype(np.float32) - want).max())
+        bound = LOGITS_TOL * max(1.0, float(np.abs(want).max()))
+        rows[arch] = {"logits_max_abs_diff": err, "bound": bound,
+                      "served_ms": served_ms,
+                      "finite": bool(np.isfinite(got).all())}
+        if not err <= bound or not rows[arch]["finite"] \
+                or got.shape != (8, 1000):
+            raise RuntimeError(f"rest_serve {arch}: {rows[arch]}")
+        del engine, model
+    launches = {**fn.LAUNCHES, **fa.LAUNCHES}
+    if any(launches.values()):
+        raise RuntimeError(f"rest_serve: eval launched {launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"phase": "rest_serve", "bucket": 8, "image_size": TRAIN_PX,
+           "launches": launches, "models": rows}
+    emit(out)
+    return out
+
+
 def _launches_by_path(ck: dict, name: str, dtype: str) -> dict:
     """A kernel's launches on each path of one storage dtype (counted from
     0 in each run's process, or set to 0 before each run in this one):
@@ -4717,6 +5097,11 @@ def _launches_by_path(ck: dict, name: str, dtype: str) -> dict:
                 out[f"zoo_cli_densenet121_{mode}_probe"] = probe
         out["zoo_breakdown_densenet121"] = \
             ck["zoo_breakdown"]["fused_norm_launches"][name]
+    # The rest of the zoo reaches no kernel, as in tpudist.
+    for arch, row in ck["rest_train"]["models"].items():
+        out[f"rest_train_{arch}"] = row["launches"].get(name, 0)
+    for phase in ("rest_vs_cpu", "rest_cli", "rest_serve"):
+        out[phase] = ck[phase]["launches"].get(name, 0)
     return out
 
 
@@ -4954,6 +5339,13 @@ def main(argv=None) -> int:
            "zoo_cli": _timed("zoo_cli", phase_zoo_cli),
            "zoo_breakdown": _timed("zoo_breakdown", phase_zoo_breakdown)}
     _timed("zoo_serve", phase_zoo_serve)
+    weights = _timed("rest_weights", lambda: {
+        a: _rest_weights(a) for a, _, _ in REST_MODELS})
+    zoo["rest_train"] = _timed("rest_train", phase_rest_train, weights)
+    zoo["rest_vs_cpu"] = _timed("rest_vs_cpu", phase_rest_vs_cpu, weights)
+    zoo["rest_cli"] = _timed("rest_cli", phase_rest_cli)
+    zoo["rest_serve"] = _timed("rest_serve", phase_rest_serve, weights)
+    del weights
     root = tempfile.mkdtemp(prefix="tpudist_torch_ckpt_")
     try:
         ddp = {"train_ddp": _timed("train_ddp", phase_train_ddp, root),

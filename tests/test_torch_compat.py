@@ -352,10 +352,14 @@ def test_pretrained_without_a_file_names_every_place_searched(tmp_path, hub,
 
 
 def test_pretrained_refuses_other_families_and_heads(tmp_path, hub):
-    with pytest.raises(ValueError, match="does not support arch 'alexnet'; "
-                       "supported families: resnet, resnext, wide_resnet, "
-                       "vit"):
-        pretrained.resolve_pretrained_path("alexnet")
+    # Every family of tpudist's that runs on one card is covered since the
+    # rest of the zoo was ported; vit_moe and vit_pipe have no torchvision
+    # counterpart.
+    with pytest.raises(ValueError, match="'vit_moe_b_16' is a "
+                       "tpudist-native architecture"):
+        pretrained.resolve_pretrained_path("vit_moe_b_16")
+    with pytest.raises(ValueError, match="does not support arch 'lenet5'"):
+        pretrained.resolve_pretrained_path("lenet5")
     src = create_model("resnet18", num_classes=1000)
     params, stats = _random_trees(src, 6)
     path = str(hub / "resnet18-f37072fd.pth")

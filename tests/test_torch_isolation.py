@@ -3,8 +3,10 @@
 - Every module of ``tpudist_torch`` and ``chip_smoke`` imports with
   ``jax*``, ``flax*``, ``optax``, ``msgpack`` (absent on the card) and
   ``tpudist``/``tpudist.*`` refused by an import hook (``tpudist_torch``
-  itself stays importable), among them ``faults`` and ``compat/``'s
-  ``torch_checkpoint`` and ``pretrained``; a checkpoint round trip, an
+  itself stays importable), among them ``faults``, ``compat/``'s
+  ``torch_checkpoint`` and ``pretrained`` and the model modules of the
+  rest of the zoo (a train-mode forward of swin_v2_t, maxvit_t,
+  efficientnet_b0 and convnext_tiny runs there); a checkpoint round trip, an
   armed fault spec, a ``.pth.tar`` round trip and the ImageFolder
   pipeline (its native and PIL paths, with auto-augment), a dispatch
   decision and an accumulated, mixed train step run there.
@@ -49,7 +51,12 @@ for name in mods:
 for name in ("tpudist_torch.faults", "tpudist_torch.compat.torch_checkpoint",
              "tpudist_torch.compat.pretrained", "tpudist_torch.ops.dispatch",
              "tpudist_torch.ops.attention_dispatch",
-             "tpudist_torch.ops.norm_dispatch", "tpudist_torch.ops.mixup"):
+             "tpudist_torch.ops.norm_dispatch", "tpudist_torch.ops.mixup",
+             "tpudist_torch.models.alexnet", "tpudist_torch.models.squeezenet",
+             "tpudist_torch.models.mnasnet", "tpudist_torch.models.shufflenet",
+             "tpudist_torch.models.efficientnet",
+             "tpudist_torch.models.convnext", "tpudist_torch.models.swin",
+             "tpudist_torch.models.maxvit"):
     assert name in mods, name
 import chip_smoke
 import tempfile
@@ -82,6 +89,11 @@ with tempfile.TemporaryDirectory() as d:
     assert dec["kernel"] == "a" and dispatch.lookup(
         "c", "k", candidate="a", kernel_rev=lambda: 1, cache_dir=d,
         platform="cuda", device_kind="card")
+for arch, px in (("swin_v2_t", 32), ("maxvit_t", 224),
+                 ("efficientnet_b0", 32), ("convnext_tiny", 32)):
+    m = create_model(arch, device="meta")
+    assert m.train()(torch.zeros(1, px, px, 3, device="meta")).shape \
+        == (1, 1000)
 model = create_model("resnet18", width=8, num_classes=4)
 model.reset_parameters(torch.Generator().manual_seed(0))
 cfg = Config(num_classes=4, batch_size=4, accum_steps=2, mixup_alpha=0.2,

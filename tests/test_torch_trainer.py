@@ -247,7 +247,7 @@ def test_flag_surface_is_tpudists():
     (["--replica-check-freq", "2"], "--replica-check-freq"),
     (["--flash", "on"], "--flash on"),
     (["--metrics-port", "9100"], "--metrics-port"),
-    (["-a", "alexnet"], "-a alexnet"),
+    (["-a", "vit_moe_s_16"], "-a vit_moe_s_16"),
     (["--mesh-shape", "2"], "--mesh-shape"),
     (["--compress-grads", "int8"], "--compress-grads"),
 ])

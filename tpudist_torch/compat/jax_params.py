@@ -13,10 +13,13 @@ so each leaf maps by name with at most a transpose:
   ``[h][q|k|v][head_dim]``;
 - ViT: ``ln*/scale``, ``bias`` → ``weight``, ``bias``; ``class_token`` and
   ``pos_embedding`` as they are;
-- the BatchNorm conv nets (resnet, vgg, densenet, googlenet,
-  inception_v3, mobilenet, regnet): BatchNorm ``scale``/``bias``, a
-  conv's ``bias`` and the ``batch_stats`` ``mean``/``var`` keep their
-  names.
+- every other family (the BatchNorm conv nets, alexnet, squeezenet,
+  mnasnet, shufflenet, efficientnet, convnext, swin, maxvit): BatchNorm
+  and LayerNorm ``scale``/``bias`` (the port's ``layers.LayerNorm``
+  keeps flax's names), a conv's or Dense's ``bias``, convnext's
+  ``layer_scale``, swin's and maxvit's ``relative_position_bias_table``,
+  swin v2's ``logit_scale`` and the ``batch_stats`` ``mean``/``var``
+  keep their names and shapes.
 
 ``jax_tree`` goes the other way, for the checkpoint writer: ``weight``
 ``(out, in, kh, kw)`` → HWIO ``kernel``, ``(out, in)`` → ``(in, out)``
@@ -61,18 +64,24 @@ def vit_state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
     return out
 
 
+# The leaves other than ``kernel`` that keep their flax names.
+_NAMED_LEAVES = ("scale", "bias", "layer_scale",
+                 "relative_position_bias_table", "logit_scale")
+
+
 def bn_net_state_dict_from_jax(params: Mapping, batch_stats: Mapping
                                ) -> dict[str, torch.Tensor]:
-    """Convert a flax BatchNorm conv net's ``params`` and ``batch_stats``
-    trees (without their collection level) to a ``state_dict`` that the
-    port's model of the same arch takes with ``strict=True``: conv and
-    Dense ``kernel`` → ``weight``, the rest by name."""
+    """Convert a flax conv net's (or swin's, or maxvit's) ``params`` and
+    ``batch_stats`` trees (without their collection level; a model
+    without BatchNorm has none) to a ``state_dict`` that the port's model
+    of the same arch takes with ``strict=True``: conv and Dense
+    ``kernel`` → ``weight``, the rest by name."""
     out: dict[str, torch.Tensor] = {}
     for path, arr in _flatten(params):
         *mods, leaf = path
         if leaf == "kernel":
             arr, leaf = _kernel(arr, path), "weight"
-        elif leaf not in ("scale", "bias"):
+        elif leaf not in _NAMED_LEAVES:
             raise ValueError(f"unexpected conv-net parameter "
                              f"{'/'.join(path)}")
         out[".".join([*mods, leaf])] = _tensor(arr)
@@ -104,8 +113,8 @@ def _tensor(arr: np.ndarray) -> torch.Tensor:
 def state_dict_from_jax(arch: str, params: Mapping,
                         batch_stats: Mapping | None = None
                         ) -> dict[str, torch.Tensor]:
-    """The converter for ``arch``: ``vit*``, or any BatchNorm conv net
-    (a ViT has no ``batch_stats``)."""
+    """The converter for ``arch``: ``vit*``, or any other family (a ViT,
+    convnext or swin has no ``batch_stats``)."""
     if arch.startswith("vit"):
         return vit_state_dict_from_jax(params)
     return bn_net_state_dict_from_jax(params, batch_stats or {})

@@ -1,10 +1,12 @@
 """The reference's ``.pth.tar`` files, in and out of the port.
 
-The port's copy of ``tpudist/compat/torch_checkpoint.py`` for the
-families the port has: ``resnet``, ``resnext``, ``wide_resnet``, ``vit``,
-``vgg``, ``densenet``, ``googlenet``, ``inception``, ``mobilenet`` and
-``regnet``. The reference saves ``{"epoch", "arch", "state_dict",
-"best_acc1"}`` with ``torch.save`` (``checkpoint.pth.tar``,
+The port's copy of ``tpudist/compat/torch_checkpoint.py`` for every
+family the port has: ``resnet``, ``resnext``, ``wide_resnet``, ``vit``,
+``alexnet``, ``vgg``, ``squeezenet``, ``densenet``, ``googlenet``,
+``inception``, ``mobilenet``, ``mnasnet``, ``shufflenet``, ``regnet``,
+``efficientnet``, ``convnext``, ``swin`` and ``maxvit``. The reference
+saves ``{"epoch", "arch", "state_dict", "best_acc1"}`` with
+``torch.save`` (``checkpoint.pth.tar``,
 ``model_best.pth.tar``), the ``state_dict`` in torchvision's names and
 layouts. The port's parameter names are flax's paths
 (``compat/jax_params``), so each direction goes through the flax tree
@@ -33,6 +35,16 @@ tpudist's for the same weights:
   ↔ ``blockS_I_f_a_conv``, the stem ``stem.0``/``.1``. A googlenet file
   with aux-head weights loads into the default model without aux heads
   (torchvision's released weights carry them), as in tpudist;
+- alexnet and squeezenet: ``features_N``/``classifier_N`` (squeezenet's
+  Fire children dotted: ``features.3.squeeze``); efficientnet, convnext,
+  mnasnet, shufflenet and maxvit: tables built from the block configs, as
+  tpudist's; swin: rules over ``features.S.I.attn.qkv`` and the like.
+  convnext's ``layer_scale`` is (C,) in the port and (C, 1, 1) in the
+  file; swin's qkv is head-major in the port and qkv-major in the file
+  (the ViT's permutation, with each stage's head count); the bias tables
+  and swin v2's ``logit_scale`` keep their layout, and the index and
+  coordinate buffers torchvision registers beside them are written from
+  the window size on export and skipped on import;
 - ``num_batches_tracked`` is written as 0 and dropped on import;
 - the file holds contiguous tensors in torch's layout whatever the
   strides of the port's weights (a 1x1 conv's are channels_last).
@@ -43,6 +55,7 @@ shape raises, naming it. Any other family raises, naming these.
 
 from __future__ import annotations
 
+import math
 import os
 import re
 from functools import lru_cache
@@ -53,9 +66,12 @@ import torch
 
 from tpudist_torch.compat.jax_params import jax_tree, state_dict_from_jax
 
-SUPPORTED_FAMILIES = ("resnet", "resnext", "wide_resnet", "vit", "vgg",
-                      "densenet", "googlenet", "inception", "mobilenet",
-                      "regnet")
+SUPPORTED_FAMILIES = ("resnet", "resnext", "wide_resnet", "alexnet", "vgg",
+                      "squeezenet", "densenet", "efficientnet", "convnext",
+                      "regnet", "swin", "mobilenet", "mnasnet", "shufflenet",
+                      "googlenet", "inception", "vit", "maxvit")
+# torchvision's buffers of swin (and maxvit) that the port computes.
+_DERIVED_BUFFERS = ("relative_position_index", "relative_coords_table")
 
 
 @lru_cache(maxsize=None)
@@ -115,7 +131,191 @@ def _mobilenet_map(arch: str) -> Dict[str, str]:
     return m
 
 
-_MAP_FAMILIES = {"mobilenet": _mobilenet_map}
+@lru_cache(maxsize=None)
+def _efficientnet_map(arch: str) -> Dict[str, str]:
+    """torch module → flax module for EfficientNet v1/v2 (tpudist's
+    table): torchvision nests each block in ``features.{s}.{i}.block.{j}``,
+    ``j`` depending on whether the block expands; the port's blocks are
+    flat ``features_{s}_{i}_{expand,dw,se,project}`` (fused: ``fused``,
+    ``project``)."""
+    from tpudist_torch.models.efficientnet import (_BASE, _V2_TABLES,
+                                                   _VARIANTS)
+    if arch in _V2_TABLES:
+        stages = [(kind, ratio != 1, n)
+                  for kind, ratio, _k, _s, _ci, _co, n in _V2_TABLES[arch]]
+    elif arch in _VARIANTS:
+        depth = _VARIANTS[arch][1]
+        stages = [("mb", ratio != 1, int(math.ceil(n * depth)))
+                  for ratio, _k, _s, _ci, _co, n in _BASE]
+    else:
+        raise ValueError(f"unknown efficientnet variant '{arch}'")
+    m = {"features.0.0": "features_0_conv", "features.0.1": "features_0_bn",
+         "classifier.1": "classifier_1"}
+    for s, (kind, has_expand, n) in enumerate(stages, start=1):
+        for i in range(n):
+            t, f = f"features.{s}.{i}.block", f"features_{s}_{i}"
+            if kind == "mb":
+                j = 0
+                if has_expand:
+                    m[f"{t}.0.0"] = f"{f}_expand_conv"
+                    m[f"{t}.0.1"] = f"{f}_expand_bn"
+                    j = 1
+                m[f"{t}.{j}.0"] = f"{f}_dw_conv"
+                m[f"{t}.{j}.1"] = f"{f}_dw_bn"
+                m[f"{t}.{j + 1}.fc1"] = f"{f}_se_fc1"
+                m[f"{t}.{j + 1}.fc2"] = f"{f}_se_fc2"
+                m[f"{t}.{j + 2}.0"] = f"{f}_project_conv"
+                m[f"{t}.{j + 2}.1"] = f"{f}_project_bn"
+            else:
+                m[f"{t}.0.0"] = f"{f}_fused_conv"
+                m[f"{t}.0.1"] = f"{f}_fused_bn"
+                if has_expand:
+                    m[f"{t}.1.0"] = f"{f}_project_conv"
+                    m[f"{t}.1.1"] = f"{f}_project_bn"
+    h = len(stages) + 1
+    m[f"features.{h}.0"] = f"features_{h}_conv"
+    m[f"features.{h}.1"] = f"features_{h}_bn"
+    return m
+
+
+@lru_cache(maxsize=None)
+def _convnext_map(arch: str) -> Dict[str, str]:
+    """torch module → flax module for ConvNeXt (torchvision's CNBlock
+    indices: ``block.0`` the depthwise conv, ``block.2`` the LayerNorm,
+    ``block.3``/``.5`` the MLP; the block itself holds ``layer_scale``;
+    a downsampler is a LayerNorm and a conv)."""
+    from tpudist_torch.models.convnext import _VARIANTS
+    if arch not in _VARIANTS:
+        raise ValueError(f"unknown convnext variant '{arch}'")
+    m = {"features.0.0": "features_0_conv", "features.0.1": "features_0_norm",
+         "classifier.0": "classifier_0", "classifier.2": "classifier_2"}
+    feat = 1
+    for _cin, cout, n in _VARIANTS[arch][0]:
+        for i in range(n):
+            t, f = f"features.{feat}.{i}", f"features_{feat}_{i}"
+            m[f"{t}.block.0"] = f"{f}_dwconv"
+            m[f"{t}.block.2"] = f"{f}_norm"
+            m[f"{t}.block.3"] = f"{f}_mlp_fc1"
+            m[f"{t}.block.5"] = f"{f}_mlp_fc2"
+            m[t] = f
+        feat += 1
+        if cout is not None:
+            m[f"features.{feat}.0"] = f"features_{feat}_norm"
+            m[f"features.{feat}.1"] = f"features_{feat}_conv"
+            feat += 1
+    return m
+
+
+@lru_cache(maxsize=None)
+def _mnasnet_map(arch: str) -> Dict[str, str]:
+    """torch module → flax module for MnasNet: torchvision's trunk is one
+    flat ``layers`` Sequential with the six stacks at 8–13, each block an
+    ``_InvertedResidual.layers`` Sequential."""
+    m = {"layers.0": "stem", "layers.1": "stem_bn",
+         "layers.3": "sep_dw", "layers.4": "sep_dw_bn",
+         "layers.6": "sep_pw", "layers.7": "sep_pw_bn",
+         "layers.14": "head", "layers.15": "head_bn",
+         "classifier.1": "classifier_1"}
+    for si, r in enumerate((3, 3, 3, 2, 4, 1)):
+        for j in range(r):
+            t, f = f"layers.{8 + si}.{j}.layers", f"stack{si}_{j}"
+            for tn, fn in (("0", "expand"), ("1", "expand_bn"),
+                           ("3", "dw"), ("4", "dw_bn"),
+                           ("6", "project"), ("7", "project_bn")):
+                m[f"{t}.{tn}"] = f"{f}_{fn}"
+    return m
+
+
+@lru_cache(maxsize=None)
+def _shufflenet_map(arch: str) -> Dict[str, str]:
+    """torch module → flax module for ShuffleNetV2 (stage repeats (4, 8,
+    4) at every width; ``branch1`` only in a stage's stride-2 unit)."""
+    m = {"conv1.0": "conv1", "conv1.1": "conv1_bn",
+         "conv5.0": "conv5", "conv5.1": "conv5_bn", "fc": "fc"}
+    for si, r in zip((2, 3, 4), (4, 8, 4)):
+        for j in range(r):
+            t, f = f"stage{si}.{j}", f"stage{si}_{j}"
+            if j == 0:
+                m[f"{t}.branch1.0"] = f"{f}_b1_dw"
+                m[f"{t}.branch1.1"] = f"{f}_b1_dw_bn"
+                m[f"{t}.branch1.2"] = f"{f}_b1_conv"
+                m[f"{t}.branch1.3"] = f"{f}_b1_conv_bn"
+            m[f"{t}.branch2.0"] = f"{f}_b2_conv1"
+            m[f"{t}.branch2.1"] = f"{f}_b2_conv1_bn"
+            m[f"{t}.branch2.3"] = f"{f}_b2_dw"
+            m[f"{t}.branch2.4"] = f"{f}_b2_dw_bn"
+            m[f"{t}.branch2.5"] = f"{f}_b2_conv2"
+            m[f"{t}.branch2.6"] = f"{f}_b2_conv2_bn"
+    return m
+
+
+@lru_cache(maxsize=None)
+def _maxvit_map(arch: str) -> Dict[str, str]:
+    """torch module → flax module for MaxViT-T (torchvision's
+    ``blocks.{s}.layers.{i}.layers.{MBconv,window_attention,
+    grid_attention}``)."""
+    if arch != "maxvit_t":
+        raise ValueError(f"unknown maxvit variant '{arch}'")
+    m = {"stem.0.0": "stem_0", "stem.0.1": "stem_0_bn", "stem.1.0": "stem_1",
+         "classifier.2": "classifier_2", "classifier.3": "classifier_3",
+         "classifier.5": "classifier_5"}
+    for s, n in enumerate((2, 2, 5, 2)):
+        for i in range(n):
+            t, f = f"blocks.{s}.layers.{i}.layers", f"block_{s}_{i}"
+            mb = f"{t}.MBconv"
+            m[f"{mb}.layers.pre_norm"] = f"{f}_mbconv_pre_norm"
+            m[f"{mb}.layers.conv_a.0"] = f"{f}_mbconv_conv_a"
+            m[f"{mb}.layers.conv_a.1"] = f"{f}_mbconv_conv_a_bn"
+            m[f"{mb}.layers.conv_b.0"] = f"{f}_mbconv_conv_b"
+            m[f"{mb}.layers.conv_b.1"] = f"{f}_mbconv_conv_b_bn"
+            m[f"{mb}.layers.squeeze_excitation.fc1"] = \
+                f"{f}_mbconv_squeeze_excitation_fc1"
+            m[f"{mb}.layers.squeeze_excitation.fc2"] = \
+                f"{f}_mbconv_squeeze_excitation_fc2"
+            m[f"{mb}.layers.conv_c"] = f"{f}_mbconv_conv_c"
+            if i == 0:
+                m[f"{mb}.proj.1"] = f"{f}_mbconv_proj"
+            for part, tp in (("window", "window_attention"),
+                             ("grid", "grid_attention")):
+                pa = f"{t}.{tp}"
+                m[f"{pa}.attn_layer.0"] = f"{f}_{part}_attn_norm"
+                m[f"{pa}.attn_layer.1.to_qkv"] = f"{f}_{part}_attn_to_qkv"
+                m[f"{pa}.attn_layer.1.merge"] = f"{f}_{part}_attn_merge"
+                m[f"{pa}.attn_layer.1"] = f"{f}_{part}_attn"
+                m[f"{pa}.mlp_layer.0"] = f"{f}_{part}_mlp_norm"
+                m[f"{pa}.mlp_layer.1"] = f"{f}_{part}_mlp_0"
+                m[f"{pa}.mlp_layer.3"] = f"{f}_{part}_mlp_2"
+    return m
+
+
+_MAP_FAMILIES = {"mobilenet": _mobilenet_map,
+                 "efficientnet": _efficientnet_map,
+                 "convnext": _convnext_map, "mnasnet": _mnasnet_map,
+                 "shufflenet": _shufflenet_map, "maxvit": _maxvit_map}
+_SWIN_TO_FLAX = (
+    (r"^features\.0\.0$", "features_0_conv"),
+    (r"^features\.0\.2$", "features_0_norm"),   # Sequential(conv, Permute, LN)
+    (r"^features\.(\d+)\.(\d+)\.attn\.cpb_mlp\.(0|2)$",
+     r"features_\1_\2_attn_cpb_mlp_\3"),
+    (r"^features\.(\d+)\.(\d+)\.attn\.(qkv|proj)$", r"features_\1_\2_attn_\3"),
+    (r"^features\.(\d+)\.(\d+)\.attn$", r"features_\1_\2_attn"),
+    (r"^features\.(\d+)\.(\d+)\.(norm1|norm2)$", r"features_\1_\2_\3"),
+    (r"^features\.(\d+)\.(\d+)\.mlp\.(0|3)$", r"features_\1_\2_mlp_\3"),
+    (r"^features\.(\d+)\.(reduction|norm)$", r"features_\1_\2"),
+    (r"^norm$", "norm"), (r"^head$", "head"),
+)
+_SWIN_FROM_FLAX = (
+    (r"^features_0_conv$", "features.0.0"),
+    (r"^features_0_norm$", "features.0.2"),
+    (r"^features_(\d+)_(\d+)_attn_cpb_mlp_(0|2)$",
+     r"features.\1.\2.attn.cpb_mlp.\3"),
+    (r"^features_(\d+)_(\d+)_attn_(qkv|proj)$", r"features.\1.\2.attn.\3"),
+    (r"^features_(\d+)_(\d+)_attn$", r"features.\1.\2.attn"),
+    (r"^features_(\d+)_(\d+)_(norm1|norm2)$", r"features.\1.\2.\3"),
+    (r"^features_(\d+)_(\d+)_mlp_(0|3)$", r"features.\1.\2.mlp.\3"),
+    (r"^features_(\d+)_(reduction|norm)$", r"features.\1.\2"),
+    (r"^norm$", "norm"), (r"^head$", "head"),
+)
 
 _REGNET_TO_FLAX = (
     (r"^stem\.0$", "stem_conv"), (r"^stem\.1$", "stem_bn"),
@@ -197,7 +397,13 @@ _VIT_FROM_FLAX = (
 
 def family(arch: str) -> str:
     """The torchvision family of ``arch``; raises for one the port's
-    interop does not cover."""
+    interop does not cover (tpudist's vit_moe and vit_pipe, with
+    tpudist's reason)."""
+    if arch.startswith(("vit_moe", "vit_pipe")):
+        raise ValueError(
+            f"arch '{arch}' is a tpudist-native architecture with no "
+            f"torchvision counterpart — torch-checkpoint interop does not "
+            f"apply (use the msgpack backend)")
     for fam in SUPPORTED_FAMILIES:
         if arch.startswith(fam):
             return fam
@@ -217,6 +423,17 @@ def _vit_inproj_perm(dim: int, heads: int) -> np.ndarray:
     return j * dim + h * hd + d
 
 
+def _swin_heads(arch: str, mod: str) -> int:
+    """The head count of a swin attention module: torchvision interleaves
+    the stages with PatchMerging in ``features`` (stages at 1, 3, 5, 7),
+    so feature index s is stage (s − 1) // 2."""
+    from tpudist_torch.models.swin import _VARIANTS
+    m = re.match(r"features_(\d+)_", mod)
+    if m is None:
+        raise ValueError(f"cannot locate the swin stage of '{mod}'")
+    return _VARIANTS[arch][2][(int(m.group(1)) - 1) // 2]
+
+
 def _apply_rules(rules, name: str) -> Optional[str]:
     for pat, repl in rules:
         new, n = re.subn(pat, repl, name)
@@ -226,6 +443,7 @@ def _apply_rules(rules, name: str) -> Optional[str]:
 
 
 _REGEX_FAMILIES = {"regnet": (_REGNET_TO_FLAX, _REGNET_FROM_FLAX),
+                   "swin": (_SWIN_TO_FLAX, _SWIN_FROM_FLAX),
                    "googlenet": (_DOTS_TO_UNDERSCORES, _GOOGLENET_FROM_FLAX),
                    "inception": (_DOTS_TO_UNDERSCORES, _INCEPTION_FROM_FLAX),
                    "vit": (_VIT_TO_FLAX, _VIT_FROM_FLAX)}
@@ -265,8 +483,10 @@ def _untranslate(fam: str, mod: str, arch: str) -> str:
         mod = re.sub(r"(denseblock\d+)_(denselayer\d+)_", r"\1.\2.", mod)
         mod = re.sub(r"features_", "features.", mod)
         return re.sub(r"(transition\d+)_", r"\1.", mod)
-    if fam == "vgg":
-        return re.sub(r"^(features|classifier)_(\d+)", r"\1.\2", mod)
+    if fam in ("alexnet", "vgg", "squeezenet"):
+        mod = re.sub(r"^(features|classifier)_(\d+)", r"\1.\2", mod)
+        # squeezenet's Fire children: features.3_squeeze → .squeeze
+        return mod.replace("_", ".") if fam == "squeezenet" else mod
     m = re.match(r"^(layer\d+)_(\d+)_(.*)$", mod)
     if m:
         mod = f"{m.group(1)}.{m.group(2)}.{m.group(3)}"
@@ -325,7 +545,8 @@ def torch_state_dict_to_flax(state_dict: Dict[str, Any], arch: str,
     new_p: Dict[tuple, np.ndarray] = {}
     new_s: Dict[tuple, np.ndarray] = {}
     for key, tensor in state_dict.items():
-        if key.endswith("num_batches_tracked"):
+        if key.endswith("num_batches_tracked") \
+                or key.endswith(_DERIVED_BUFFERS):
             continue
         if fam == "densenet":
             key = _DENSENET_LEGACY.sub(r"\1\2", key)
@@ -361,6 +582,23 @@ def torch_state_dict_to_flax(state_dict: Dict[str, Any], arch: str,
         elif param == "running_var":
             path = s_index[mod][:-1] + ("var",)
             new_s[path] = arr
+        elif param == "layer_scale":                   # (C, 1, 1) → (C,)
+            path = p_index[mod][:-1] + ("layer_scale",)
+            new_p[path] = arr.reshape(-1)
+        elif param in ("relative_position_bias_table", "logit_scale"):
+            path = p_index[mod][:-1] + (param,)
+            new_p[path] = arr
+        elif fam == "swin" and mod.endswith("_attn_qkv"):
+            # torchvision packs qkv-major; the port's kernel is head-major.
+            perm = _vit_inproj_perm(arr.shape[-1] if param == "weight"
+                                    else arr.shape[0] // 3,
+                                    _swin_heads(arch, mod))
+            if param == "weight":
+                path = p_index[mod][:-1] + ("kernel",)
+                new_p[path] = np.ascontiguousarray(arr[perm].T)
+            else:
+                path = p_index[mod][:-1] + ("bias",)
+                new_p[path] = arr[perm]
         elif param == "in_proj_weight":                # vit packed qkv
             perm = _vit_inproj_perm(arr.shape[1], heads)
             path = p_index[mod][:-1] + ("kernel",)
@@ -436,6 +674,21 @@ def flax_to_torch_state_dict(params: Any, batch_stats: Any, arch: str,
                     out[f"{tmod}.in_proj_bias"] = tensor(arr[inv])
                 continue
         tmod = _untranslate(fam, mod, arch)
+        if kind == "layer_scale":
+            out[f"{tmod}.layer_scale"] = tensor(arr.reshape(-1, 1, 1))
+            continue
+        if kind in ("relative_position_bias_table", "logit_scale"):
+            out[f"{tmod}.{kind}"] = tensor(arr)
+            out.update(_derived_buffers(tmod, kind, arr, fam, arch))
+            continue
+        if fam == "swin" and mod.endswith("_attn_qkv"):
+            heads_here = _swin_heads(arch, mod)
+            dim = arr.shape[0] if kind == "kernel" else arr.shape[0] // 3
+            inv = np.argsort(_vit_inproj_perm(dim, heads_here))
+            name = "weight" if kind == "kernel" else "bias"
+            out[f"{tmod}.{name}"] = tensor(arr.T[inv] if kind == "kernel"
+                                           else arr[inv])
+            continue
         if kind == "kernel" and arr.ndim == 4:
             out[f"{tmod}.weight"] = tensor(arr.transpose(3, 2, 0, 1))
         elif kind == "kernel":
@@ -453,6 +706,28 @@ def flax_to_torch_state_dict(params: Any, batch_stats: Any, arch: str,
         if path[-1] == "mean":
             out[f"{tmod}.num_batches_tracked"] = torch.zeros(
                 (), dtype=torch.long)
+    return out
+
+
+def _derived_buffers(tmod: str, kind: str, arr: np.ndarray, fam: str,
+                     arch: str) -> dict:
+    """The buffers torchvision registers beside a bias table (its
+    ``relative_position_index``: flat for swin, (L, L) for maxvit) or
+    swin v2's ``logit_scale`` (the index and ``relative_coords_table``),
+    written from the window size, as ``num_batches_tracked`` is."""
+    from tpudist_torch.models.swin import (_VARIANTS, _cpb_coords,
+                                           _rel_pos_index)
+    if kind == "relative_position_bias_table":
+        ws = (int(round(math.sqrt(arr.shape[0]))) + 1) // 2
+    else:
+        ws = _VARIANTS[arch][3]
+    idx = _rel_pos_index(ws)
+    out = {f"{tmod}.relative_position_index": torch.from_numpy(
+        np.ascontiguousarray(idx if fam == "maxvit" else idx.reshape(-1))
+    ).long()}
+    if kind == "logit_scale":
+        out[f"{tmod}.relative_coords_table"] = torch.from_numpy(
+            _cpb_coords(ws).reshape(1, 2 * ws - 1, 2 * ws - 1, 2))
     return out
 
 

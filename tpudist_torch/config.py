@@ -173,14 +173,14 @@ class Config:
         return dataclasses.asdict(self)
 
 
-# The attention archs the trainer takes (models/__init__.py registers them).
+# The ViTs: the archs whose attention can take the flash kernels, and the
+# only ones ``--flash on`` applies to (tpudist's ``vit*`` rule).
 VIT_ARCHS = ("vit_b_16", "vit_b_32", "vit_l_16", "vit_l_32", "vit_h_14")
-# The conv families the trainer takes, by name prefix: the resnet family
-# and the BatchNorm+ReLU families. tpudist's other families (alexnet,
-# squeezenet, efficientnet, mnasnet, shufflenet, convnext, swin, maxvit,
-# vit_moe, vit_pipe) are refused by name.
-CONV_FAMILIES = ("resnet", "resnext", "wide_resnet", "vgg", "densenet",
-                 "googlenet", "inception_v3", "mobilenet", "regnet")
+# tpudist's archs that need the expert and pipe mesh axes, which the port
+# does not have: refused by name (models/__init__.py registers every
+# other arch of tpudist's).
+MULTI_AXIS_ARCHS = ("vit_moe_b_16", "vit_moe_s_16", "vit_pipe_b_16",
+                    "vit_pipe_s_16")
 
 # Flags the port does not support yet: a value other than the default is
 # refused at startup, naming the flag and what is missing.
@@ -224,10 +224,13 @@ def refuse_unsupported(cfg: Config) -> None:
            for name, (flag, what) in _NOT_YET.items()
            if getattr(cfg, name) != getattr(default, name)]
     vit = cfg.arch in VIT_ARCHS
-    if not (vit or cfg.arch.startswith(CONV_FAMILIES)):
-        bad.append(f"-a {cfg.arch} (the port trains the resnet, vit, vgg, "
-                   f"densenet, googlenet, inception_v3, mobilenet and "
-                   f"regnet families so far)")
+    from tpudist_torch.models import model_names
+    if cfg.arch in MULTI_AXIS_ARCHS:
+        bad.append(f"-a {cfg.arch} (it needs the expert or pipe mesh axis, "
+                   f"which the port does not have yet)")
+    elif cfg.arch not in model_names():
+        bad.append(f"-a {cfg.arch} (unknown arch; available: "
+                   f"{', '.join(model_names())})")
     if not vit and cfg.flash == "on":
         bad.append(f"--flash on (it applies to attention archs (vit*); got "
                    f"'{cfg.arch}')")

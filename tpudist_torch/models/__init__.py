@@ -2,9 +2,13 @@
 
 Counterpart of ``tpudist/models/__init__.py``: ``create_model('resnet18',
 num_classes=1000, ...)`` builds by name and an unknown name raises with
-the list of those available. The port registers the ResNet and ViT
-families and the BatchNorm+ReLU conv families: vgg (+bn), densenet,
-googlenet, inception_v3, mobilenet and regnet.
+the list of those available. The port registers every arch of
+tpudist's that runs on one card: the ResNet and ViT families, the
+BatchNorm+ReLU conv families (vgg (+bn), densenet, googlenet,
+inception_v3, mobilenet, regnet), and alexnet, squeezenet, mnasnet,
+shufflenet_v2, efficientnet (v1, v2), convnext, swin (v1, v2) and
+maxvit_t. tpudist's vit_moe and vit_pipe archs need the expert and pipe
+mesh axes, which the port does not have: they are not registered.
 """
 
 from __future__ import annotations
@@ -13,12 +17,20 @@ from typing import Any, Callable, Dict
 
 from torch import nn
 
+from tpudist_torch.models import alexnet as _alexnet_mod
+from tpudist_torch.models import convnext as _convnext_mod
 from tpudist_torch.models import densenet as _densenet_mod
+from tpudist_torch.models import efficientnet as _efficientnet_mod
 from tpudist_torch.models import googlenet as _googlenet_mod
 from tpudist_torch.models import inception as _inception_mod
+from tpudist_torch.models import maxvit as _maxvit_mod
+from tpudist_torch.models import mnasnet as _mnasnet_mod
 from tpudist_torch.models import mobilenet as _mobilenet_mod
 from tpudist_torch.models import regnet as _regnet_mod
 from tpudist_torch.models import resnet as _resnet_mod
+from tpudist_torch.models import shufflenet as _shufflenet_mod
+from tpudist_torch.models import squeezenet as _squeezenet_mod
+from tpudist_torch.models import swin as _swin_mod
 from tpudist_torch.models import vgg as _vgg_mod
 from tpudist_torch.models import vit as _vit_mod
 from tpudist_torch.models.resnet import ResNet  # noqa: F401
@@ -51,6 +63,22 @@ for _n in ("mobilenet_v2", "mobilenet_v3_large", "mobilenet_v3_small"):
     register_model(_n, getattr(_mobilenet_mod, _n))
 for _n in _regnet_mod._VARIANTS:
     register_model(_n, getattr(_regnet_mod, _n))
+
+register_model("alexnet", _alexnet_mod.alexnet)
+for _n in ("squeezenet1_0", "squeezenet1_1"):
+    register_model(_n, getattr(_squeezenet_mod, _n))
+for _n in ("mnasnet0_5", "mnasnet0_75", "mnasnet1_0", "mnasnet1_3"):
+    register_model(_n, getattr(_mnasnet_mod, _n))
+for _n in ("shufflenet_v2_x0_5", "shufflenet_v2_x1_0",
+           "shufflenet_v2_x1_5", "shufflenet_v2_x2_0"):
+    register_model(_n, getattr(_shufflenet_mod, _n))
+for _n in (*_efficientnet_mod._VARIANTS, *_efficientnet_mod._V2_TABLES):
+    register_model(_n, getattr(_efficientnet_mod, _n))
+for _n in _convnext_mod._VARIANTS:
+    register_model(_n, getattr(_convnext_mod, _n))
+for _n in _swin_mod._VARIANTS:
+    register_model(_n, getattr(_swin_mod, _n))
+register_model("maxvit_t", _maxvit_mod.maxvit_t)
 
 
 def model_names() -> list[str]:

@@ -26,13 +26,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpudist_torch.models.layers import (AuxOutputs, BasicConv2d,
-                                         DenseTorch, Dropout,
+                                         DenseTorch, Dropout, avg_pool_padded,
                                          global_avg_pool, reset_parameters)
 
 
 def _avg_pool_same(x: torch.Tensor) -> torch.Tensor:
     # avg_pool2d(3, stride=1, padding=1) counts the padding in the mean
-    return F.avg_pool2d(x, 3, 1, 1)
+    # (layers.avg_pool_padded: torch's CUDA backward of it over a
+    # channels_last input is wrong)
+    return avg_pool_padded(x, 3, 1, 1)
 
 
 class InceptionA(nn.Module):

@@ -2,11 +2,14 @@
 
 Counterpart of ``tpudist/models/layers.py`` (``BatchNorm``,
 ``conv_kaiming``, ``BasicConv2d``, ``DenseTorch``, ``adaptive_avg_pool``,
-``max_pool_ceil``), plus flax's ``nn.Dropout`` (``Dropout``, whose masks
-come from a seeded generator: ``dropout_seed``). The conv nets run on
-NCHW tensors laid out ``torch.channels_last``: the NHWC memory tpudist
-works in, so a ``permute(0, 2, 3, 1)`` gives the NHWC view without a
-copy and the ``(N·H·W, C)`` rows the fused epilogue kernels read.
+``max_pool_ceil``, ``stochastic_depth``), plus flax's ``nn.Dropout``
+(``Dropout``) and ``nn.LayerNorm`` (``LayerNorm``). Dropout masks and
+stochastic depth's per-sample keeps come from one seeded generator
+(``dropout_seed``), as tpudist draws both from its ``"dropout"``
+stream. The conv nets run on NCHW tensors laid out
+``torch.channels_last``: the NHWC memory tpudist works in, so a
+``permute(0, 2, 3, 1)`` gives the NHWC view without a copy and the
+``(N·H·W, C)`` rows the fused epilogue kernels read.
 
 Precision follows flax's ``dtype=`` promotion: parameters stay f32 (the
 master weights) and each forward casts its input and weights to the
@@ -135,6 +138,28 @@ class BatchNorm(nn.Module):
         return yh.permute(0, 3, 1, 2)
 
 
+# jax's truncated-normal initializers (lecun_normal, variance_scaling)
+# draw a unit normal cut at ±2 and divide by this factor, the std of that
+# truncated unit normal.
+TRUNC_STD = 0.87962566103423978
+
+
+def draw_init(w: torch.Tensor, init, generator: torch.Generator) -> None:
+    """Fill ``w`` in place: ``("normal", std)``, ``("trunc_normal", std)``
+    (cut at ±2 std), ``("uniform", bound)`` (U(±bound)) or ``"zeros"``."""
+    if init == "zeros":
+        w.zero_()
+    elif init[0] == "normal":
+        w.normal_(0.0, init[1], generator=generator)
+    elif init[0] == "trunc_normal":
+        nn.init.trunc_normal_(w, 0.0, init[1], -2 * init[1], 2 * init[1],
+                              generator=generator)
+    elif init[0] == "uniform":
+        w.uniform_(-init[1], init[1], generator=generator)
+    else:
+        raise ValueError(f"unknown init {init!r}")
+
+
 def _pair(v) -> tuple[int, int]:
     return (v, v) if isinstance(v, int) else (int(v[0]), int(v[1]))
 
@@ -142,11 +167,14 @@ def _pair(v) -> tuple[int, int]:
 class Conv2d(nn.Module):
     """``conv_kaiming``: a conv with torchvision's BN-follows init (flax
     ``variance_scaling(2.0, "fan_out", "normal")``: an untruncated normal
-    of std ``sqrt(2 / (kh·kw·out))``), or with ``stddev`` set the
-    inception family's ``truncated_normal(stddev)`` (a normal of std
-    ``stddev`` cut at ±2 std); ``groups`` covers ResNeXt's grouped and
-    MobileNet's depthwise convs. ``kernel_size`` and ``padding`` are an
-    int or ``(h, w)`` (inception's 1x7 / 7x1 factorisations); ``padding``
+    of std ``sqrt(2 / (kh·kw·out))``), or with ``init`` set
+    ``("normal", std)``, ``("trunc_normal", std)`` (a normal of std
+    ``std`` cut at ±2 std: the inception family's
+    ``truncated_normal(stddev)``) or ``"lecun"`` (flax ``nn.Conv``'s
+    default ``lecun_normal``: a normal cut at ±2 std, of std
+    ``sqrt(1 / (kh·kw·in/groups)) / 0.8796``); ``groups`` covers
+    ResNeXt's grouped and MobileNet's depthwise convs. ``kernel_size`` and
+    ``padding`` are an int or ``(h, w)`` (inception's 1x7 / 7x1 factorisations); ``padding``
     defaults to ``k // 2`` on each side. ``use_bias`` adds a bias (flax's
     init: zeros) after the conv's rounding, as ``nn.Conv(dtype=dt)`` does.
     The weight is ``(out, in/groups, kh, kw)`` f32; the forward casts it
@@ -155,15 +183,15 @@ class Conv2d(nn.Module):
 
     def __init__(self, in_features: int, features: int, kernel_size,
                  strides: int = 1, *, groups: int = 1, padding=None,
-                 use_bias: bool = False, stddev: float | None = None,
-                 dtype=None, device=None):
+                 use_bias: bool = False, init=None, dtype=None,
+                 device=None):
         super().__init__()
         kh, kw = _pair(kernel_size)
         self.stride = strides
         self.padding = (kh // 2, kw // 2) if padding is None \
             else _pair(padding)
         self.groups = groups
-        self.stddev = stddev
+        self.init = init
         self.dtype = dtype
         # The forward's channels_last cast hands a 1x1 kernel's gradient
         # back with channels_last strides: the same memory order as a
@@ -180,16 +208,18 @@ class Conv2d(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        out, _, kh, kw = self.weight.shape
+        out, fan_in, kh, kw = self.weight.shape
         # Drawn on the CPU, so the weights do not depend on the device.
         w = torch.empty(self.weight.shape, dtype=torch.float32)
-        if self.stddev is None:
+        init = self.init
+        if init == "lecun":
+            init = ("trunc_normal",
+                    math.sqrt(1.0 / (kh * kw * fan_in)) / TRUNC_STD)
+        if init is None:
             w.normal_(0.0, math.sqrt(2.0 / (kh * kw * out)),
                       generator=generator)
         else:
-            s = self.stddev
-            nn.init.trunc_normal_(w, 0.0, s, -2 * s, 2 * s,
-                                  generator=generator)
+            draw_init(w, init, generator)
         self.weight.copy_(w)
         if self.bias is not None:
             self.bias.zero_()
@@ -201,6 +231,30 @@ class Conv2d(nn.Module):
                      self.groups)
         return y if self.bias is None else \
             y + self.bias.to(dt).view(1, -1, 1, 1)
+
+
+def add_conv_bn(parent: nn.Module, name: str, in_features: int,
+                features: int, kernel: int, strides: int = 1, *, bn: dict,
+                groups: int = 1, use_bias: bool = False, dtype=None,
+                device=None) -> None:
+    """Register a kaiming conv ``name`` and its ``BatchNorm`` ``name_bn``
+    on ``parent``: tpudist's flat flax names (``conv_kaiming(...,
+    name)`` then ``norm(name=name + "_bn")``). ``bn`` holds the
+    BatchNorm's keywords."""
+    parent.add_module(name, Conv2d(in_features, features, kernel, strides,
+                                   groups=groups, use_bias=use_bias,
+                                   dtype=dtype, device=device))
+    parent.add_module(f"{name}_bn", BatchNorm(features, dtype=dtype,
+                                              device=device, **bn))
+
+
+def conv_bn(parent: nn.Module, name: str, x: torch.Tensor,
+            relu: bool) -> torch.Tensor:
+    """``add_conv_bn``'s pair on ``x``: the conv, its plain BatchNorm,
+    then a ReLU applied outside it when ``relu`` (no fused epilogue, as
+    tpudist's ``nn.relu(norm(...)(x))``)."""
+    x = getattr(parent, f"{name}_bn")(getattr(parent, name)(x))
+    return F.relu(x) if relu else x
 
 
 class BasicConv2d(nn.Module):
@@ -215,8 +269,8 @@ class BasicConv2d(nn.Module):
                  bn=None, dtype=None, device=None):
         super().__init__()
         self.conv = Conv2d(in_features, features, kernel, strides,
-                           padding=padding, stddev=stddev, dtype=dtype,
-                           device=device)
+                           padding=padding, init=("trunc_normal", stddev),
+                           dtype=dtype, device=device)
         self.bn = BatchNorm(features, epsilon=1e-3, dtype=dtype,
                             device=device, **(bn or {}))
 
@@ -256,12 +310,22 @@ def _dropout_generator(device: torch.device):
     return gen
 
 
+def _keep_mask(shape, keep_prob: float, device) -> torch.Tensor:
+    """A boolean mask of ``shape`` on ``device``, each entry True with
+    probability ``keep_prob``: ``rand < keep_prob`` from
+    ``dropout_seed``'s generator. Every ``Dropout`` and
+    ``stochastic_depth`` draws through here, in the order the forward
+    reaches them."""
+    return torch.rand(tuple(shape), generator=_dropout_generator(device),
+                      device=device) < keep_prob
+
+
 class Dropout(nn.Module):
     """flax ``nn.Dropout(rate)``: in train mode each entry is kept with
     probability ``1 − rate`` and scaled by ``1/(1 − rate)``, in x's dtype
     (``where(keep, x / keep_prob, 0)``); in eval mode, or at rate 0, the
-    identity. The keep mask is ``rand < keep_prob`` on x's device, from
-    ``dropout_seed``'s generator."""
+    identity (and no draw). The keep mask has x's shape, on x's device
+    (``_keep_mask``)."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -271,9 +335,29 @@ class Dropout(nn.Module):
         if not self.training or self.rate == 0.0:
             return x
         keep_prob = 1.0 - self.rate
-        keep = torch.rand(x.shape, generator=_dropout_generator(x.device),
-                          device=x.device) < keep_prob
+        keep = _keep_mask(x.shape, keep_prob, x.device)
         return torch.where(keep, x / keep_prob, x.new_zeros(()))
+
+
+def stochastic_depth(x: torch.Tensor, rate: float, training: bool,
+                     rows: int | None = None) -> torch.Tensor:
+    """torchvision ``stochastic_depth(..., mode="row")``, tpudist's
+    ``layers.stochastic_depth``: in train mode each of the ``rows`` samples
+    (x's first dim by default) keeps its residual branch with probability
+    ``1 − rate``, scaled by ``1/(1 − rate)``, else zeroes it, in x's
+    dtype; in eval mode, or at rate 0, the identity (and no draw). One
+    keep a sample, drawn like a dropout mask (``_keep_mask``); where x's
+    first dim holds ``rows`` samples' windows one after another (maxvit's
+    partitions), each sample's keep covers all of its windows."""
+    if not training or rate == 0.0:
+        return x
+    survival = 1.0 - rate
+    n = x.shape[0] if rows is None else rows
+    keep = _keep_mask((n,), survival, x.device)
+    if n != x.shape[0]:
+        keep = keep.repeat_interleave(x.shape[0] // n)
+    keep = keep.view((x.shape[0],) + (1,) * (x.dim() - 1))
+    return torch.where(keep, x / survival, x.new_zeros(()))
 
 
 def adaptive_avg_pool(x: torch.Tensor, out_hw: tuple[int, int]
@@ -293,6 +377,20 @@ def adaptive_avg_pool(x: torch.Tensor, out_hw: tuple[int, int]
     return F.adaptive_avg_pool2d(x, (oh, ow))
 
 
+def avg_pool_padded(x: torch.Tensor, window: int, strides: int,
+                    padding: int) -> torch.Tensor:
+    """``F.avg_pool2d(x, window, strides, padding)`` with the padding
+    counted in each mean (flax's ``avg_pool(count_include_pad=True)``),
+    on an NCHW channels_last tensor; returns the same layout. The pool
+    runs on an NCHW-contiguous copy: on the card, torch's CUDA backward of
+    a padded average pool over a channels_last input returns a wrong
+    gradient (torch 2.11, cu128: 0.75 of the largest entry off at 3x3/s2,
+    0.56 at 3x3/s1, padding 1; ``chip_numerics.py``)."""
+    y = F.avg_pool2d(x.contiguous(), window, strides, padding,
+                     count_include_pad=True)
+    return y.contiguous(memory_format=torch.channels_last)
+
+
 def max_pool_ceil(x: torch.Tensor, window: int, strides: int,
                   padding: int = 0) -> torch.Tensor:
     """torch ``MaxPool2d(..., ceil_mode=True)``, which tpudist's
@@ -310,49 +408,110 @@ class DenseTorch(nn.Module):
     ``x.astype(dt) @ W.astype(dt) + b.astype(dt)`` (the bias added after
     the product's rounding). ``kernel_init`` and ``bias_init`` override
     the init as tpudist's ``kernel_init``/``bias_init`` do:
-    ``("normal", std)``, ``("trunc_normal", std)`` (cut at ±2 std) or
-    ``"zeros"``."""
+    ``("normal", std)``, ``("trunc_normal", std)`` (cut at ±2 std),
+    ``("uniform", bound)`` or ``"zeros"``. ``use_bias=False`` is flax's
+    ``nn.Dense(use_bias=False)``: no bias parameter."""
 
     def __init__(self, in_features: int, features: int, *, dtype=None,
-                 kernel_init=None, bias_init=None, device=None):
+                 kernel_init=None, bias_init=None, use_bias: bool = True,
+                 device=None):
         super().__init__()
         self.dtype = dtype
         self.inits = (kernel_init, bias_init)
         f32 = dict(dtype=torch.float32, device=device)
         self.weight = nn.Parameter(torch.empty(features, in_features, **f32))
-        self.bias = nn.Parameter(torch.empty(features, **f32))
+        self.bias = (nn.Parameter(torch.empty(features, **f32)) if use_bias
+                     else None)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         bound = 1.0 / math.sqrt(self.weight.shape[1])
         for p, init in zip((self.weight, self.bias), self.inits):
+            if p is None:
+                continue
             w = torch.empty(p.shape, dtype=torch.float32)
-            if init is None:
-                w.uniform_(-bound, bound, generator=generator)
-            elif init == "zeros":
-                w.zero_()
-            elif init[0] == "normal":
-                w.normal_(0.0, init[1], generator=generator)
-            elif init[0] == "trunc_normal":
-                nn.init.trunc_normal_(w, 0.0, init[1], -2 * init[1],
-                                      2 * init[1], generator=generator)
-            else:
-                raise ValueError(f"unknown init {init!r}")
+            draw_init(w, ("uniform", bound) if init is None else init,
+                      generator)
             p.copy_(w)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype or x.dtype
-        return torch.matmul(x.to(dt), self.weight.to(dt).t()) \
-            + self.bias.to(dt)
+        y = torch.matmul(x.to(dt), self.weight.to(dt).t())
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
+TRUNC02 = ("trunc_normal", 0.02)
+
+
+def dense(in_features: int, features: int, dtype=None, device=None,
+          **kw) -> DenseTorch:
+    """flax ``nn.Dense(kernel_init=truncated_normal(0.02))`` (zero bias):
+    the Linears of convnext, swin and maxvit."""
+    return DenseTorch(in_features, features, dtype=dtype, device=device,
+                      kernel_init=TRUNC02, bias_init="zeros", **kw)
+
+
+def conv_nhwc(conv: Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv`` on an NHWC tensor, through its NCHW channels_last view;
+    returns NHWC."""
+    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+class DeviceConstants:
+    """Device copies of numpy constants (swin's and maxvit's indices and
+    masks), made at first use on each device: not buffers, since they are
+    no state and no checkpoint holds them."""
+
+    def __init__(self):
+        self._cache: dict = {}
+
+    def get(self, key, make, device, dtype=None) -> torch.Tensor:
+        k = (key, str(device), dtype)
+        t = self._cache.get(k)
+        if t is None:
+            t = torch.as_tensor(make(), device=device)
+            t = t if dtype is None else t.to(dtype)
+            self._cache[k] = t
+        return t
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm(epsilon, dtype)`` over the last axis: the
+    statistics and the affine in f32 (x promoted), the result cast to
+    ``dtype`` (x's dtype promoted with f32 when None). Parameter names are
+    the flax tree's (``scale``, ``bias``; init ones and zeros)."""
+
+    def __init__(self, features: int, *, epsilon: float = 1e-6, dtype=None,
+                 device=None):
+        super().__init__()
+        self.epsilon = epsilon
+        self.dtype = dtype
+        f32 = dict(dtype=torch.float32, device=device)
+        self.scale = nn.Parameter(torch.ones(features, **f32))
+        self.bias = nn.Parameter(torch.zeros(features, **f32))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator=None) -> None:
+        self.scale.fill_(1.0)
+        self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype or torch.promote_types(x.dtype, torch.float32)
+        return F.layer_norm(x.float(), self.scale.shape, self.scale,
+                            self.bias, self.epsilon).to(dt)
 
 
 def reset_parameters(model: nn.Module, generator: torch.Generator) -> None:
-    """The flax init of every conv, dense and BatchNorm layer of
-    ``model``, drawn from ``generator`` (a CPU generator) in module
+    """The flax init of every conv, dense, BatchNorm and LayerNorm layer
+    of ``model``, and of the parameters a block holds itself (its
+    ``reset_own(generator)``: convnext's layer scale, a relative-position
+    bias table), drawn from ``generator`` (a CPU generator) in module
     order."""
     for mod in model.modules():
-        if isinstance(mod, (Conv2d, DenseTorch, BatchNorm)):
+        if isinstance(mod, (Conv2d, DenseTorch, BatchNorm, LayerNorm)):
             mod.reset_parameters(generator)
+        elif hasattr(mod, "reset_own"):
+            mod.reset_own(generator)
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:

@@ -52,8 +52,14 @@ def hardsigmoid(x: torch.Tensor) -> torch.Tensor:
     return relu6(x + 3.0) / 6.0
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.gelu(approximate=False)``: the exact erf GELU."""
+    return F.gelu(x)
+
+
 ACTS = {"relu": F.relu, "relu6": relu6, "hardswish": hardswish,
-        "hardsigmoid": hardsigmoid, "sigmoid": torch.sigmoid}
+        "hardsigmoid": hardsigmoid, "sigmoid": torch.sigmoid,
+        "silu": F.silu, "gelu": gelu}
 
 
 class ConvBNAct(nn.Module):

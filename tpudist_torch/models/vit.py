@@ -31,14 +31,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpudist_torch.models.layers import DenseTorch as Linear
+from tpudist_torch.models.layers import TRUNC_STD, DenseTorch as Linear
 from tpudist_torch.ops.flash_attention import flash_attention
 from tpudist_torch.parallel.ring_attention import attention
 
 LN_EPS = 1e-6            # flax nn.LayerNorm's default epsilon
-# jax.nn.initializers.lecun_normal draws a normal truncated at ±2 and
-# divides by this factor, the stddev of that truncated unit normal.
-_TRUNC_STD = 0.87962566103423978
 
 
 class PatchConv(nn.Conv2d):
@@ -171,7 +168,7 @@ class VisionTransformer(nn.Module):
         for mod in self.modules():
             if isinstance(mod, (Linear, nn.Conv2d)):
                 fan_in = mod.weight[0].numel()
-                draw(mod.weight, math.sqrt(1.0 / fan_in) / _TRUNC_STD, True)
+                draw(mod.weight, math.sqrt(1.0 / fan_in) / TRUNC_STD, True)
                 mod.bias.zero_()
             elif isinstance(mod, nn.LayerNorm):
                 mod.weight.fill_(1.0)

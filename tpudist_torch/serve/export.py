@@ -9,11 +9,12 @@ the checkpoint carries one (the weights ``best`` was measured on), or
 fresh weights drawn from ``seed`` (the bench/smoke path, where serving
 performance is the measured quantity and the weights are irrelevant).
 ``image_size`` and ``flash`` reach a ViT (its position embedding and
-attention) as the reference's do; the conv nets (resnet, vgg, densenet,
-googlenet, inception_v3, mobilenet, regnet) take neither, and in eval
-mode their BatchNorm epilogues are plain and their dropouts and aux heads
-idle, so a served conv net runs no kernel of the port and returns the
-main logits alone. ``flash`` (default ``auto``) is resolved by
+attention) as the reference's do; every other family (the conv nets,
+convnext, swin, maxvit) takes neither, and in eval mode their BatchNorm
+epilogues are plain and their dropouts, stochastic depth and aux heads
+idle (swin's and maxvit's biased attention is always plain), so such a
+served model runs no kernel of the port and returns the main logits
+alone. ``flash`` (default ``auto``) is resolved by
 ``resolve_serve_flash`` through ``ops/attention_dispatch`` at the eval
 workload of the largest bucket, and the model is built with the verdict
 in every mode.

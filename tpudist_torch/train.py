@@ -21,9 +21,12 @@ one card a rank.
   exactly. The lr is set per epoch in ``param_groups``.
 - AdamW is ``torch.optim.AdamW(betas=(0.9, 0.999), eps=1e-8)``:
   ``p ← p(1 − lr·wd) − lr·m̂/(√v̂ + eps)``, tpudist's ``adamw_torch``, with
-  two parameter groups as its ``no_decay_mask`` draws them: decay on
-  tensors of two or more dims (matrices, convs, the ViT's class token and
-  position embedding), none on biases and norm scales.
+  two parameter groups as its ``no_decay_mask`` draws them
+  (``decays``): decay on tensors of two or more dims (matrices, convs,
+  the ViT's class token and position embedding), none on biases, norm
+  scales and convnext's layer scale, nor on swin's and maxvit's
+  relative-position bias tables, swin v2's logit scales and everything
+  under its ``cpb_mlp`` (the published recipes' groups).
 - Mixed precision is the model's compute dtype: parameters stay f32 (the
   master weights), activations run in bf16 (``--use_amp``) or float16
   (``--use_amp --amp-dtype float16``), the loss is f32. No
@@ -131,16 +134,26 @@ def make_scaler(cfg) -> DynamicScale | None:
     return None
 
 
+def decays(name: str, p: torch.Tensor) -> bool:
+    """tpudist's ``no_decay_mask`` for the parameter ``name``: a tensor of
+    two or more dims, but no ``relative_position_bias_table``,
+    ``logit_scale`` or anything under a ``cpb_mlp`` module."""
+    *mods, leaf = name.split(".")
+    return (p.ndim >= 2
+            and leaf not in ("relative_position_bias_table", "logit_scale")
+            and not any("cpb_mlp" in m for m in mods))
+
+
 def make_optimizer(model: torch.nn.Module, cfg) -> torch.optim.Optimizer:
     if cfg.optimizer == "sgd":
         return torch.optim.SGD(model.parameters(), lr=cfg.lr,
                                momentum=cfg.momentum,
                                weight_decay=cfg.weight_decay, nesterov=False)
     if cfg.optimizer == "adamw":
-        params = list(model.parameters())
-        groups = [{"params": [p for p in params if p.ndim >= 2],
+        named = list(model.named_parameters())
+        groups = [{"params": [p for n, p in named if decays(n, p)],
                    "weight_decay": cfg.weight_decay},
-                  {"params": [p for p in params if p.ndim < 2],
+                  {"params": [p for n, p in named if not decays(n, p)],
                    "weight_decay": 0.0}]
         return torch.optim.AdamW(groups, lr=cfg.lr, betas=(0.9, 0.999),
                                  eps=1e-8)
