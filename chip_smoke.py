@@ -40,7 +40,10 @@ line and raising on failure:
       NaN) and every partial is non-finite where the plain one is; then B1
       and B3 in bf16 at the new conv families' shapes (``ZOO_SHAPES``:
       vgg16_bn's 822 M-element first BatchNorms, 16, 48, 72, 80, 104,
-      120, 440, 992 and 2,208 channels);
+      120, 440, 992 and 2,208 channels), and B1–B4 in bf16 at the 16-byte
+      vector variant's edges (``NORM_EDGE_SHAPES``) and on rows one
+      element off a 16-byte boundary, which must take the scalar variant;
+      each case reports its variant and its share of the bytes bound;
 3. serving end to end: ``python -m tpudist_torch.serve`` serves ViT-B/16
    at 224 px in bf16 under a short open-loop load; every bucket call must
    have gone through the flash kernel, and the logits of a ``--flash on``
@@ -51,7 +54,8 @@ line and raising on failure:
 4. training end to end: ``python -m tpudist_torch`` trains resnet18 at
    224 px, batch 256, bf16, ``--fused-bn on`` for two short epochs; every
    train step must launch the fused-norm kernels exactly 17 times in each
-   direction and validation none, every telemetry event must validate and
+   direction (in the 16-byte vector variant: the scalar one 0 times) and
+   validation none, every telemetry event must validate and
    the losses must be finite; the first three steps' losses under
    ``--fused-bn on`` and ``off`` (same seed, same batches) must agree;
    then one train step on a device-resident batch is broken down by
@@ -173,7 +177,9 @@ line and raising on failure:
    at ``auto`` (a fresh dispatch cache: every workload timed, the
    dispatch's seconds, its verdicts), with launches a step from the
    counters and the host step's data/compute split; ``zoo_breakdown``
-   breaks a densenet121 step down by kernel category; ``zoo_serve``
+   breaks a densenet121 step down by kernel category, B1's and B3's
+   device ms beside their bytes bound; none of the three launches the
+   scalar fused-norm variant; ``zoo_serve``
    serves each family at bucket 8 against its own eval forward;
 12. the rest of the one-card zoo (in this process, after ``zoo_serve``),
    ten representatives at full width and 224 px with seed-0 weights
@@ -304,6 +310,14 @@ RESNET18_SHAPES = [("stem", 256 * 112 * 112, 64), ("layer1", 256 * 56 * 56, 64),
                    ("layer4", 256 * 7 * 7, 512)]
 ODD_SHAPES = [("f32_24x130", 24, 130), ("f32_40x8", 40, 8),
               ("f32_2x5x5x64", 2 * 5 * 5, 64)]
+# The vector variant's edges in bf16 (label, rows, C, offset rows): rows no
+# row block divides, the fewest channels (two 16-byte groups), densenet161's
+# 2,208 (276 groups: the backward splits them in slices); and rows one
+# element past a 16-byte boundary, which take the scalar variant.
+NORM_EDGE_SHAPES = [("bf16_ragged_rows", 50_001, 64, False),
+                    ("bf16_c16_ragged", 1_001, 16, False),
+                    ("bf16_c2208_ragged", 12_345, 2208, False),
+                    ("bf16_offset_view", 50_001, 64, True)]
 SITES_PER_STEP = 17
 # The backward's (nm, C) partials and their per-channel sums are f32 sums
 # of g·x and g taken in another order than the plain version's: each entry
@@ -939,32 +953,56 @@ def _abs_partials(x, r, dy, a, b):
     return gx, g
 
 
-def _norm_case(label, m, c, dtype, peaks, seed, variants=(False, True)):
+def _norm_bytes(kernel: str, m: int, c: int, elt: int) -> int:
+    """Bytes a fused-norm kernel must move at (m, c) rows of ``elt``-byte
+    elements, each input read once and each output written once: x (and
+    r) read and y written forward; x, dy (and r) read and dx (and dr)
+    written backward, with its (ceil(M/rows), C) f32 partials of g·x and
+    g; a and b read as (C,) f32."""
+    res = kernel.endswith("_res")
+    if kernel.startswith("bn_act_fwd"):
+        return (3 if res else 2) * m * c * elt + 2 * c * 4
+    nm = -(-m // fn.BWD_BLOCK_ROWS)
+    return (5 if res else 3) * m * c * elt + 2 * c * 4 + 2 * nm * c * 4
+
+
+def _norm_case(label, m, c, dtype, peaks, seed, variants=(False, True),
+               offset=False):
     """The epilogue kernels at one (M, C), the plain (B1, B3) and with
     ``variants`` the residual ones (B2, B4) too: each against its plain
     version (y, dx and dr bit for bit: both round x·a and + b separately
     and g·a once; the partials and their sums within F32_SUM_TOL·(1 +
     Σ|term|)), timed beside the plain version, with the card's bound for
-    the function's bytes and operations. The looser ``20·tol·(1 +
-    max|ref|)`` of ``tests/test_fused_norm.py`` is printed beside."""
+    the function's bytes and operations and the kernel's share of it.
+    Each launch must take the variant the operands call for (``vector``
+    where C is a multiple of the elements in 16 bytes, ``scalar``
+    otherwise and for ``offset`` rows, which start one element past a
+    16-byte boundary). The looser ``20·tol·(1 + max|ref|)`` of
+    ``tests/test_fused_norm.py`` is printed beside."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
-    def rand(*shape, dt=dtype):
-        return torch.randn(*shape, generator=g, device="cuda",
-                           dtype=torch.float32).to(dt)
+    def rand(m, c):
+        t = torch.randn(m * c + offset, generator=g, device="cuda").to(dtype)
+        return t[int(offset):].view(m, c)
 
     x, dy = rand(m, c), rand(m, c)
     r = rand(m, c) if True in variants else None
-    a, b = rand(c, dt=torch.float32), rand(c, dt=torch.float32)
+    a, b = (torch.randn(c, generator=g, device="cuda") for _ in range(2))
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     elt = x.element_size()
+    want_var = ("scalar" if offset or c % (fn.VEC_BYTES // elt)
+                else "vector")
     large = m * c > 10_000_000
     rows = {}
     for res in variants:
         rr = r if res else None
+        before = fn.VARIANT_LAUNCHES[want_var]
         y = fn.bn_act_fwd(x, rr, a, b)
         dx, dr, da_p, db_p = fn.bn_act_bwd(x, rr, dy, a, b)
         torch.cuda.synchronize()
+        if fn.VARIANT_LAUNCHES[want_var] != before + 2:
+            raise RuntimeError(f"{label} res={res}: the {want_var} variant "
+                               f"did not launch ({fn.VARIANT_LAUNCHES})")
         y_ref = fn.bn_act_fwd_plain(x, rr, a, b)
         dx_ref, dr_ref, da_ref, db_ref = fn.bn_act_bwd_plain(x, rr, dy, a, b)
         y_err = (y.float() - y_ref.float()).abs().max().item()
@@ -993,19 +1031,15 @@ def _norm_case(label, m, c, dtype, peaks, seed, variants=(False, True)):
                                    f"{bwd_err[k]}, {worst} of 1 + Σ|term| "
                                    f"(bound {F32_SUM_TOL})")
             issue_bound[k] = 20 * tol * (1 + want.abs().max().item())
-        n_io = 3 if res else 2     # forward: x (and r) read, y written
         for name, fwd in (("bn_act_fwd_res" if res else "bn_act_fwd", True),
                           ("bn_act_bwd_res" if res else "bn_act_bwd", False)):
+            nbytes = _norm_bytes(name, m, c, elt)
             if fwd:
-                nbytes = n_io * m * c * elt + 2 * c * 4
                 kern = lambda: fn.bn_act_fwd(x, rr, a, b)  # noqa: E731
                 plain = lambda: fn.bn_act_fwd_plain(  # noqa: E731
                     x, rr, a, b)
                 err = y_err
             else:
-                # x, dy (and r) read; dx (and dr) written; a, b read and
-                # da, db written as (C,) f32.
-                nbytes = (n_io + 1 + res) * m * c * elt + 4 * c * 4
                 kern = lambda: fn.bn_act_bwd(x, rr, dy, a, b)  # noqa: E731
                 plain = lambda: fn.bn_act_bwd_plain(  # noqa: E731
                     x, rr, dy, a, b)
@@ -1013,8 +1047,9 @@ def _norm_case(label, m, c, dtype, peaks, seed, variants=(False, True)):
             ops = NORM_OPS[name] * m * c
             t_bytes = nbytes / peaks["hbm"] * 1e3
             t_ops = ops / peaks["f32"] * 1e3
+            kernel_ms = time_ms(kern)
             rows[name] = {
-                "case": label, "shape": [m, c],
+                "case": label, "shape": [m, c], "variant": want_var,
                 "dtype": str(dtype).replace("torch.", ""), "tol": tol,
                 "max_abs_err": err, "errors": bwd_err if not fwd else
                 {"y": y_err}, "sum_tol": F32_SUM_TOL,
@@ -1022,7 +1057,8 @@ def _norm_case(label, m, c, dtype, peaks, seed, variants=(False, True)):
                 "bytes": nbytes, "ops": ops,
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "kernel_ms": time_ms(kern),
+                "kernel_ms": kernel_ms,
+                "bound_share": max(t_bytes, t_ops) / kernel_ms,
                 "plain_ms": time_ms(plain, reps=5 if large else 25,
                                     inner=2 if large else 10),
                 # No one PyTorch call computes relu(x·a + b) with this
@@ -1089,6 +1125,10 @@ def phase_fused_norm_vs_plain(peaks: dict) -> dict:
                                     200 + i, variants=(False,)).items():
             rows.append(dict(row, kernel=name))
         torch.cuda.empty_cache()
+    for i, (label, m, c, offset) in enumerate(NORM_EDGE_SHAPES):
+        for name, row in _norm_case(label, m, c, torch.bfloat16, peaks,
+                                    300 + i, offset=offset).items():
+            rows.append(dict(row, kernel=name))
     out = {"phase": "fused_norm_vs_plain", "cases": rows,
            "nonfinite": _nonfinite_norm(),
            "library_ms": "null: no single PyTorch call computes the "
@@ -1120,10 +1160,14 @@ def phase_train() -> dict:
         rc = train_cli.main(argv)
     wall_s = time.perf_counter() - t0
     launches, relayouts = dict(fn.LAUNCHES), fn.RELAYOUTS
+    variants = dict(fn.VARIANT_LAUNCHES)
     text = buf.getvalue()
     print(text, end="", flush=True)
     if rc != 0 or not text.splitlines()[-1].startswith("best_acc1="):
         raise RuntimeError(f"python -m tpudist_torch exited {rc}")
+    if variants["scalar"]:
+        raise RuntimeError(f"train: the scalar fused-norm variant launched "
+                           f"({variants})")
     with open(telemetry_lib.events_path(outdir, 0)) as f:
         events = [json.loads(ln) for ln in f]
     for ev in events:
@@ -1151,6 +1195,7 @@ def phase_train() -> dict:
     out = {"phase": "train", "arch": "resnet18", "image_size": TRAIN_PX,
            "batch": TRAIN_B, "dtype": "bfloat16", "wall_s": wall_s,
            "train_steps": n, "fused_norm_launches": launches,
+           "variant_launches": variants,
            "launches_per_step": {k: v / n for k, v in launches.items()},
            "relayouts": relayouts, "train_loss": train_l,
            "val_loss": val_l,
@@ -1378,8 +1423,8 @@ def _fused_norm_device_ms(prof, n: int) -> dict:
     steps; None where the profiler saw no device time."""
     out = dict.fromkeys(fn.KERNELS, 0.0)
     for e in prof.key_averages():
-        m = re.search(r"bn_act_(fwd|bwd)_kernel<[^,>]+,\s*(true|false)>",
-                      e.key)
+        m = re.search(r"bn_act_(fwd|bwd)_(?:vec_)?kernel<[^,>]+,\s*"
+                      r"(true|false)>", e.key)
         if not m or getattr(e, "device_type", None) \
                 != torch.autograd.DeviceType.CUDA:
             continue
@@ -4374,8 +4419,10 @@ def phase_zoo_train() -> dict:
     tpudist's fused sites (B2, B4 never), then ``ZOO_TIMED`` synchronised
     steps of each run (median wall) and its ``max_memory_allocated``; and
     in f32 at batch ``ZOO_F32_B``, ``ZOO_F32_STEPS`` steps. A model that
-    does not fit at batch 256 fails the phase."""
+    does not fit at batch 256 fails the phase, and so does a launch of the
+    scalar variant (every site's rows are 16-byte vectors)."""
     rows, bad = {}, []
+    scalar = fn.VARIANT_LAUNCHES["scalar"]
     for arch, px, sites in ZOO_MODELS:
         row = compare_on_off(_zoo_setup(arch, px, ZOO_B), torch.bfloat16,
                              ZOO_B, ZOO_LR, px=px, timed=ZOO_TIMED)
@@ -4408,8 +4455,12 @@ def phase_zoo_train() -> dict:
                               median_l2_tol=ZOO_F32_MEDIAN_TOL[arch]))
         gc.collect()
         torch.cuda.empty_cache()
+    scalar = fn.VARIANT_LAUNCHES["scalar"] - scalar
+    if scalar:
+        bad.append(f"the scalar variant launched {scalar} times")
     out = {"phase": "zoo_train", "steps": TRAIN_CMP_STEPS, "lr": ZOO_LR,
-           "dtype": "bfloat16", "models": rows}
+           "dtype": "bfloat16", "scalar_variant_launches": scalar,
+           "models": rows}
     emit(out)
     if bad:
         raise RuntimeError("zoo_train: " + "; ".join(bad))
@@ -4470,6 +4521,9 @@ def zoo_mutations() -> dict:
     return caught
 
 
+# B1 and B3's device ms a densenet121 step (batch 256, bf16) when both ran
+# one element a thread, on an NVIDIA H100 80GB HBM3 at 700 W.
+ZOO_BREAKDOWN_SCALAR_MS = {"bn_act_fwd": 10.59, "bn_act_bwd": 14.17}
 ZOO_CLI = ["--synthetic", "-a", "densenet121", "--image-size", "224",
            "--num-classes", "1000", "-b", str(ZOO_B), "--use_amp",
            "--synthetic-size", str(4 * ZOO_B), "--epochs", "1", "-p", "1",
@@ -4502,6 +4556,7 @@ def _zoo_cli_run(mode: str, root: str) -> dict:
             ZOO_CLI + ["--fused-bn", mode, "--outpath", outdir],
             f"densenet121 --fused-bn {mode}")
         wall_s = time.perf_counter() - t0
+        variants = dict(fn.VARIANT_LAUNCHES)
     finally:
         Trainer._resolve_fused_norm_dispatch = resolve
         shutil.rmtree(outdir, ignore_errors=True)
@@ -4519,10 +4574,12 @@ def _zoo_cli_run(mode: str, root: str) -> dict:
             "bn_act_bwd_res": 0}
     first = _counts(text, LAUNCH_LINE_RE)
     if sum(v["sites"] for v in verdicts) != DENSENET_SITES \
-            or per_step != want or (fused and first != want) or n != 4:
+            or per_step != want or (fused and first != want) or n != 4 \
+            or variants["scalar"]:
         raise RuntimeError(f"densenet121 --fused-bn {mode}: {n} steps, "
                            f"launches {launches} (probes {probe}, first "
-                           f"step {first}), verdicts {verdicts}")
+                           f"step {first}, variants {variants}), verdicts "
+                           f"{verdicts}")
     split = {k: statistics.median(e[k] for e in steps[1:])
              for k in ("data_s", "h2d_s", "compute_s", "step_s")}
     agg = [e for e in events if e["type"] == "fused_norm_dispatch"][-1]
@@ -4531,6 +4588,7 @@ def _zoo_cli_run(mode: str, root: str) -> dict:
             "source": agg.get("source"), "verdicts": verdicts,
             "fused_sites": fused, "probe_launches": probe,
             "launches": {k: launches[k] for k in fn.KERNELS},
+            "variant_launches": variants,
             "launches_per_step": per_step,
             "host_step_median_s": split}
 
@@ -4568,12 +4626,44 @@ def _zoo_category(kernel: str) -> str:
     return _train_category(kernel)
 
 
+@contextlib.contextmanager
+def _norm_bytes_moved(total: dict):
+    """Add to ``total[kernel]`` the bytes (``_norm_bytes``) of every
+    fused-norm wrapper call made inside the block."""
+    fwd, bwd = fn.bn_act_fwd, fn.bn_act_bwd
+
+    def count(x2, r2):
+        name = "bn_act_fwd" + ("_res" if r2 is not None else "")
+        total[name] = total.get(name, 0) + _norm_bytes(
+            name, *x2.shape, x2.element_size())
+
+    def fwd_counted(x2, r2, a, b):
+        count(x2, r2)
+        return fwd(x2, r2, a, b)
+
+    def bwd_counted(x2, r2, dy2, a, b):
+        name = "bn_act_bwd" + ("_res" if r2 is not None else "")
+        total[name] = total.get(name, 0) + _norm_bytes(
+            name, *x2.shape, x2.element_size())
+        return bwd(x2, r2, dy2, a, b)
+
+    fn.bn_act_fwd, fn.bn_act_bwd = fwd_counted, bwd_counted
+    try:
+        yield total
+    finally:
+        fn.bn_act_fwd, fn.bn_act_bwd = fwd, bwd
+
+
 def phase_zoo_breakdown() -> dict:
     """One densenet121 train step (batch 256, 224 px, bf16, every site on
     the kernels) on a device-resident batch: synchronised wall (median of
     5), device ms by category over 3 steps under torch.profiler (conv,
     BatchNorm statistics, fused-norm, casts, elementwise, the channel
-    concatenations), busy, the idle share and the backward's re-layouts."""
+    concatenations), busy, the idle share and the backward's re-layouts;
+    each fused-norm kernel's device ms a step beside its bytes bound (the
+    sum over its launches, ``_norm_bytes``) and the scalar kernels'
+    reading (``ZOO_BREAKDOWN_SCALAR_MS``). The scalar variant must not
+    launch."""
     model, step = _zoo_setup("densenet121", TRAIN_PX, ZOO_B)(
         True, torch.bfloat16)
     x, y = _device_batch(7, ZOO_B)
@@ -4591,13 +4681,20 @@ def phase_zoo_breakdown() -> dict:
     fn.reset_counts()
     act = [torch.profiler.ProfilerActivity.CPU,
            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=act) as prof:
+    with torch.profiler.profile(activities=act) as prof, \
+            _norm_bytes_moved({}) as moved:
         for _ in range(n):
             step(x, y, ZOO_LR)
         torch.cuda.synchronize()
     total = dict(fn.LAUNCHES)
     launches = {k: v / n for k, v in total.items()}
     relayouts = fn.RELAYOUTS / n
+    variants = dict(fn.VARIANT_LAUNCHES)
+    if variants["scalar"]:
+        raise RuntimeError(f"zoo_breakdown: the scalar fused-norm variant "
+                           f"launched ({variants})")
+    hbm = peaks_for(torch.cuda.get_device_name(0))[1]["hbm"]
+    bound = {k: v / n / hbm * 1e3 for k, v in moved.items()}
     by_cat, kernels = _device_kernels(prof, n, _zoo_category)
     busy = sum(by_cat.values())
     del model, step
@@ -4612,6 +4709,9 @@ def phase_zoo_breakdown() -> dict:
            "fused_norm_launches": total,
            "fused_norm_device_ms_per_step": _fused_norm_device_ms(prof, n)
            or "not measured",
+           "fused_norm_bound_ms_per_step": bound,
+           "fused_norm_scalar_kernels_ms_per_step": ZOO_BREAKDOWN_SCALAR_MS,
+           "variant_launches": variants,
            "relayouts_per_step": relayouts,
            "top_kernels": kernels[:20]}
     gc.collect()
@@ -5274,8 +5374,9 @@ def _norm_kernel_entries(norm: dict, train: dict, ck: dict,
                 "step_ms": sum(r["kernel_ms"] * k for r, k in step_rows),
                 "step_bound_ms": sum(r["bound_ms"] * k for r, k in step_rows),
                 "by_shape": [{k: r[k] for k in ("case", "shape", "dtype",
-                                                "kernel_ms", "plain_ms",
-                                                "bound_ms")}
+                                                "variant", "kernel_ms",
+                                                "plain_ms", "bound_ms",
+                                                "bound_share")}
                              for r in rows],
                 "nonfinite": norm["nonfinite"] if dtype == "float16"
                 else None,

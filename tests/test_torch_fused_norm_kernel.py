@@ -5,8 +5,11 @@ No JAX here, so this file also runs on the machine with the card
 holds each of the four CUDA kernels against its plain version: y, dx and dr
 bit for bit (the kernel rounds x·a and + b separately and g·a once, as the
 plain version does), each per-block partial within ``1e-5·(1 + Σ|term|)``
-over its rows (f32 sums in another order). Without a card those cases skip
-at setup.
+over its rows (f32 sums in another order), in the variant the wrapper
+chose (``vector`` for 16-byte rows, ``scalar`` otherwise) and at the edge
+shapes of the vector mapping. Without a card those cases skip at setup.
+The wrapper's choice of variant, and the plain partials' rows, are tested
+here on the CPU.
 """
 
 import numpy as np
@@ -29,6 +32,62 @@ def _operands(m, c, dtype, device, residual, seed=0):
     r = t(m, c) if residual else None
     a, b = t(c, dt=torch.float32), t(c, dt=torch.float32)
     return x, r, dy, a, b
+
+
+@pytest.mark.parametrize("dtype,c,want", [
+    (torch.float32, 4, "vector"), (torch.float32, 8, "vector"),
+    (torch.float32, 130, "scalar"), (torch.float32, 2, "scalar"),
+    (torch.bfloat16, 8, "vector"), (torch.bfloat16, 16, "vector"),
+    (torch.bfloat16, 2208, "vector"), (torch.bfloat16, 12, "scalar"),
+    (torch.bfloat16, 4, "scalar"), (torch.float16, 72, "vector"),
+    (torch.float16, 130, "scalar")])
+def test_variant_follows_the_channels_per_16_bytes(dtype, c, want):
+    x = torch.zeros(3, c, dtype=dtype)
+    assert fn.variant(c, dtype, x, None, torch.empty_like(x)) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_variant_of_an_offset_view_is_scalar(dtype):
+    m, c = 6, 16
+    per = fn.VEC_BYTES // dtype.itemsize
+    base = torch.zeros(m * c + per, dtype=dtype)
+    assert base.data_ptr() % fn.VEC_BYTES == 0
+    one_off = base[1:1 + m * c].view(m, c)
+    aligned = base[per:per + m * c].view(m, c)
+    assert one_off.is_contiguous() and aligned.is_contiguous()
+    y = torch.empty(m, c, dtype=dtype)
+    assert fn.variant(c, dtype, one_off, None, y) == "scalar"
+    assert fn.variant(c, dtype, aligned, None, y) == "vector"
+    # Any row operand off the boundary, a residual too, takes the scalar one.
+    assert fn.variant(c, dtype, aligned, one_off, y) == "scalar"
+
+
+def test_a_refused_operand_still_raises_before_any_launch():
+    x, r, dy, a, b = _operands(6, 8, torch.float32, "meta", True)
+    fn.reset_counts()
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fn.bn_act_fwd(x, None, a, b)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fn.bn_act_bwd(x, r, dy, a, b)
+    assert not any(fn.LAUNCHES.values())
+    assert not any(fn.VARIANT_LAUNCHES.values())
+
+
+@pytest.mark.parametrize("rows", [256, 64, 7])
+def test_plain_partials_follow_bwd_block_rows(monkeypatch, rows):
+    m, c = 300, 8
+    x, r, dy, a, b = _operands(m, c, torch.float32, "cpu", False, seed=3)
+    monkeypatch.setattr(fn, "BWD_BLOCK_ROWS", rows)
+    for got in (fn.bn_act_bwd(x, None, dy, a, b),
+                fn.bn_act_bwd_plain(x, None, dy, a, b)):
+        _, _, da_p, db_p = got
+        assert da_p.shape == db_p.shape == (-(-m // rows), c)
+        g = torch.where(x * a + b > 0, dy, 0.0)
+        for i in range(da_p.shape[0]):
+            blk = slice(i * rows, (i + 1) * rows)
+            assert torch.allclose(da_p[i], (g * x)[blk].sum(0), atol=1e-4)
+            assert torch.allclose(db_p[i], g[blk].sum(0), atol=1e-4)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
@@ -67,7 +126,14 @@ def test_kernels_match_plain_on_card(cuda_device, dtype, m, c, residual):
     back = "bn_act_bwd_res" if residual else "bn_act_bwd"
     assert fn.LAUNCHES[name] == 1 and fn.LAUNCHES[back] == 1
     assert sum(fn.LAUNCHES.values()) == 2
+    assert fn.VARIANT_LAUNCHES[fn.variant(c, dtype, x)] == 2
+    _assert_matches_plain(x, r, dy, a, b, y, dx, dr, da_p, db_p)
 
+
+def _assert_matches_plain(x, r, dy, a, b, y, dx, dr, da_p, db_p):
+    m, c = x.shape
+    dtype = x.dtype
+    residual = r is not None
     y_ref = fn.bn_act_fwd_plain(x, r, a, b)
     dx_ref, dr_ref, da_ref, db_ref = fn.bn_act_bwd_plain(x, r, dy, a, b)
     assert y.dtype == dtype and dx.dtype == dtype
@@ -82,6 +148,49 @@ def test_kernels_match_plain_on_card(cuda_device, dtype, m, c, residual):
     for got, want, scale in ((da_p, da_ref, gx_abs), (db_p, db_ref, g_abs)):
         assert got.shape == (-(-m // fn.BWD_BLOCK_ROWS), c)
         assert ((got - want).abs() <= 1e-5 * (1 + scale)).all()
+
+
+# The vector mapping's edges in bf16: rows that no row block divides, the
+# fewest channels (two 16-byte groups a row), channel groups that fill no
+# block evenly, and the widest (276 groups: the channels split in slices).
+EDGE_SHAPES = [(50_001, 64), (1_001, 16), (3_333, 72), (12_345, 2208),
+               (257, 440)]
+
+
+@pytest.mark.parametrize("m,c", EDGE_SHAPES)
+@pytest.mark.parametrize("residual", [False, True])
+def test_vector_edge_shapes_match_plain_on_card(cuda_device, m, c,
+                                                residual):
+    x, r, dy, a, b = _operands(m, c, torch.bfloat16, cuda_device, residual,
+                               seed=m)
+    fn.reset_counts()
+    y = fn.bn_act_fwd(x, r, a, b)
+    dx, dr, da_p, db_p = fn.bn_act_bwd(x, r, dy, a, b)
+    torch.cuda.synchronize()
+    assert fn.VARIANT_LAUNCHES == {"vector": 2, "scalar": 0}
+    _assert_matches_plain(x, r, dy, a, b, y, dx, dr, da_p, db_p)
+
+
+@pytest.mark.parametrize("residual", [False, True])
+def test_an_offset_view_takes_the_scalar_variant_on_card(cuda_device,
+                                                         residual):
+    m, c = 4_099, 64
+    x, r, dy, a, b = _operands(m + 1, c, torch.bfloat16, cuda_device,
+                               residual, seed=5)
+    # Rows that start one element past a 16-byte boundary.
+    x, dy = (t.view(-1)[1:1 + m * c].view(m, c) for t in (x, dy))
+    r = None if r is None else r.view(-1)[1:1 + m * c].view(m, c)
+    fn.reset_counts()
+    y = fn.bn_act_fwd(x, r, a, b)
+    dx, dr, da_p, db_p = fn.bn_act_bwd(x, r, dy, a, b)
+    torch.cuda.synchronize()
+    assert fn.VARIANT_LAUNCHES == {"vector": 0, "scalar": 2}
+    _assert_matches_plain(x, r, dy, a, b, y, dx, dr, da_p, db_p)
+    # The vector kernel refuses it rather than read across the boundary.
+    with pytest.raises(RuntimeError, match="vector variant"):
+        fn._launch("bn_act_fwd", x.device, "vector", fn.DTYPES[x.dtype],
+                   x.data_ptr(), a.data_ptr(), b.data_ptr(),
+                   torch.empty_like(x).data_ptr(), m, c)
 
 
 def test_autograd_launches_both_directions_on_card(cuda_device):

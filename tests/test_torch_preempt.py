@@ -317,8 +317,9 @@ def straight(tmp_path_factory):
     out = tmp_path_factory.mktemp("straight") / "run"
     r = _run(_launch(out))
     assert r.returncode == 0, r.stderr[-3000:]
-    yield _file(out)
+    want = _file(out)
     shutil.rmtree(out.parent, ignore_errors=True)
+    return want
 
 
 def _check_drain(out, code, text, err, world=1):
@@ -371,6 +372,8 @@ def test_drain_under_accumulation_and_mixing_ends_as_straight(tmp_path):
     ref = tmp_path / "straight"
     r = _run(_launch(ref, extra=ACCUM_MIX))
     assert r.returncode == 0, r.stderr[-3000:]
+    want = _file(ref)
+    shutil.rmtree(ref)
     out = tmp_path / "run"
     cmd = _launch(out, extra=ACCUM_MIX + KEEP + SLOW)
     code, text, err = _preempted(cmd, "Epoch[1]:\t[2/6]")
@@ -380,7 +383,7 @@ def test_drain_under_accumulation_and_mixing_ends_as_straight(tmp_path):
     assert (f"=> elastic continuation: epoch 1 resumes at global sample "
             f"{cur['consumed']} ({6 - cur['consumed'] // 16} steps remain "
             f"on world 1)") in r.stdout
-    assert _file(out) == _file(ref)
+    assert _file(out) == want
 
 
 def test_checkpoint_corrupt_falls_back_and_quarantines(tmp_path):
@@ -429,10 +432,12 @@ def test_two_gloo_ranks_drain_at_the_same_step(tmp_path):
     ref = tmp_path / "straight"
     r = _run(_launch(ref, n=2))
     assert r.returncode == 0, r.stderr[-3000:]
+    want = _file(ref)
+    shutil.rmtree(ref)
     out = tmp_path / "run"
     cmd = _launch(out, n=2, extra=KEEP + SLOW)
     code, text, err = _preempted(cmd, "Epoch[1]:\t[2/6]")
     _check_drain(out, code, text, err, world=2)
     r = _run(cmd)
     assert r.returncode == 0, r.stderr[-3000:]
-    assert _file(out) == _file(ref)
+    assert _file(out) == want

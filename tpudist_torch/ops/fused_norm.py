@@ -23,7 +23,13 @@ source note says what bounds them on the card and how they are laid out.
   as they pass through the Pallas kernels (the ReLU keeps NaN; the
   backward's mask ``pre > 0`` drops a NaN pre-activation), so an overflow
   reaches the gradients the dynamic loss scale checks.
+- Each kernel has two variants: ``vector`` (16-byte loads and stores;
+  C a multiple of the elements in 16 bytes and every row operand 16-byte
+  aligned, as at every BatchNorm site of the port's models) and
+  ``scalar`` (any other C or alignment). ``variant`` picks one before the
+  launch.
 - ``LAUNCHES`` counts kernel launches per kernel, and nothing else;
+  ``VARIANT_LAUNCHES`` counts the same launches per variant;
   ``RELAYOUTS`` counts the backward's copies of an incoming gradient that
   was not laid out as rows of channels.
 
@@ -41,12 +47,15 @@ import torch
 import torch.nn.functional as F
 
 # Bumped whenever a kernel's math or schedule changes.
-KERNEL_REV = 1
+KERNEL_REV = 2
 
 KERNELS = ("bn_act_fwd", "bn_act_fwd_res", "bn_act_bwd", "bn_act_bwd_res")
 
 # Kernel launches made on CUDA tensors, per kernel.
 LAUNCHES = dict.fromkeys(KERNELS, 0)
+VARIANTS = ("vector", "scalar")
+# The same launches, per variant.
+VARIANT_LAUNCHES = dict.fromkeys(VARIANTS, 0)
 # Incoming gradients the backward had to copy into (M, C) rows.
 RELAYOUTS = 0
 
@@ -54,14 +63,17 @@ RELAYOUTS = 0
 BWD_BLOCK_ROWS = 256
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# Bytes of one load or store of the vector variant.
+VEC_BYTES = 16
 
 _fns: dict = {}
 
 
 def reset_counts() -> None:
     global RELAYOUTS
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, VARIANT_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
     RELAYOUTS = 0
 
 
@@ -73,22 +85,44 @@ def _kernel(name: str):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.restype = i
         fn.argtypes = {
-            "bn_act_fwd": [i, p, p, p, p, ll, i, p],
-            "bn_act_fwd_res": [i, p, p, p, p, p, ll, i, p],
-            "bn_act_bwd": [i, p, p, p, p, p, p, p, ll, i, i, p],
-            "bn_act_bwd_res": [i, p, p, p, p, p, p, p, p, p, ll, i, i, p],
+            "bn_act_fwd": [i, i, p, p, p, p, ll, i, p],
+            "bn_act_fwd_res": [i, i, p, p, p, p, p, ll, i, p],
+            "bn_act_bwd": [i, i, p, p, p, p, p, p, p, ll, i, i, p],
+            "bn_act_bwd_res": [i, i, p, p, p, p, p, p, p, p, p, ll, i, i, p],
         }[name]
         _fns[name] = fn
     return fn
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
-    with torch.cuda.device(device):
+def variant(c: int, dtype: torch.dtype, *rows) -> str:
+    """The variant that takes ``(M, c)`` rows of ``dtype``: ``vector``
+    where ``c`` is a multiple of the elements in ``VEC_BYTES`` and every
+    row operand in ``rows`` (None skipped) starts on a ``VEC_BYTES``
+    boundary, else ``scalar``."""
+    if c % (VEC_BYTES // dtype.itemsize):
+        return "scalar"
+    for t in rows:
+        if t is not None and t.data_ptr() % VEC_BYTES:
+            return "scalar"
+    return "vector"
+
+
+def _launch(name: str, device: torch.device, var: str, dtype: int,
+            *args) -> None:
+    """Launch kernel ``name`` in variant ``var`` on ``device``'s current
+    stream, making ``device`` current for the launch if it is not."""
+    if device.index == torch.cuda.current_device():
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = _kernel(name)(*args, stream)
+        err = _kernel(name)(dtype, var == "vector", *args, stream)
+    else:
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = _kernel(name)(dtype, var == "vector", *args, stream)
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{name} kernel launch failed ({var} variant): "
+                           f"CUDA error {err}")
     LAUNCHES[name] += 1
+    VARIANT_LAUNCHES[var] += 1
 
 
 # -- the plain versions of the four kernel bodies ----------------------------
@@ -109,10 +143,12 @@ def bn_act_fwd_plain(x2, r2, a, b):
     return torch.relu(_pre_act(x2, r2, a, b)).to(x2.dtype)
 
 
-def bn_act_bwd_plain(x2, r2, dy2, a, b, block_rows: int = BWD_BLOCK_ROWS):
+def bn_act_bwd_plain(x2, r2, dy2, a, b, block_rows: int | None = None):
     """B3/B4: ``(dx, dr, da_partials, db_partials)``; ``dr`` is None
     without a residual. Partials are ``(ceil(M/block_rows), C)`` f32: row
-    ``i`` sums ``g·x`` and ``g`` over rows ``[i·block_rows, (i+1)·block_rows)``."""
+    ``i`` sums ``g·x`` and ``g`` over rows ``[i·block_rows, (i+1)·block_rows)``
+    (``block_rows`` defaults to ``BWD_BLOCK_ROWS``, the kernel's)."""
+    block_rows = block_rows or BWD_BLOCK_ROWS
     xf = x2.float()
     g = torch.where(_pre_act(x2, r2, a, b) > 0, dy2.float(), 0.0)
     dx = (g * a).to(x2.dtype)
@@ -181,11 +217,12 @@ def bn_act_fwd(x2, r2, a, b):
     m, c = x2.shape
     y = torch.empty_like(x2)
     dt = DTYPES[x2.dtype]
+    var = variant(c, x2.dtype, x2, r2, y)
     if r2 is None:
-        _launch("bn_act_fwd", x2.device, dt, x2.data_ptr(), a.data_ptr(),
-                b.data_ptr(), y.data_ptr(), m, c)
+        _launch("bn_act_fwd", x2.device, var, dt, x2.data_ptr(),
+                a.data_ptr(), b.data_ptr(), y.data_ptr(), m, c)
     else:
-        _launch("bn_act_fwd_res", x2.device, dt, x2.data_ptr(),
+        _launch("bn_act_fwd_res", x2.device, var, dt, x2.data_ptr(),
                 r2.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(), m, c)
     return y
 
@@ -203,15 +240,17 @@ def bn_act_bwd(x2, r2, dy2, a, b):
     db_p = torch.empty_like(da_p)
     dt = DTYPES[x2.dtype]
     if r2 is None:
-        _launch("bn_act_bwd", x2.device, dt, x2.data_ptr(), dy2.data_ptr(),
-                a.data_ptr(), b.data_ptr(), dx.data_ptr(), da_p.data_ptr(),
-                db_p.data_ptr(), m, c, BWD_BLOCK_ROWS)
+        var = variant(c, x2.dtype, x2, dy2, dx)
+        _launch("bn_act_bwd", x2.device, var, dt, x2.data_ptr(),
+                dy2.data_ptr(), a.data_ptr(), b.data_ptr(), dx.data_ptr(),
+                da_p.data_ptr(), db_p.data_ptr(), m, c, BWD_BLOCK_ROWS)
         return dx, None, da_p, db_p
     dr = torch.empty_like(r2)
-    _launch("bn_act_bwd_res", x2.device, dt, x2.data_ptr(), r2.data_ptr(),
-            dy2.data_ptr(), a.data_ptr(), b.data_ptr(), dx.data_ptr(),
-            dr.data_ptr(), da_p.data_ptr(), db_p.data_ptr(), m, c,
-            BWD_BLOCK_ROWS)
+    var = variant(c, x2.dtype, x2, r2, dy2, dx, dr)
+    _launch("bn_act_bwd_res", x2.device, var, dt, x2.data_ptr(),
+            r2.data_ptr(), dy2.data_ptr(), a.data_ptr(), b.data_ptr(),
+            dx.data_ptr(), dr.data_ptr(), da_p.data_ptr(), db_p.data_ptr(),
+            m, c, BWD_BLOCK_ROWS)
     return dx, dr, da_p, db_p
 
 
