@@ -17,6 +17,16 @@ result is one JSON line, the card's name and power limit first.
   ‖a − b‖₂ / ‖b‖₂ of card against CPU and of 1 thread against 4, over
   the leaves whose norm is at least 1e-4 of the largest's (the worst
   and the median).
+- ``vs_cpu`` of the BatchNorm+ReLU conv families (``python3
+  chip_numerics.py vgg16_bn densenet121 googlenet inception_v3
+  mobilenet_v3_large regnet_y_400mf``, as ``chip_smoke.phase_zoo_vs_cpu``:
+  seed-0 weights, inception_v3 at 299 px with its aux loss): the same three
+  runs with
+  every BN+ReLU site on the fused ``Function`` (its plain body on the CPU,
+  B1 and B3 on the card), plus the card with the plain epilogue and the
+  CPU in float64 (plain epilogue): each against the f32 CPU run, and the
+  card's and the f32 CPU's distance to float64, so that a reading above
+  1e-2 can be told from the run-to-run spread of f32 itself.
 """
 
 from __future__ import annotations
@@ -80,29 +90,55 @@ def _rel(got: dict, want: dict) -> dict:
             "median": statistics.median(rel.values())}
 
 
+ZOO = {arch: px for arch, px, _ in cs.ZOO_MODELS}
+
+
 def vs_cpu(arch: str) -> dict:
-    px = 299 if arch == "inception_v3" else cs.TRAIN_PX
+    zoo = arch in ZOO
+    px = ZOO.get(arch, 299 if arch == "inception_v3" else cs.TRAIN_PX)
     rng = np.random.default_rng(21)
     images = torch.from_numpy(rng.standard_normal(
         (cs.REST_CMP_B, px, px, 3)).astype(np.float32))
     labels = torch.from_numpy(rng.integers(0, 1000, cs.REST_CMP_B))
-    weights = cs._rest_weights(arch)
+    if zoo:
+        model = cs.create_model(arch, dtype=torch.float32)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        weights = model.state_dict()
+        aux = cs.ZOO_AUX_WEIGHT if arch == "inception_v3" else 0.0
+    else:
+        weights, aux = cs._rest_weights(arch), 0.0
     grads, masks = {}, []
-    for where, threads in (("cpu4", 4), ("cpu1", 1), ("card", None)):
-        # The plain epilogue on both devices (the kernels are not built).
-        model = cs.create_model(arch, dtype=torch.float32, fused_bn=False)
+    # (name, CPU threads or None for the card, fused sites, dtype): the
+    # rest of the zoo has no fused site, so the plain epilogue everywhere.
+    runs = [("cpu4", 4, zoo, torch.float32), ("cpu1", 1, zoo, torch.float32),
+            ("card", None, zoo, torch.float32)]
+    if zoo:
+        runs += [("card_plain", None, False, torch.float32),
+                 ("cpu4_f64", 4, False, torch.float64)]
+    for where, threads, fused, dtype in runs:
+        model = cs.create_model(arch, dtype=dtype, fused_bn=fused)
         model.load_state_dict(weights)
         x, y = images, labels
+        if dtype == torch.float64:      # the weights and every op in f64
+            model.double()
+            x = x.double()
         if threads is None:
             model.cuda()
             x, y = x.cuda(), y.cuda()
         else:
             torch.set_num_threads(threads)
-        grads[where] = cs._train_pass(model, x, y, masks,
-                                      replay=bool(masks))[2]
+        grads[where] = cs._train_pass(model, x, y, masks, replay=bool(masks),
+                                      aux_weight=aux)[2]
     torch.set_num_threads(4)
-    return {"card_vs_cpu": _rel(grads["card"], grads["cpu4"]),
-            "cpu1_vs_cpu4": _rel(grads["cpu1"], grads["cpu4"])}
+    out = {"card_vs_cpu": _rel(grads["card"], grads["cpu4"]),
+           "cpu1_vs_cpu4": _rel(grads["cpu1"], grads["cpu4"])}
+    if zoo:
+        f64 = {k: v.float() for k, v in grads["cpu4_f64"].items()}
+        out.update(card_plain_vs_cpu=_rel(grads["card_plain"],
+                                          grads["cpu4"]),
+                   card_vs_f64=_rel(grads["card"], f64),
+                   cpu4_vs_f64=_rel(grads["cpu4"], f64))
+    return out
 
 
 def main(argv=None) -> int:
@@ -116,7 +152,10 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
-    print(json.dumps({"pool": pool()}), flush=True)
+    if any(arch in ZOO for arch in argv):
+        cs._build.build_all(["fused_norm"])     # B1 and B3 on the card
+    else:
+        print(json.dumps({"pool": pool()}), flush=True)
     for arch in argv or ARCHS:
         print(json.dumps({"vs_cpu": arch, **vs_cpu(arch)}), flush=True)
     return 0

@@ -16,6 +16,7 @@ by leaf, and one AdamW step equals tpudist's ``adamw_torch`` under it.
 
 import numpy as np
 import pytest
+from torch_rundirs import remove_module_run_dirs, remove_run_dir  # noqa: F401
 import torch
 
 jax = pytest.importorskip("jax")

@@ -14,6 +14,7 @@
 """
 
 import pytest
+from torch_rundirs import remove_module_run_dirs, remove_run_dir  # noqa: F401
 import torch
 
 jax = pytest.importorskip("jax")

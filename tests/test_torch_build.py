@@ -14,6 +14,7 @@ import os
 import shutil
 
 import pytest
+from torch_rundirs import remove_module_run_dirs, remove_run_dir  # noqa: F401
 
 from tpudist_torch.ops import _build
 

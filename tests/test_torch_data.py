@@ -28,6 +28,7 @@ import os
 
 import numpy as np
 import pytest
+from torch_rundirs import remove_module_run_dirs, remove_run_dir  # noqa: F401
 import torch
 
 pytest.importorskip("jax")

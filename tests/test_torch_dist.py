@@ -40,6 +40,7 @@ import time
 
 import numpy as np
 import pytest
+from torch_rundirs import remove_module_run_dirs, remove_run_dir  # noqa: F401
 import torch
 
 from tpudist_torch import config as port_config
@@ -275,9 +276,8 @@ def test_max_restarts_relaunches_every_rank_once(tmp_path, heals_at,
 
 @pytest.mark.parametrize("flags", [
     ["--elastic"], ["--min-ranks", "1"], ["--drain-grace", "5"],
-    ["--inject", "bitflip@step=1"], ["--telemetry-dir", "/tmp/t"],
-    ["--metrics-port", "0"], ["--straggler-factor", "4"],
-    ["--evict-stragglers", "2"], ["--scale-up", "2@10"],
+    ["--inject", "bitflip@step=1"], ["--evict-stragglers", "2"],
+    ["--scale-up", "2@10"],
     ["--collective-deadline", "30"], ["--incident-keep", "4"],
     ["--platform", "cpu"], ["--devices-per-proc", "2"]])
 def test_launcher_refuses_tpudists_other_flags_by_name(flags, capsys):

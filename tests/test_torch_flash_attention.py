@@ -13,6 +13,7 @@ itself is held against the plain version in
 
 import numpy as np
 import pytest
+from torch_rundirs import remove_module_run_dirs, remove_run_dir  # noqa: F401
 import torch
 
 jnp = pytest.importorskip("jax.numpy")

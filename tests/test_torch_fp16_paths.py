@@ -30,6 +30,7 @@ import sys
 
 import numpy as np
 import pytest
+from torch_rundirs import remove_module_run_dirs, remove_run_dir  # noqa: F401
 import torch
 
 from tpudist_torch import __main__ as cli

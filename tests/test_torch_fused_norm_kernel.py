@@ -14,6 +14,7 @@ here on the CPU.
 
 import numpy as np
 import pytest
+from torch_rundirs import remove_module_run_dirs, remove_run_dir  # noqa: F401
 import torch
 
 from tpudist_torch.ops import fused_norm as fn

@@ -21,6 +21,7 @@ import subprocess
 import sys
 
 import pytest
+from torch_rundirs import remove_module_run_dirs, remove_run_dir  # noqa: F401
 import torch
 
 from tpudist_torch._device import resolve_device
@@ -56,7 +57,9 @@ for name in ("tpudist_torch.faults", "tpudist_torch.compat.torch_checkpoint",
              "tpudist_torch.models.mnasnet", "tpudist_torch.models.shufflenet",
              "tpudist_torch.models.efficientnet",
              "tpudist_torch.models.convnext", "tpudist_torch.models.swin",
-             "tpudist_torch.models.maxvit"):
+             "tpudist_torch.models.maxvit", "tpudist_torch.obs.server",
+             "tpudist_torch.obs.tsdb", "tpudist_torch.obs.dashboard",
+             "tpudist_torch.utils.profiling"):
     assert name in mods, name
 import chip_smoke
 import tempfile
@@ -118,6 +121,32 @@ with tempfile.TemporaryDirectory() as d:
             for loader in build_train_val_loaders(cfg, use_native=use_native):
                 images, labels = next(iter(loader))
                 assert images.shape == (2, 16, 16, 3), images.shape
+from tpudist_torch import telemetry
+from tpudist_torch.obs import dashboard, server, tsdb
+from tpudist_torch.utils import profiling
+with tempfile.TemporaryDirectory() as d:
+    tel = telemetry.Telemetry(d, rank=0, max_mb=0.0005)
+    reg = server.MetricsRegistry(rank=0)
+    tel.add_sink(reg.observe)
+    for s in range(8):
+        tel.step(step=s, epoch=0, data_s=0.0, h2d_s=0.0, compute_s=0.01,
+                 drain_s=0.0, step_s=0.02)
+    tel.close()
+    assert "tpudist_steps_total 8" in reg.render()
+    assert os.path.exists(tel.rotated_path())
+    fleet = server.FleetMetrics(d, 1)
+    fleet.refresh(attempt=0)
+    rec = tsdb.FleetSeriesRecorder(d)
+    rec.sample(fleet, telemetry.read_heartbeats(telemetry.heartbeat_dir(d)))
+    rec.close()
+    assert "fleet" in dashboard.render_history_file(
+        live_path=tsdb.latest_path(d))
+    prof = profiling.StepProfiler("1:2", d, device="cpu")
+    for s in range(3):
+        prof.step(s)
+        torch.ones(2).sum()
+    prof.close()
+    assert os.listdir(prof.logdir) == ["steps1-1.pt.trace.json"]
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0].startswith(("jax", "flax"))
                 or m.split(".")[0] in ("optax", "tpudist", "msgpack"))
@@ -155,6 +184,20 @@ def test_chip_smoke_refuses_without_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert chip_smoke.main() != 0
     assert capsys.readouterr().out == ""
+
+
+def test_chip_smoke_alone_in_a_directory_names_what_it_misses(tmp_path):
+    """Without the checkout beside it the script prints one line naming
+    the port's sources and exits non-zero, before it imports torch."""
+    import shutil
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                       capture_output=True, text=True, timeout=60,
+                       env={**os.environ, "PYTHONPATH": ""})
+    assert r.returncode != 0 and r.stdout == ""
+    lines = r.stderr.splitlines()
+    assert len(lines) == 1, r.stderr
+    assert "tpudist_torch/ and tpudist_torch/ops/csrc/" in lines[0]
 
 
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing():

@@ -29,6 +29,7 @@ import shutil
 
 import numpy as np
 import pytest
+from torch_rundirs import remove_module_run_dirs, remove_run_dir  # noqa: F401
 
 pytest.importorskip("jax")
 from PIL import Image

@@ -12,6 +12,7 @@ tests/test_torch_pool_card.py -q``.
 """
 
 import pytest
+from torch_rundirs import remove_module_run_dirs, remove_run_dir  # noqa: F401
 import torch
 import torch.nn.functional as F
 

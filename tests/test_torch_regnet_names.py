@@ -4,6 +4,7 @@ forward equal tpudist's ``act="relu"`` BatchNorm calls (the stem, ``f_a``
 and ``f_b`` of every block: 33 in regnet_y_400mf)."""
 
 import pytest
+from torch_rundirs import remove_module_run_dirs, remove_run_dir  # noqa: F401
 
 import test_torch_zoo as zoo
 

@@ -5,6 +5,7 @@ runs the fused epilogue's forward and backward once at each site whose
 loss is finite, and validation runs no fused epilogue."""
 
 import pytest
+from torch_rundirs import remove_module_run_dirs, remove_run_dir  # noqa: F401
 
 import test_torch_zoo as zoo
 

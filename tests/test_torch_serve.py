@@ -16,6 +16,7 @@ import shutil
 
 import numpy as np
 import pytest
+from torch_rundirs import remove_module_run_dirs, remove_run_dir  # noqa: F401
 import torch
 
 from tpudist_torch import telemetry as telemetry_lib
@@ -251,7 +252,7 @@ def test_served_checkpoint_matches_tpudists_export_of_the_file(tmp_path,
 @pytest.mark.parametrize("flag,missing", [
     (["--telemetry"], "--outpath"),
     (["--compile-cache", "/tmp/cc"], "compile cache"),
-    (["--metrics-port", "0"], "metrics endpoint"),
+    (["--metrics-port", "0"], "--metrics-port requires --telemetry"),
     (["--checkpoint", "run/checkpoint.msgpack"], "msgpack"),
 ])
 def test_cli_refuses_what_the_port_lacks(flag, missing, capsys):

@@ -9,6 +9,7 @@ hardswish follows a plain BatchNorm. The vggs are
 files', the regnets ``tests/test_torch_regnet_names.py``'s."""
 
 import pytest
+from torch_rundirs import remove_module_run_dirs, remove_run_dir  # noqa: F401
 
 import test_torch_zoo as zoo
 

@@ -7,6 +7,7 @@ from the same blocks and tables; their parameter counts are
 ``tests/test_torch_zoo_rest.py``'s."""
 
 import pytest
+from torch_rundirs import remove_module_run_dirs, remove_run_dir  # noqa: F401
 
 jax = pytest.importorskip("jax")
 jnp = pytest.importorskip("jax.numpy")

@@ -9,6 +9,7 @@ dispatch runs (swin's and maxvit's biased attention is plain, as
 tpudist's)."""
 
 import pytest
+from torch_rundirs import remove_module_run_dirs, remove_run_dir  # noqa: F401
 
 import test_torch_zoo as zoo
 

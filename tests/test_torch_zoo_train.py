@@ -11,6 +11,7 @@ loss is finite, and validation runs no fused epilogue. The regnets are
 """
 
 import pytest
+from torch_rundirs import remove_module_run_dirs, remove_run_dir  # noqa: F401
 
 import test_torch_zoo as zoo
 

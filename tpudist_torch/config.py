@@ -152,6 +152,16 @@ class Config:
                 raise ValueError(
                     f"--{name.replace('_', '-')} must be one of "
                     f"{'|'.join(allowed)}, got '{getattr(self, name)}'")
+        if self.telemetry_max_mb < 0:
+            raise ValueError(
+                f"--telemetry-max-mb must be >= 0 (0 = uncapped), got "
+                f"{self.telemetry_max_mb}")
+        if self.metrics_port >= 0 and not self.telemetry:
+            # The endpoint is fed by the telemetry event stream.
+            raise ValueError(
+                f"--metrics-port {self.metrics_port} requires --telemetry "
+                f"(the endpoint serves gauges derived from the telemetry "
+                f"event stream)")
         if self.val_resize < self.image_size:
             raise ValueError(
                 f"--val-resize {self.val_resize} must be >= --image-size "
@@ -188,9 +198,6 @@ _NOT_YET = {
     "microbatches": ("--microbatches", "pipeline parallelism"),
     "remat": ("--remat", "block checkpointing"),
     "compile_cache": ("--compile-cache", "a persistent compile cache"),
-    "metrics_port": ("--metrics-port", "the metrics endpoint (obs/server.py)"),
-    "telemetry_max_mb": ("--telemetry-max-mb", "event-file rotation"),
-    "profile": ("--profile", "the trace window"),
     "doctor": ("--doctor", "the doctor plane"),
     "doctor_probe_freq": ("--doctor-probe-freq", "the doctor plane"),
     "doctor_spike_sigma": ("--doctor-spike-sigma", "the doctor plane"),
@@ -333,9 +340,9 @@ def build_parser() -> argparse.ArgumentParser:
     add("--data-skip-budget", default=d.data_skip_budget, type=int, dest="data_skip_budget", help="skipped samples tolerated per epoch before the loader fails loudly (0 = strict)")
     _bool_flag(p, "telemetry", d.telemetry, "write events.<rank>.jsonl + heartbeats (python -m tpudist.summarize <outpath> reads them)")
     _bool_flag(p, "telemetry_mfu", d.telemetry_mfu, "per-step MFU: the port reports none yet (no compiled cost analysis)")
-    add("--metrics-port", default=d.metrics_port, type=int, dest="metrics_port", help=not_yet)
-    add("--telemetry-max-mb", default=d.telemetry_max_mb, type=float, dest="telemetry_max_mb", help=not_yet)
-    add("--profile", default=d.profile, help=not_yet)
+    add("--metrics-port", default=d.metrics_port, type=int, dest="metrics_port", help="with --telemetry: serve live Prometheus metrics (step p50/p95, phase breakdown, goodput, fault counters, heartbeat age; tpudist's metric names) on this port; 0 = pick a free port (written to <outpath>/metrics.<rank>.port); -1 = off")
+    add("--telemetry-max-mb", default=d.telemetry_max_mb, type=float, dest="telemetry_max_mb", help="roll events.<rank>.jsonl to events.<rank>.1.jsonl past this size (MB; bounds long-run telemetry at ~2x the cap; 0 = uncapped)")
+    add("--profile", default=d.profile, help="torch.profiler trace of the global step window 'start:end' (or one step 'n'; '' = off): a Chrome trace under <outpath>/profile/attempt_<n>/, CPU and, on the card, CUDA activity")
     _bool_flag(p, "doctor", d.doctor, not_yet)
     add("--doctor-probe-freq", default=d.doctor_probe_freq, type=int, dest="doctor_probe_freq", help=not_yet)
     add("--doctor-spike-sigma", default=d.doctor_spike_sigma, type=float, dest="doctor_spike_sigma", help=not_yet)

@@ -12,6 +12,8 @@ port has, each called from one place:
 
     rank_exit[:code=N]      trainer step boundary: os._exit mid-epoch
     slow_peer[:ms=N]        trainer step boundary: a stall
+    straggle[:ms=,from=]    trainer step boundary: a stall on every step
+                            from step ``from`` on (a persistent straggler)
     init_hang[:ms=N]        dist.initialize_runtime, under its deadline
     checkpoint_corrupt      checkpoint.save_checkpoint: flip bytes after
                             the sidecar (``step`` gates the stored epoch)
@@ -43,11 +45,10 @@ ENV_SPEC = "TPUDIST_INJECT"
 ENV_ATTEMPT = "TPUDIST_RESTART_COUNT"
 ENV_RANK = "TPUDIST_PROCESS_ID"
 
-POINTS = ("rank_exit", "slow_peer", "init_hang", "checkpoint_corrupt",
-          "decode_fail")
+POINTS = ("rank_exit", "slow_peer", "straggle", "init_hang",
+          "checkpoint_corrupt", "decode_fail")
 # tpudist's points whose plane is not in the port: point → plane.
-UNPORTED = {"straggle": "straggler detection",
-            "watchdog_expire": "the stall watchdog",
+UNPORTED = {"watchdog_expire": "the stall watchdog",
             "nanbomb": "the doctor", "lossbomb": "the doctor",
             "bitflip": "the doctor"}
 
@@ -237,6 +238,20 @@ def maybe_slow_peer(step: int) -> None:
     inj = should_fire("slow_peer", step=step)
     if inj is not None:
         time.sleep(inj.param_float("ms", 500.0) / 1e3)
+
+
+def maybe_straggle(step: int) -> None:
+    """``straggle``, at the trainer's step boundary: a sustained ``ms``
+    stall (default 400) on every step from step ``from`` (default 0) on,
+    the persistent-straggler shape the launcher's straggler detection
+    flags. ``from=`` takes the place of the ``step=`` gate; rank, attempt
+    and once gate as usual, and each firing is notified."""
+    inj = get_injector().should_fire("straggle", consume=False)
+    if inj is None or step < inj.param_int("from", 0):
+        return
+    inj.fired += 1
+    _notify("straggle", step=step)
+    time.sleep(inj.param_float("ms", 400.0) / 1e3)
 
 
 def maybe_init_hang() -> None:

@@ -30,10 +30,24 @@ stopped. The restart and exhaustion lines name each exit code's meaning
 or a point whose plane the port lacks, fails at once) and given to every
 rank as ``TPUDIST_INJECT``.
 
+Observability, as tpudist's launcher: the launcher writes its own event
+stream, ``events.launcher.jsonl`` (``launcher_start``, ``rank_exit`` with
+the exit's meaning, ``restart``, ``straggler``), into ``--telemetry-dir``
+(made at once: pair it with the trainer's ``--overwrite keep``) or, when
+the command runs ``--telemetry`` with an ``--outpath``, into that outpath
+once a rank has set it up. About once a second it reads the ranks'
+heartbeat files: a rank whose per-step host time is over
+``--straggler-factor`` times the others' median is named once an attempt
+(a ``straggler`` event; 0 turns the check off). ``--metrics-port`` serves
+the fleet view (``obs.server.FleetMetrics``: supervision counters, the
+ranks' heartbeat gauges and straggler flags, headlines scraped from each
+rank's own endpoint) at ``/metrics`` and ``/dashboard``, and records it
+as ``fleet_ts.<attempt>.jsonl`` (``obs.tsdb``).
+
 tpudist's other launcher flags (the elastic gang and its
-``--drain-grace``, launcher telemetry, metrics, straggler and collective
-watchdogs, scale-up, incident bundles, and the JAX platform flags) are
-accepted by name and refused when set::
+``--drain-grace``, straggler eviction, the collective watchdog,
+scale-up, incident bundles, and the JAX platform flags) are accepted by
+name and refused when set::
 
     python -m tpudist_torch.launch -n 1 -- python -m tpudist_torch \\
         --distributed -a resnet18 --use_amp --fused-bn on -b 256 --synthetic
@@ -41,6 +55,9 @@ accepted by name and refused when set::
         --distributed --device cpu --synthetic -a resnet18 -b 16 ...
     python -m tpudist_torch.launch -n 1 --max-restarts 2 -- python -m \\
         tpudist_torch --distributed ... --resume auto --overwrite keep
+    python -m tpudist_torch.launch -n 1 --telemetry-dir D --metrics-port 0 \\
+        -- python -m tpudist_torch --distributed ... --telemetry \\
+        --outpath D --overwrite keep
 """
 
 from __future__ import annotations
@@ -54,6 +71,7 @@ import sys
 import time
 
 from tpudist_torch import faults
+from tpudist_torch import telemetry as telemetry_lib
 
 # tpudist's launcher flags the port does not have: (flag, what is
 # missing). A value given for any of them is refused by name.
@@ -65,9 +83,6 @@ _NOT_YET = {
     "elastic": ("--elastic", "the elastic gang (tpudist/elastic/)"),
     "min_ranks": ("--min-ranks", "the elastic gang"),
     "drain_grace": ("--drain-grace", "the elastic gang"),
-    "telemetry_dir": ("--telemetry-dir", "the launcher's telemetry"),
-    "metrics_port": ("--metrics-port", "the fleet metrics endpoint"),
-    "straggler_factor": ("--straggler-factor", "straggler detection"),
     "evict_stragglers": ("--evict-stragglers", "straggler eviction"),
     "scale_up": ("--scale-up", "elastic scale-up"),
     "collective_deadline": ("--collective-deadline",
@@ -126,6 +141,26 @@ def build_parser() -> argparse.ArgumentParser:
                    help="fault-injection spec given to every rank as "
                         "TPUDIST_INJECT (tpudist_torch/faults.py), e.g. "
                         "'rank_exit@step=7@rank=1@attempt=0'")
+    p.add_argument("--telemetry-dir", default="", dest="telemetry_dir",
+                   help="run dir of the ranks' telemetry (heartbeats/, "
+                        "events.*.jsonl): the launcher reads the heartbeats "
+                        "for straggler detection and writes "
+                        "events.launcher.jsonl there, creating it at once "
+                        "(pair with the trainer's --overwrite keep). "
+                        "Default: a command with --telemetry and --outpath "
+                        "gives its outpath, used once a rank has made it")
+    p.add_argument("--metrics-port", type=int, default=-1,
+                   dest="metrics_port",
+                   help="serve the fleet view on this port (0 = a free "
+                        "port, announced on stderr): supervision counters, "
+                        "per-rank heartbeat gauges, straggler flags, the "
+                        "ranks' scraped headlines (/metrics) and a "
+                        "/dashboard page; needs a telemetry dir. -1 = off")
+    p.add_argument("--straggler-factor", type=float, default=4.0,
+                   dest="straggler_factor",
+                   help="flag a rank whose per-step host time (heartbeat "
+                        "host_p50) is over this many times the other "
+                        "ranks' median (0 = off)")
     for dest, (flag, what) in _NOT_YET.items():
         kw = ({"action": "store_const", "const": True}
               if dest == "elastic" else {})
@@ -148,10 +183,13 @@ def _rank_env(coordinator: str, rank: int, nprocs: int,
     return env
 
 
-def _supervise_once(args, cmd, attempt: int) -> int:
+def _supervise_once(args, cmd, attempt: int, telemetry=None,
+                    fleet=None) -> int:
     """Start every rank, wait for all of them, and return 0, or the exit
     code of the first rank that failed after tearing the others down
-    (130 when the launcher itself was interrupted)."""
+    (130 when the launcher itself was interrupted). About once a second
+    it reads the ranks' heartbeats once, for the straggler check, the
+    fleet view and its time series."""
     coordinator = args.coordinator or f"127.0.0.1:{find_free_port()}"
     procs: list[subprocess.Popen] = []
     # The ranks run in sessions of their own (so a teardown can signal
@@ -170,12 +208,23 @@ def _supervise_once(args, cmd, attempt: int) -> int:
     prev_term = signal.signal(signal.SIGTERM, _on_signal)
     prev_int = signal.signal(signal.SIGINT, _on_signal)
     exit_code = 0
+    if telemetry is not None:
+        telemetry.emit("launcher_start", attempt=attempt,
+                       nprocs=args.nprocs, coordinator=coordinator)
+    rank_of: dict[int, int] = {}
+    flagged: set[int] = set()
+    # The fleet's series file opens once the run dir provably exists (the
+    # ranks' heartbeats, or a live launcher stream), never before rank 0's
+    # --overwrite handling.
+    ts_recorder = None
+    last_poll = time.monotonic()
     try:
         for rank in range(args.nprocs):
             procs.append(subprocess.Popen(
                 cmd, env=_rank_env(coordinator, rank, args.nprocs, attempt,
                                    args.inject),
                 start_new_session=True))
+            rank_of[procs[-1].pid] = rank
         while procs:
             for pr in list(procs):
                 rc = pr.poll()
@@ -183,11 +232,38 @@ def _supervise_once(args, cmd, attempt: int) -> int:
                     continue
                 procs.remove(pr)
                 if rc != 0:
+                    if telemetry is not None:
+                        telemetry.emit("rank_exit", attempt=attempt,
+                                       exit_rank=rank_of.get(pr.pid, -1),
+                                       code=rc,
+                                       classification=faults.classify_exit(
+                                           rc))
                     exit_code = rc
                     tearing_down = True
                     _terminate_all(procs)
                     procs = []
                     break
+            if procs and time.monotonic() - last_poll >= 1.0:
+                last_poll = time.monotonic()
+                if hasattr(telemetry, "flush"):
+                    telemetry.flush()      # the lazy stream, once the dir is
+                beats = None
+                if telemetry is not None and (args.straggler_factor > 0
+                                              or fleet is not None):
+                    beats = telemetry_lib.read_heartbeats(
+                        telemetry_lib.heartbeat_dir(telemetry.outpath))
+                _check_stragglers(args, telemetry, attempt, flagged, beats)
+                if fleet is not None:
+                    fleet.refresh(attempt=attempt, beats=beats)
+                    if ts_recorder is None and (
+                            beats or getattr(telemetry, "_tel", True)
+                            is not None):
+                        from tpudist_torch.obs.tsdb import \
+                            FleetSeriesRecorder
+                        ts_recorder = FleetSeriesRecorder(
+                            telemetry.outpath, attempt=attempt)
+                    if ts_recorder is not None:
+                        ts_recorder.sample(fleet, beats)
             if procs:
                 time.sleep(0.2)
     except KeyboardInterrupt:
@@ -197,7 +273,133 @@ def _supervise_once(args, cmd, attempt: int) -> int:
     finally:
         signal.signal(signal.SIGTERM, prev_term)
         signal.signal(signal.SIGINT, prev_int)
+        if ts_recorder is not None:
+            ts_recorder.sample(fleet, None)     # the closing counters
+            ts_recorder.close()
     return 130 if interrupted else exit_code
+
+
+def _check_stragglers(args, telemetry, attempt: int, flagged: set,
+                      beats=None) -> list:
+    """The ranks' heartbeats into straggler flags: a ``straggler`` event
+    and a line once a rank an attempt. Returns every rank flagged by this
+    read. Heartbeats exist only where the trainer runs ``--telemetry``;
+    none is an empty read."""
+    if telemetry is None or args.straggler_factor <= 0:
+        return []
+    if beats is None:
+        beats = telemetry_lib.read_heartbeats(
+            telemetry_lib.heartbeat_dir(telemetry.outpath))
+    live = telemetry_lib.find_stragglers(beats, factor=args.straggler_factor,
+                                         attempt=attempt)
+    for st in live:
+        rank = st["straggler_rank"]
+        if rank in flagged:
+            continue
+        flagged.add(rank)
+        print(f"[tpudist_torch.launch] straggler: rank {rank} per-step host "
+              f"overhead p50 {st['host_p50_s'] * 1e3:.0f}ms vs fleet median "
+              f"{st['median_others_s'] * 1e3:.0f}ms ({st['factor']:.1f}x, "
+              f"attempt {attempt}) — investigate that host's input "
+              f"pipeline/CPU before blaming the collective",
+              file=sys.stderr, flush=True)
+        telemetry.emit("straggler", attempt=attempt, straggler_rank=rank,
+                       factor=st["factor"], host_p50_s=st["host_p50_s"],
+                       median_others_s=st["median_others_s"])
+    return live
+
+
+class _LazyLauncherTelemetry:
+    """The launcher's stream when the run dir is the command's outpath: it
+    opens ``events.launcher.jsonl`` only once a rank has set the dir up
+    (its ``heartbeats/`` exists), so rank 0's ``--overwrite`` handling
+    never finds a dir the launcher made. Earlier events are kept (at most
+    256, with their own times) and written on the first ready emit; the
+    fleet view's sink sees every event at once."""
+
+    _MAX_BUFFER = 256
+
+    def __init__(self, outpath: str):
+        self.outpath = outpath
+        self._tel = None
+        self._buf: list[tuple[float, str, dict]] = []
+        self.sink = None
+
+    def flush(self, force: bool = False) -> bool:
+        """Open the stream and write the kept events once the dir exists
+        (``force``, at the launcher's exit: make it, so a job that died
+        before any rank set it up still leaves its timeline). True once
+        the stream is live."""
+        if self._tel is None:
+            if not force and not os.path.isdir(
+                    telemetry_lib.heartbeat_dir(self.outpath)):
+                return False
+            self._tel = telemetry_lib.Telemetry(
+                self.outpath, rank=-1, attempt=0, name="launcher",
+                heartbeat=False)
+            for t0, etype, fields in self._buf:
+                self._tel.emit(etype, t=t0, **fields)
+            self._buf.clear()
+        return True
+
+    def emit(self, etype: str, **fields) -> None:
+        if self.sink is not None:
+            try:
+                self.sink(dict(fields, t=time.time(), type=etype, rank=-1))
+            except Exception:
+                pass
+        if not self.flush():
+            if len(self._buf) < self._MAX_BUFFER:
+                self._buf.append((time.time(), etype, fields))
+            return
+        self._tel.emit(etype, **fields)
+
+
+def _launcher_telemetry(args, cmd):
+    """The launcher's own stream: eager in an explicit ``--telemetry-dir``;
+    else lazy in the command's ``--outpath`` when the command runs
+    ``--telemetry``; else None (the launcher writes nothing)."""
+    if args.telemetry_dir:
+        return telemetry_lib.Telemetry(args.telemetry_dir, rank=-1,
+                                       attempt=0, name="launcher",
+                                       heartbeat=False)
+    if "--telemetry" not in cmd:
+        return None
+    for i, tok in enumerate(cmd):
+        if tok == "--outpath" and i + 1 < len(cmd):
+            return _LazyLauncherTelemetry(cmd[i + 1])
+        if tok.startswith("--outpath="):
+            return _LazyLauncherTelemetry(tok.split("=", 1)[1])
+    return None
+
+
+def _fleet_metrics(args, telemetry, parser):
+    """``--metrics-port``: a ``FleetMetrics`` fed by the launcher's own
+    stream and refreshed by the supervision poll, behind an HTTP server
+    whose ``/dashboard`` draws the fleet's series."""
+    if args.metrics_port < 0:
+        return None, None
+    if telemetry is None:
+        parser.error("--metrics-port needs a telemetry dir: pass "
+                     "--telemetry-dir, or run a command with --telemetry "
+                     "and an --outpath")
+    from tpudist_torch.obs import dashboard
+    from tpudist_torch.obs.server import FleetMetrics, MetricsServer
+    fleet = FleetMetrics(telemetry.outpath, args.nprocs,
+                         straggler_factor=args.straggler_factor)
+    if hasattr(telemetry, "add_sink"):
+        telemetry.add_sink(fleet.observe)
+    else:
+        telemetry.sink = fleet.observe
+    # attempt 0, not None: a relaunch into a warm dir must not publish the
+    # dead run's heartbeats.
+    fleet.refresh(attempt=0)
+    server = MetricsServer(
+        fleet, port=args.metrics_port,
+        dashboard=dashboard.live_renderer(telemetry.outpath)).start()
+    print(f"[tpudist_torch.launch] fleet metrics on :{server.port} "
+          f"(/metrics, /dashboard)", file=sys.stderr, flush=True)
+    return fleet, server
 
 
 def main(argv=None) -> int:
@@ -222,21 +424,32 @@ def main(argv=None) -> int:
         except ValueError as e:
             p.error(f"unsupported in tpudist_torch.launch: --inject "
                     f"{args.inject!r}: {e}")
+    telemetry = _launcher_telemetry(args, cmd)
+    fleet, server = _fleet_metrics(args, telemetry, p)
     attempt = 0
-    while True:
-        exit_code = _supervise_once(args, cmd, attempt)
-        if exit_code in (0, 130):
-            return exit_code
-        why = faults.classify_exit(exit_code)
-        if attempt >= args.max_restarts:
+    try:
+        while True:
+            exit_code = _supervise_once(args, cmd, attempt, telemetry, fleet)
+            if exit_code in (0, 130):
+                return exit_code
+            why = faults.classify_exit(exit_code)
+            if attempt >= args.max_restarts:
+                print(f"[tpudist_torch.launch] job failed (exit "
+                      f"{exit_code}: {why}) — restart budget exhausted",
+                      file=sys.stderr, flush=True)
+                return exit_code
+            attempt += 1
             print(f"[tpudist_torch.launch] job failed (exit {exit_code}: "
-                  f"{why}) — restart budget exhausted", file=sys.stderr,
-                  flush=True)
-            return exit_code
-        attempt += 1
-        print(f"[tpudist_torch.launch] job failed (exit {exit_code}: {why}) "
-              f"— restart {attempt}/{args.max_restarts}", file=sys.stderr,
-              flush=True)
+                  f"{why}) — restart {attempt}/{args.max_restarts}",
+                  file=sys.stderr, flush=True)
+            if telemetry is not None:
+                telemetry.emit("restart", attempt=attempt,
+                               prev_exit=exit_code)
+    finally:
+        if hasattr(telemetry, "flush"):
+            telemetry.flush(force=True)    # the job is over: land the events
+        if server is not None:
+            server.close()
 
 
 if __name__ == "__main__":

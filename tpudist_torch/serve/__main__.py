@@ -14,8 +14,13 @@ a ViT's attention is resolved by the measurement dispatch at the eval
 workload of the largest bucket, and the verdict is logged (``=> serve
 attention dispatch: ...``).
 
-Not in the port yet, each refused with a message that names it:
-``--compile-cache`` and ``--metrics-port``.
+``--telemetry --metrics-port N`` serves the replica's Prometheus endpoint
+(``obs/server.py``: request p50/p99 latency, queue depth, batch
+occupancy, req/s; tpudist's names), fed by its event stream; ``0`` picks
+a free port, written to ``<outpath>/metrics.<rank>.port``.
+
+Not in the port yet, refused with a message that names it:
+``--compile-cache``.
 """
 
 from __future__ import annotations
@@ -70,7 +75,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write events.<rank>.jsonl (serve_start/request/"
                         "serve_batch + compile events) + heartbeats")
     p.add_argument("--metrics-port", type=int, default=-1,
-                   dest="metrics_port", help="not in the port yet")
+                   dest="metrics_port",
+                   help="with --telemetry: per-replica Prometheus endpoint "
+                        "(request p50/p99 latency, queue depth, batch "
+                        "occupancy, req/s); 0 = ephemeral, written to "
+                        "<outpath>/metrics.<rank>.port")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where the model runs (default cuda; there is no "
                         "fallback to the CPU)")
@@ -86,9 +95,10 @@ def main(argv=None) -> int:
         parser.error("--compile-cache: the port has no persistent compile "
                      "cache yet (its counterpart, CUDA graphs per bucket, "
                      "is later work)")
-    if args.metrics_port >= 0:
-        parser.error("--metrics-port: the port has no metrics endpoint "
-                     "(obs/server.py) yet")
+    if args.metrics_port >= 0 and not args.telemetry:
+        parser.error("--metrics-port requires --telemetry (the endpoint "
+                     "serves gauges derived from the telemetry event "
+                     "stream)")
     if args.checkpoint and not os.path.exists(args.checkpoint):
         parser.error(f"--checkpoint {args.checkpoint}: no such file or run "
                      f"dir")
@@ -110,6 +120,7 @@ def main(argv=None) -> int:
         print(msg, flush=True)
 
     telemetry = None
+    metrics_server = None
     rank = 0
     try:
         rank = int(os.environ.get("TPUDIST_PROCESS_ID", "0"))
@@ -125,6 +136,23 @@ def main(argv=None) -> int:
                                     if on_gpu else "cpu"),
                        arch=args.arch, global_batch=buckets[-1],
                        mode="serve")
+        if args.metrics_port >= 0:
+            from tpudist_torch.obs.server import (MetricsRegistry,
+                                                  MetricsServer)
+            reg = MetricsRegistry(rank=rank)
+            telemetry.add_sink(reg.observe)
+            try:
+                metrics_server = MetricsServer(
+                    reg, port=args.metrics_port).start()
+            except OSError as e:
+                # Replicas given one fixed port: the one that loses the
+                # bind serves on an ephemeral port (see its port file).
+                log(f"=> serve metrics port {args.metrics_port} "
+                    f"unavailable ({e!r}) — falling back to an ephemeral "
+                    f"port")
+                metrics_server = MetricsServer(reg, port=0).start()
+            metrics_server.write_portfile(args.outpath, rank)
+            log(f"=> serve metrics on :{metrics_server.port} (/metrics)")
 
     model = load_serve_state(
         args.arch, args.checkpoint, num_classes=args.num_classes,
@@ -180,6 +208,8 @@ def main(argv=None) -> int:
 
     if telemetry is not None:
         telemetry.close(mode="serve")
+    if metrics_server is not None:
+        metrics_server.close()
     print("SERVE_SUMMARY " + json.dumps(summary), flush=True)
     # Partial errors still count as a served run (reported above); a run
     # where nothing succeeded is a failure — after clean shutdown.

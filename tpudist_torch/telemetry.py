@@ -1,12 +1,21 @@
 """Structured run events, goodput accounting and heartbeats for the port.
 
-The port's copy of the part of ``tpudist/telemetry.py`` that serving and
-the trainer use. Events are byte-compatible with the JAX package's: the
-same envelope (``t``/``type``/``rank``/``attempt``), the same required
-fields per type and the same ``events.<rank>.jsonl`` and
+The port's copy of the part of ``tpudist/telemetry.py`` that serving,
+the trainer and the launcher use. Events are byte-compatible with the JAX
+package's: the same envelope (``t``/``type``/``rank``/``attempt``), the
+same required fields per type and the same ``events.<rank>.jsonl`` and
 ``heartbeats/rank<r>.json`` files, one of each per rank of a
-data-parallel run, so ``python -m tpudist.summarize <outpath>`` reads a
-port run.
+data-parallel run (the launcher's stream is ``events.launcher.jsonl``),
+so ``python -m tpudist.summarize <outpath>`` reads a port run.
+
+- ``--telemetry-max-mb``: past the cap the live file rolls to
+  ``events.<rank>.1.jsonl`` (replacing the previous rollover), tpudist's
+  names, so a reader that globs ``events.*.jsonl`` reads both.
+- ``add_sink``: an observer of every persisted event (the live metrics
+  registry of ``obs/server.py``).
+- ``read_heartbeats`` / ``find_stragglers``: the launcher's straggler
+  detection over the ranks' heartbeat files (``host_p50``, the per-step
+  host time outside the card's work, is the signal).
 """
 
 from __future__ import annotations
@@ -48,11 +57,17 @@ SCHEMA: dict[str, tuple[str, ...]] = {
     # One per bucket call the batcher made.
     "serve_batch": ("bucket", "n_valid", "batch_s"),
     "run_end": ("wall_s", "productive_s", "goodput"),
+    # The launcher's own stream (rank -1, events.launcher.jsonl).
+    "launcher_start": ("nprocs",),
+    "rank_exit": ("code", "classification"),
+    "restart": (),
+    "straggler": ("straggler_rank", "factor"),
 }
 
 # Fields that must be numeric when present (timings and accounting).
-_NUMERIC = {"t", "rank", "attempt", "step", "epoch", "seconds", "n_devices",
-            "global_batch", "wall_s", "productive_s", "goodput", "n_sites",
+_NUMERIC = {"t", "rank", "attempt", "step", "epoch", "seconds", "code",
+            "nprocs", "n_devices", "global_batch", "straggler_rank",
+            "factor", "wall_s", "productive_s", "goodput", "n_sites",
             "n_fused", "n_buckets", "bucket", "n_valid", "queue_depth",
             "n_requests", "n_images", "image_size", "steps"}
 
@@ -80,7 +95,8 @@ def validate_event(ev: dict) -> None:
 
 
 def events_path(outpath: str, rank) -> str:
-    """``events.<rank>.jsonl`` under the run dir."""
+    """``events.<rank>.jsonl`` under the run dir (``rank`` may be the
+    string ``'launcher'`` for the launcher's stream)."""
     return os.path.join(outpath, f"events.{rank}.jsonl")
 
 
@@ -125,22 +141,39 @@ def env_attempt() -> int:
 class Telemetry:
     """Per-rank structured event stream + goodput accounting + heartbeat.
 
-    Thread-safe emit (the batcher's loop thread emits); every line is
-    flushed on write."""
+    Thread-safe emit (the batcher's loop thread and the loader's threads
+    emit); every line is flushed on write."""
 
-    def __init__(self, outpath: str, rank: int = 0, init_s: float = 0.0):
+    def __init__(self, outpath: str, rank: int = 0, init_s: float = 0.0,
+                 attempt: Optional[int] = None, name=None,
+                 heartbeat: bool = True,
+                 heartbeat_interval_s: float = HEARTBEAT_INTERVAL_S,
+                 max_mb: float = 256.0):
         """``init_s``: seconds spent before this object existed
         (``dist.initialize_runtime``); ``wall_s`` and ``run_end`` count
-        them, as tpudist's pending ``init`` phase."""
+        them, as tpudist's pending ``init`` phase. ``name`` replaces the
+        rank in the file name (the launcher's ``'launcher'``);
+        ``max_mb`` <= 0 leaves the file uncapped."""
         self.outpath = outpath
         self.rank = rank
-        self.attempt = env_attempt()
+        self.attempt = env_attempt() if attempt is None else attempt
         self.init_s = float(init_s)
         os.makedirs(outpath, exist_ok=True)
-        self.path = events_path(outpath, rank)
+        self.path = events_path(outpath, name if name is not None else rank)
         self._f = open(self.path, "a", buffering=1)
         self._lock = threading.Lock()
         self._t0 = time.time()
+        # Rotation: the byte count is kept from the lines written (no stat
+        # an emit); past the cap the live file rolls to the rotated name.
+        self._max_bytes = max(1, int(max_mb * 2**20)) \
+            if max_mb and max_mb > 0 else 0
+        try:
+            self._bytes = os.path.getsize(self.path)
+        except OSError:
+            self._bytes = 0
+        # Observers of every persisted event; a failing sink never costs
+        # an event.
+        self._sinks: list = []
         # goodput buckets (seconds)
         self.compile_s = 0.0
         self.checkpoint_s = 0.0
@@ -154,12 +187,35 @@ class Telemetry:
         self.steps = 0
         self._recent: deque[tuple[float, float]] = deque(maxlen=64)
         self._hb_path = None
+        self._hb_interval = heartbeat_interval_s
         self._hb_last_write = 0.0
         self._last_step: Optional[int] = None
-        if rank >= 0:
+        if heartbeat and isinstance(rank, int) and rank >= 0:
             hb_dir = os.path.join(outpath, HEARTBEAT_DIRNAME)
             os.makedirs(hb_dir, exist_ok=True)
             self._hb_path = os.path.join(hb_dir, f"rank{rank}.json")
+
+    def add_sink(self, fn) -> None:
+        """Register ``fn(event)``, called after each line is persisted;
+        its exceptions are swallowed."""
+        self._sinks.append(fn)
+
+    def rotated_path(self) -> str:
+        base, ext = self.path.rsplit(".jsonl", 1)
+        return f"{base}.1.jsonl{ext}"
+
+    def _maybe_rotate_locked(self) -> None:
+        if not self._max_bytes or self._bytes < self._max_bytes:
+            return
+        try:
+            self._f.close()
+            os.replace(self.path, self.rotated_path())
+            self._f = open(self.path, "a", buffering=1)
+            self._bytes = 0
+        except OSError:
+            # Best-effort: keep appending rather than lose events.
+            if self._f.closed:
+                self._f = open(self.path, "a", buffering=1)
 
     def emit(self, etype: str, **fields) -> dict:
         ev = {"t": time.time(), "type": etype, "rank": self.rank,
@@ -171,6 +227,13 @@ class Telemetry:
             if not self._f.closed:
                 self._f.write(line + "\n")
                 self._f.flush()
+                self._bytes += len(line) + 1
+                self._maybe_rotate_locked()
+        for sink in self._sinks:
+            try:
+                sink(ev)
+            except Exception:
+                pass
         return ev
 
     def note_compile(self, seconds: float, phase: str, **extra) -> None:
@@ -238,7 +301,7 @@ class Telemetry:
         if self._hb_path is None:
             return
         now = time.time()
-        if not force and now - self._hb_last_write < HEARTBEAT_INTERVAL_S:
+        if not force and now - self._hb_last_write < self._hb_interval:
             return
         self._hb_last_write = now
         beat = {"rank": self.rank, "attempt": self.attempt, "step": step,
@@ -284,3 +347,64 @@ class Telemetry:
         with self._lock:
             self._f.close()
         return ev
+
+
+# -- straggler detection -------------------------------------------------------
+
+def heartbeat_dir(outpath: str) -> str:
+    return os.path.join(outpath, HEARTBEAT_DIRNAME)
+
+
+def read_heartbeats(dirpath: str) -> dict[int, dict]:
+    """All parseable ``rank<r>.json`` beats, keyed by rank; a torn or
+    garbage file is skipped."""
+    beats: dict[int, dict] = {}
+    try:
+        names = os.listdir(dirpath)
+    except OSError:
+        return beats
+    for fn in names:
+        if not (fn.startswith("rank") and fn.endswith(".json")):
+            continue
+        try:
+            with open(os.path.join(dirpath, fn)) as f:
+                b = json.load(f)
+            beats[int(b["rank"])] = b
+        except (OSError, ValueError, KeyError, TypeError):
+            continue
+    return beats
+
+
+def find_stragglers(beats: dict[int, dict], factor: float = 4.0,
+                    min_host_s: float = 0.05, min_steps: int = 2,
+                    attempt: Optional[int] = None,
+                    max_age_s: float = 60.0) -> list[dict]:
+    """Ranks whose per-step host overhead (``host_p50``) is more than
+    ``factor`` times the median of the OTHER ranks' (so a 2-rank fleet is
+    decidable), tpudist's rule. ``min_host_s`` is an absolute floor
+    against jitter; ``attempt``/``max_age_s`` drop beats of an earlier
+    attempt."""
+    now = time.time()
+    live = {}
+    for rank, b in beats.items():
+        if b.get("n", 0) < min_steps or "host_p50" not in b:
+            continue
+        if attempt is not None and b.get("attempt") != attempt:
+            continue
+        if now - b.get("updated_at", 0.0) > max_age_s:
+            continue
+        live[rank] = b
+    if len(live) < 2:
+        return []
+    out = []
+    for rank, b in sorted(live.items()):
+        others = [o["host_p50"] for r, o in live.items() if r != rank]
+        med = percentile(others, 50)
+        host = b["host_p50"]
+        if host >= min_host_s and host > factor * max(med, 1e-4):
+            out.append({"straggler_rank": rank,
+                        "host_p50_s": round(host, 6),
+                        "median_others_s": round(med, 6),
+                        "factor": round(host / max(med, 1e-4), 2),
+                        "step": b.get("step")})
+    return out

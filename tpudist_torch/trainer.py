@@ -61,14 +61,24 @@ launcher calls resumable. A resume from that file re-enters the epoch at
 its cursor: the loader skips the consumed positions of the epoch's
 global order, so the rest of the epoch sees tpudist's batches.
 
-``--inject`` (or ``TPUDIST_INJECT``) arms ``faults``: ``rank_exit`` and
-``slow_peer`` at the step boundary, ``decode_fail`` in the loader,
-``checkpoint_corrupt`` after a save; each firing is a ``fault`` event.
+``--inject`` (or ``TPUDIST_INJECT``) arms ``faults``: ``rank_exit``,
+``slow_peer`` and ``straggle`` at the step boundary, ``decode_fail`` in
+the loader, ``checkpoint_corrupt`` after a save; each firing is a
+``fault`` event.
+
+Observability, as tpudist's: ``--telemetry-max-mb`` caps each event file
+(``events.<rank>.1.jsonl`` holds the rollover); ``--metrics-port`` (with
+``--telemetry``) serves the rank's Prometheus endpoint (``obs/server.py``,
+a telemetry sink registered before ``run_start``; a lost bind falls back
+to an ephemeral port; the bound port is in ``metrics.<rank>.port``);
+``--profile start:end`` captures the global step window with
+``torch.profiler`` (``utils/profiling.py``), each step a ``train`` range
+beside ``tpudist.data_wait``, ``tpudist.h2d`` and
+``tpudist.metric_drain``.
 ``--resume x.pth.tar`` imports the reference's file (its weights, epoch
 and best_acc1), ``--pretrained`` starts from torchvision's weights on
 disk, and ``--torch_checkpoints`` also writes ``checkpoint.pth.tar`` and
-``model_best.pth.tar`` (``compat/``). The doctor and the profiler window
-are not ported.
+``model_best.pth.tar`` (``compat/``). The doctor is not ported.
 """
 
 from __future__ import annotations
@@ -80,6 +90,7 @@ import time
 from typing import Any, Optional
 
 import torch
+from torch.profiler import record_function
 
 from tpudist_torch import checkpoint as ckpt_lib
 from tpudist_torch import dist as dist_lib
@@ -101,6 +112,7 @@ from tpudist_torch.train import (compute_dtype, data_parallel, lr_for_epoch,
                                  make_scaler, make_train_step)
 from tpudist_torch.utils import (AverageMeter, ProgressMeter, get_logger,
                                  output_process)
+from tpudist_torch.utils.profiling import StepProfiler
 
 
 class _MetricDrain:
@@ -211,11 +223,15 @@ class Trainer:
         dist_lib.barrier("outpath")
         on_gpu = self.device.type == "cuda"
         self.telemetry = None
+        self.metrics_server = None
         if cfg.telemetry:
             self.telemetry = telemetry_lib.Telemetry(
-                cfg.outpath, rank=self.rank, init_s=init_s)
+                cfg.outpath, rank=self.rank, init_s=init_s,
+                max_mb=cfg.telemetry_max_mb)
             telemetry_lib.set_current(self.telemetry)
             faults.set_observer(self._on_fault)
+            if cfg.metrics_port >= 0:
+                self._start_metrics_server()
             self.telemetry.emit(
                 "run_start", platform="gpu" if on_gpu else "cpu",
                 n_devices=self.world, device_kind=(torch.cuda.get_device_name(
@@ -291,6 +307,9 @@ class Trainer:
         self._epoch_cursor0 = 0
         self._pending_cursor: Optional[dict] = None
         self._epoch_skipped = 0
+        self.profiler = StepProfiler(cfg.profile, cfg.outpath,
+                                     enabled=self.primary,
+                                     device=self.device)
         resume = cfg.resume
         if resume == "auto":
             resume = ckpt_lib.find_resumable(cfg.outpath)
@@ -316,6 +335,26 @@ class Trainer:
         self.eval_step = (make_eval_step(step_model, cfg) if self.ema is None
                           else make_eval_step(self.ema, cfg,
                                               over_ranks=self.distributed))
+
+    def _start_metrics_server(self) -> None:
+        """The rank's live endpoint: a ``MetricsRegistry`` fed as a
+        telemetry sink from the first event on. Ranks of one host given the
+        same fixed port: the one that loses the bind falls back to an
+        ephemeral port, found through its port file."""
+        from tpudist_torch.obs.server import MetricsRegistry, MetricsServer
+        cfg = self.cfg
+        reg = MetricsRegistry(rank=self.rank)
+        self.telemetry.add_sink(reg.observe)
+        try:
+            self.metrics_server = MetricsServer(
+                reg, port=cfg.metrics_port).start()
+        except OSError as e:
+            self.log(f"=> metrics port {cfg.metrics_port} unavailable "
+                     f"({e!r}) — falling back to an ephemeral port")
+            self.metrics_server = MetricsServer(reg, port=0).start()
+        self.metrics_server.write_portfile(cfg.outpath, self.rank)
+        self.log(f"=> live metrics on :{self.metrics_server.port} "
+                 f"(/metrics Prometheus text, /healthz)")
 
     def _build_kernels(self) -> None:
         """Compile the kernel sources this run may launch, its dispatch
@@ -691,27 +730,34 @@ class Trainer:
         self._epoch_consumed, self._epoch_cursor0 = self._epoch_cursor0, 0
         end = t_prev = time.time()
         try:
-            for i, (images, labels) in enumerate(pf if pf is not None
-                                                 else loader):
+            for i, (images, labels) in enumerate(
+                    _waited(pf if pf is not None else loader)):
                 now = time.time()
                 data_time.update(now - end)
                 data_s = now - t_prev
+                self.profiler.step(self.global_step)
                 # The boundary: every earlier step is dispatched, this one
                 # is not. A pending signal drains here.
                 self._check_preemption()
                 faults.maybe_rank_exit(self.global_step)
                 faults.maybe_slow_peer(self.global_step)
-                t_h = time.time()
-                if pf is None:
-                    images, labels = to_device(images, labels, self.device)
+                faults.maybe_straggle(self.global_step)
                 first_dispatch = not self._train_dispatched
                 self._train_dispatched = True
                 counted = (self._first_step_kernels() if first_dispatch
                            else None)
                 launches = dict(counted[1].LAUNCHES) if counted else None
-                t_c = time.time()
-                metrics = self.train_step(images, labels, lr)
-                t_done = time.time()
+                # One range a step: the profiler's trace groups the step's
+                # launches and device work under it.
+                with record_function("train"):
+                    t_h = time.time()
+                    if pf is None:
+                        with record_function("tpudist.h2d"):
+                            images, labels = to_device(images, labels,
+                                                       self.device)
+                    t_c = time.time()
+                    metrics = self.train_step(images, labels, lr)
+                    t_done = time.time()
                 h2d_s, compute_s = t_c - t_h, t_done - t_c
                 self._epoch_consumed += int(images.shape[0]) * self.world
                 if metrics.pop("finite", True):
@@ -720,7 +766,11 @@ class Trainer:
                     self._epoch_skipped += 1
                 if counted:
                     self._log_first_step_launches(*counted, launches)
-                prefetch_s = pf.poke() if pf is not None else None
+                prefetch_s = None
+                if pf is not None:
+                    # The next batch's copy, staged behind this step.
+                    with record_function("tpudist.h2d"):
+                        prefetch_s = pf.poke()
                 drain.push(metrics, n=int(images.shape[0]))
                 drain_ovl_s = None
                 if async_drain:
@@ -733,9 +783,10 @@ class Trainer:
                 end = time.time()
                 drain_s = 0.0
                 if i % cfg.print_freq == 0:
-                    t_d = time.time()
-                    drain.drain_ready() if async_drain else drain.drain()
-                    drain_s = time.time() - t_d
+                    with record_function("tpudist.metric_drain"):
+                        t_d = time.time()
+                        drain.drain_ready() if async_drain else drain.drain()
+                        drain_s = time.time() - t_d
                     self.log(progress.display(i))
                 if tel is not None:
                     tel.step(step=step_num, epoch=epoch, data_s=data_s,
@@ -748,6 +799,7 @@ class Trainer:
             drain.drain()           # every dispatched step's metrics
             raise
         drain.drain()
+        self.profiler.epoch_end()
         self.log(f"||==> Train: Epoch[{epoch}]\tLoss {losses.avg:.4e}\t"
                  f"Acc@1 {top1.avg:6.2f}")
         if self.scaler is not None:
@@ -871,6 +923,7 @@ class Trainer:
             if self.preemption is not None:
                 self.preemption.uninstall()
                 self.preemption = None
+            self.profiler.close()
             if self.telemetry is not None:
                 # What the card ran: the wrappers count only launches.
                 self.telemetry.close(
@@ -879,6 +932,24 @@ class Trainer:
                                      **flash_attention.LAUNCHES})
                 telemetry_lib.set_current(None)
                 faults.set_observer(None)
+            if self.metrics_server is not None:
+                # After run_end reached the registry (a last scrape sees the
+                # closing goodput); then the port and its file go.
+                self.metrics_server.close()
+                self.metrics_server = None
+
+
+def _waited(batches):
+    """``batches``, each wait for the next one inside a
+    ``tpudist.data_wait`` range."""
+    it = iter(batches)
+    while True:
+        with record_function("tpudist.data_wait"):
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+        yield batch
 
 
 def _data_meters(loader) -> tuple[int, int]:
