@@ -98,6 +98,17 @@ line and raising on failure:
    three steps of two microbatches on mixed batches, kernels on against
    off (the same draws), to the on/off bounds of phases 4 and 5, at
    B1–B4 18/16/18/16 and B5–B7 24/24/24 launches a step;
+6b. the doctor and the flight recorder, in this process (``doctor``):
+   the guard's cost (resnet18 at batch 256 and ViT-B/16 at batch 32,
+   guard on against off, each step between CUDA events); resnet18 through
+   the trainer with ``--doctor --blackbox`` and ``nanbomb`` at steps 3–5
+   (the skipped step bit-equal in every tensor with B1–B4 9/8/9/8 in it,
+   three ``skip_step`` events, a ``persistent_nonfinite`` rollback to the
+   seeded state and a 5-step replay; the recorder's dumps and a deep
+   capture whose trace holds B1–B4 18/16/18/16); ``lossbomb`` at step 10
+   of two epochs (a spike, the rollback to epoch 0's probe-verified-good
+   checkpoint, 7 replayed steps); a NaN batch through ViT-B/16 with
+   ``--flash on`` (skipped, B5–B7 12/12/12, bit-equal);
 7. data-parallel training, world 1 over NCCL: the reference's recipe 3
    through ``python -m tpudist_torch.launch -n 1 -- python -m
    tpudist_torch --distributed``, resnet18 at 224 px, batch 256, float16,
@@ -105,7 +116,9 @@ line and raising on failure:
    ``--telemetry-dir --metrics-port 0 --straggler-factor 4`` (its fleet
    endpoint, scraped while the rank trains, shows the world of 1 and rank
    0's heartbeat step, ``/dashboard`` answers, its events hold
-   ``launcher_start`` and no ``straggler``; the log and
+   ``launcher_start`` and no ``straggler``; the rank runs
+   ``--replica-check-freq 1 --stall-timeout 15``: the replica check's
+   world-1 line each epoch, no watchdog fault; the log and
    ``run_start`` name backend nccl, the first step launches B1–B4
    9/8/9/8 times, ``init_s`` > 0, the checkpoint carries a finite
    ``dynamic_scale``; its rank reports its imports); then, in this
@@ -158,8 +171,10 @@ line and raising on failure:
 10. preemption, fault injection and the reference's files:
    ``preempt_resume`` sends SIGTERM to the launcher of a
    ``checkpoint_resume`` run mid-epoch (the launcher's ``--inject
-   slow_peer:ms=1@step=0`` reaches the rank: one ``fault`` event): the
-   rank drains, writes its
+   slow_peer:ms=1@step=0`` reaches the rank: one ``fault`` event; the
+   rank runs ``--blackbox``, the launcher ``--incident-keep 2``: one
+   incident bundle holds the rank's ``preempt`` dump and
+   ``events.jsonl``): the rank drains, writes its
    emergency checkpoint (a live file whose ``data_cursor`` counts whole
    steps), exits 75, the launcher 130; the same command continues the
    epoch at the cursor and ends where the straight run A ended, with
@@ -167,8 +182,11 @@ line and raising on failure:
    seconds and the drain's are printed. ``faults_on_card``:
    ``checkpoint_corrupt`` on a short resnet18 run's second save (the
    resume quarantines both files, falls back to the history and emits the
-   ``fault`` events), ``bitflip`` refused by name by the trainer and the
-   launcher, and, on the ImageFolder tree, ``decode_fail:p=0.1,fails=1``
+   ``fault`` events), ``bitflip`` (one flipped bit in ``bn1.bias[0]``
+   against an unflipped twin, the digests apart; a float16 run under
+   ``--doctor --doctor-probe-freq 2 --inject bitflip@step=1``: it fires
+   once, the world-1 probes see nothing and stamp epoch 0's file good),
+   and, on the ImageFolder tree, ``decode_fail:p=0.1,fails=1``
    given to train_imagefolder's resnet18 run (retries, no new skip).
    ``torch_checkpoint``:
    that run's ``checkpoint.pth.tar`` and ``model_best.pth.tar`` (the EMA)
@@ -277,6 +295,7 @@ from tpudist_torch import checkpoint as ckpt_lib
 from tpudist_torch import config as config_lib
 from tpudist_torch import data as data_lib
 from tpudist_torch import dist as dist_lib
+from tpudist_torch import faults
 from tpudist_torch import launch as launch_lib
 from tpudist_torch import telemetry as telemetry_lib
 from tpudist_torch import train as train_lib
@@ -1727,6 +1746,12 @@ def phase_train_breakdown(ddp: bool = False) -> dict:
 
 DDP_LINE = ("=> data-parallel: world 1, backend nccl, DDP (buffers averaged "
             "after the step)")
+# train_ddp's rank runs --replica-check-freq 1 and a stall watchdog of
+# this many seconds: under the rank's start (imports, model, kernels)
+# and above its slowest unit of progress (a checkpoint save).
+DDP_STALL_TIMEOUT_S = 15
+REPLICA_SKIP_LINE = ("replica consistency check skipped: no replicated "
+                     "leaves (single device or fully sharded state)")
 
 
 FLEET_RE = re.compile(r"fleet metrics on :(\d+)")
@@ -1923,7 +1948,8 @@ def phase_train_ddp(root: str) -> dict:
     run_a = os.path.join(root, "r18_a")
     # The first launch: its rank fills the bytecode cache.
     text, row, events = _launch_trainer(
-        CKPT_R18_ARGS + ["--overwrite", "keep"],
+        CKPT_R18_ARGS + ["--overwrite", "keep", "--replica-check-freq", "1",
+                         "--stall-timeout", str(DDP_STALL_TIMEOUT_S)],
         "the DDP resnet18 float16 run", outdir=run_a,
         launch_args=("--telemetry-dir", run_a, "--metrics-port", "0",
                      "--straggler-factor", "4"))
@@ -1936,6 +1962,14 @@ def phase_train_ddp(root: str) -> dict:
     if n != 16 or got != want or first not in text.splitlines():
         raise RuntimeError(f"DDP fused-norm launches {got} for {n} steps; "
                            f"want {want} and the line {first!r}")
+    # The fault planes at world 1: the replica check has no other replica
+    # to hold rank 0 against, and the watchdog (started after the rank
+    # built and loaded its kernels) never fired.
+    checks = text.count(REPLICA_SKIP_LINE)
+    stalls = [e for e in events if e["type"] == "fault"]
+    if checks != 2 or stalls:
+        raise RuntimeError(f"train_ddp: {checks} replica-check lines, "
+                           f"fault events {stalls}")
     with open(os.path.join(run_a, "events.launcher.jsonl")) as f:
         launcher = [json.loads(ln) for ln in f]
     for ev in launcher:
@@ -1950,6 +1984,8 @@ def phase_train_ddp(root: str) -> dict:
                            f"events {launcher}")
     out = {"phase": "train_ddp", "arch": "resnet18", "batch": TRAIN_B,
            "world": 1, "dtype": "float16", **row,
+           "replica_check_lines": checks,
+           "stall_timeout_s": DDP_STALL_TIMEOUT_S,
            "fused_norm_launches": got,
            "images_per_s_host": TRAIN_B / row["host_step_s_p50"],
            "float16": _fp16_facts(text, run_a, "resnet18"),
@@ -3719,6 +3755,313 @@ def phase_accum_mixup() -> dict:
     return out
 
 
+# -- the fault planes in this process: the doctor and the flight recorder ----
+
+# resnet18 through the trainer at full width, bf16, --fused-bn on: one
+# 8-step epoch of synthetic ImageNet-sized data (lr 0.01, where the
+# natural loss stays far under a 6-sigma spike), probes every 4 steps.
+DOCTOR_R18 = ["-a", "resnet18", "--use_amp", "--fused-bn", "on", "-b",
+              str(TRAIN_B), "--synthetic", "--image-size", str(TRAIN_PX),
+              "--num-classes", "1000", "--synthetic-size", str(8 * TRAIN_B),
+              "-p", "4",
+              "--lr", "0.01", "--telemetry", "--seed", "0", "--doctor",
+              "--doctor-probe-freq", "4", "--keep-checkpoints", "1"]
+# The step the guard's cost is timed over: guard off and on alternate in
+# blocks, each step synchronised and timed between CUDA events.
+GUARD_BLOCKS, GUARD_STEPS = 4, 5
+# ViT-B/16's nanbomb case: full width, a small batch.
+DOCTOR_VIT_B = 32
+
+
+class _SkippedStep:
+    """Wraps the trainer's ``make_train_step``: at the first step function
+    made, call ``index`` (the NaN batch's) is held — the state before it
+    (parameters, buffers, the optimizer's state, the EMA) against the
+    state after it, bit for bit, and the kernel launches it made."""
+
+    def __init__(self, index: int):
+        self.index = index
+        self.row: dict | None = None
+        self.made = 0
+        self.real = None
+
+    def make(self, model, optimizer, cfg, ema=None, **kw):
+        step = self.real(model, optimizer, cfg, ema=ema, **kw)
+        self.made += 1
+        if self.made > 1:              # a rollback's rebuilt step
+            return step
+        net = getattr(model, "module", model)
+        calls = [0]
+
+        def held(images, labels, lr):
+            i = calls[0]
+            calls[0] += 1
+            if i != self.index:
+                return step(images, labels, lr)
+            torch.cuda.synchronize()
+            before = _state_bits(net, optimizer, ema)
+            counts = {**fn.LAUNCHES, **fa.LAUNCHES}
+            out = step(images, labels, lr)
+            torch.cuda.synchronize()
+            after = _state_bits(net, optimizer, ema)
+            self.row = {
+                "tensors": len(before),
+                "changed": sorted(k for k in before
+                                  if not torch.equal(before[k], after[k])),
+                "notfinite": float(out["notfinite"]),
+                "gnorm_finite": bool(torch.isfinite(out["gnorm"])),
+                "launches": {k: v - counts[k] for k, v in {
+                    **fn.LAUNCHES, **fa.LAUNCHES}.items()
+                    if v != counts[k]}}
+            return out
+
+        return held
+
+
+def _state_bits(net, optimizer, ema) -> dict:
+    """Every tensor a step moves, as a copy of its raw bytes."""
+    out = dict(net.state_dict())
+    out = {f"model/{k}": v for k, v in out.items()}
+    for i, p in enumerate(net.parameters()):
+        for k, v in optimizer.state.get(p, {}).items():
+            if torch.is_tensor(v):
+                out[f"opt/{i}/{k}"] = v
+    if ema is not None:
+        out.update({f"ema/{k}": v for k, v in ema.state_dict().items()})
+    return {k: v.detach().contiguous().clone().reshape(-1).view(torch.uint8)
+            for k, v in out.items()}
+
+
+def _doctor_run(args: list, what: str, skipped: int | None = None):
+    """``_run_cli`` of a ``--doctor`` run, its train step wrapped by
+    ``_SkippedStep(skipped)``: the output, events, launches and the held
+    step's row."""
+    from tpudist_torch import trainer as trainer_lib
+    hold = _SkippedStep(-1 if skipped is None else skipped)
+    hold.real = trainer_lib.make_train_step
+    trainer_lib.make_train_step = hold.make
+    try:
+        text, events, launches = _run_cli(args, what)
+    finally:
+        trainer_lib.make_train_step = hold.real
+    return text, events, launches, hold.row
+
+
+def _guard_cost(setup, batch, lr: float) -> dict:
+    """The synchronised step with the guard and without it, on the same
+    model and batch: ``setup(guard)`` → (model, step); the blocks
+    alternate off, on, ...; each step between CUDA events."""
+    times = {False: [], True: []}
+    steps = {}
+    for guard in (False, True):
+        steps[guard] = setup(guard)
+        for _ in range(2):             # warm: allocator, cuDNN, copies
+            steps[guard][1](*batch, lr)
+    for _ in range(GUARD_BLOCKS):
+        for guard in (False, True):
+            step = steps[guard][1]
+            for _ in range(GUARD_STEPS):
+                torch.cuda.synchronize()
+                a, b = torch.cuda.Event(True), torch.cuda.Event(True)
+                a.record()
+                step(*batch, lr)
+                b.record()
+                b.synchronize()
+                times[guard].append(a.elapsed_time(b))
+    off, on = (statistics.median(times[g]) for g in (False, True))
+    del steps
+    return {"off_ms": off, "on_ms": on, "guard_ms": on - off,
+            "guard_share": (on - off) / off, "off_ms_min": min(times[False]),
+            "on_ms_min": min(times[True]), "steps": len(times[True])}
+
+
+def _r18_guarded(guard: bool):
+    cfg = config_lib.Config(batch_size=TRAIN_B, image_size=TRAIN_PX,
+                            fused_bn="on", doctor=guard)
+    model = create_model("resnet18", dtype=torch.bfloat16, fused_bn=True)
+    model.load_state_dict(_seed0_weights("resnet18"))
+    model.cuda()
+    opt = train_lib.make_optimizer(model, cfg)
+    return model, train_lib.make_train_step(model, opt, cfg, guard=guard)
+
+
+def _vit_guarded(guard: bool):
+    cfg = config_lib.Config(arch="vit_b_16", batch_size=DOCTOR_VIT_B,
+                            image_size=TRAIN_PX, optimizer="adamw",
+                            flash="on", doctor=guard)
+    model = create_model("vit_b_16", dtype=torch.bfloat16, flash=True,
+                         image_size=TRAIN_PX)
+    model.load_state_dict(_seed0_weights("vit_b_16", image_size=TRAIN_PX))
+    model.cuda()
+    opt = train_lib.make_optimizer(model, cfg)
+    step = train_lib.make_train_step(model, opt, cfg, guard=guard)
+    step.optimizer = opt
+    return model, step
+
+
+def _doctor_events(events: list) -> list:
+    return [(e["action"], e.get("step")) for e in events
+            if e["type"] == "doctor"]
+
+
+def phase_doctor(root: str, card: dict) -> dict:
+    """The doctor and the flight recorder on the card, in this process.
+
+    - ``guard_cost``: resnet18's synchronised step (batch 256, bf16, B1–B4)
+      with the guard and without it, and ViT-B/16's (batch 32, AdamW,
+      B5–B7; its step count lives on the card, capturable).
+    - ``nanbomb``: resnet18 through the trainer with ``--doctor
+      --blackbox``, ``nanbomb`` at steps 3, 4 and 5 under
+      ``--doctor-max-skips 3``: step 3 leaves every parameter, momentum
+      buffer and BN running buffer bit for bit as it found it while B1–B4
+      launch 9/8/9/8 in it; three ``skip_step`` events, then a
+      ``persistent_nonfinite`` rollback (no checkpoint yet: the seeded
+      initial state) and epoch 0's replay minus the three batches (5
+      steps). The recorder dumps on the ``fault`` and the ``doctor``
+      triggers, and its deep capture's ``torch.profiler`` trace holds
+      B1–B4 9/8/9/8 a step.
+    - ``lossbomb``: two epochs, ``lossbomb@step=10`` under
+      ``--doctor-spike-min-steps 4``: the probe at step 8 stamps epoch 0's
+      checkpoint good, the spike at step 10 rolls back to it (the walk
+      says probe-verified good) and epoch 1 replays minus step 10's batch
+      (7 steps, 15 landed updates in the file).
+    - ``vit``: ViT-B/16 at batch 32 with ``--flash on`` and AdamW, a NaN
+      batch: skipped, B5–B7 12/12/12 in it, the state bit-equal (the
+      AdamW step count included)."""
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"phase": "doctor", "card": card["nvidia_smi"]}
+    # The guard's cost.
+    r18_batch = _device_batch(11)
+    out["guard_cost_resnet18"] = dict(
+        _guard_cost(_r18_guarded, r18_batch, 0.01), batch=TRAIN_B,
+        dtype="bfloat16")
+    vit_batch = _device_batch(12, batch=DOCTOR_VIT_B)
+    out["guard_cost_vit_b_16"] = dict(
+        _guard_cost(_vit_guarded, vit_batch, 1e-3), batch=DOCTOR_VIT_B,
+        dtype="bfloat16", optimizer="adamw")
+    del r18_batch, vit_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # nanbomb: the skip, the escalation, the recorder.
+    d1 = os.path.join(root, "doctor_nanbomb")
+    text, events, launches, held = _doctor_run(
+        DOCTOR_R18 + ["--epochs", "1", "--doctor-max-skips", "3",
+                      "--blackbox", "--blackbox-capture-steps", "2",
+                      "--inject",
+                      "nanbomb@step=3;nanbomb@step=4;nanbomb@step=5",
+                      "--outpath", d1], "the nanbomb run", skipped=3)
+    acts = _doctor_events(events)
+    rb = [e for e in events if e["type"] == "doctor"
+          and e["action"] == "rollback"]
+    steps = sum(e["type"] == "step" for e in events)
+    want = {k: v * steps for k, v in R18_PER_STEP.items()}
+    got = {k: launches[k] for k in fn.KERNELS}
+    if held is None or held["changed"] or held["notfinite"] != 1.0 \
+            or held["launches"] != R18_PER_STEP \
+            or acts[:4] != [("skip_step", 3), ("skip_step", 4),
+                            ("skip_step", 5), ("rollback", 5)] \
+            or rb[0]["reason"] != "persistent_nonfinite" \
+            or (rb[0]["window_start"], rb[0]["window_end"]) != (
+                3 * TRAIN_B, 6 * TRAIN_B) \
+            or "rolling back to the seeded initial state" not in text \
+            or steps != 7 + 5 or got != want:
+        raise RuntimeError(f"doctor nanbomb: held step {held}, doctor "
+                           f"{acts}, rollback {rb}, {steps} steps, "
+                           f"launches {got}")
+    bbdir = os.path.join(d1, "blackbox")
+    dumps = sorted(f for f in os.listdir(bbdir) if f.startswith("dump."))
+    with open(os.path.join(bbdir, dumps[0])) as f:
+        first_dump = json.load(f)
+    triggers = []
+    for name in dumps:
+        with open(os.path.join(bbdir, name)) as f:
+            triggers.append(json.load(f)["trigger"])
+    traces = sorted(os.path.join(dp, f) for dp, _, fs in os.walk(bbdir)
+                    for f in fs if f.endswith(".pt.trace.json"))
+    if not traces:
+        raise RuntimeError(f"doctor nanbomb: no deep-capture trace in "
+                           f"{os.listdir(bbdir)}")
+    capture = _trace_norm_launches(traces[0], range(4, 6))
+    incidents = [(e["trigger"], e["captured"]) for e in events
+                 if e["type"] == "incident"]
+    if triggers[:2] != ["fault", "doctor"] \
+            or capture["total"] != {k: 2 * v for k, v in
+                                    R18_PER_STEP.items()} \
+            or ("doctor", 1) not in incidents:
+        raise RuntimeError(f"doctor nanbomb's recorder: dumps {triggers}, "
+                           f"capture {capture}, incidents {incidents}")
+    out["nanbomb"] = {
+        "skipped_step": held, "doctor": acts, "rollback": rb[0],
+        "train_steps": steps, "fused_norm_launches": got,
+        "dumps": triggers, "first_dump_ring_rows": len(first_dump["ring"]),
+        "capture_trace": os.path.basename(traces[0]),
+        "capture_norm_launches": capture["total"],
+        "capture_kernel_events": capture["kernel_events"],
+        "capture_mb": capture["mb"], "incidents": incidents}
+    shutil.rmtree(d1, ignore_errors=True)
+
+    # lossbomb: the spike and the rollback to the verified-good file.
+    d2 = os.path.join(root, "doctor_lossbomb")
+    text, events, launches, _ = _doctor_run(
+        DOCTOR_R18 + ["--epochs", "2", "--doctor-spike-min-steps", "4",
+                      "--inject", "lossbomb@step=10", "--outpath", d2],
+        "the lossbomb run")
+    acts = _doctor_events(events)
+    rb = [e for e in events if e["type"] == "doctor"
+          and e["action"] == "rollback"]
+    epochs = [e["epoch"] for e in events if e["type"] == "step"]
+    tree = ckpt_lib.load_checkpoint(d2)
+    got = {k: launches[k] for k in fn.KERNELS}
+    want = {k: v * len(epochs) for k, v in R18_PER_STEP.items()}
+    spike = next((e for e in events if e["type"] == "doctor"
+                  and e["action"] == "spike"), None)
+    if spike is None or spike["step"] != 10 or len(rb) != 1 \
+            or rb[0]["reason"] != "loss_spike" or rb[0]["to_epoch"] != 1 \
+            or (rb[0]["window_epoch"], rb[0]["window_start"],
+                rb[0]["window_end"]) != (1, 2 * TRAIN_B, 3 * TRAIN_B) \
+            or "(probe-verified good)" not in text \
+            or "excised (7 steps remain)" not in text \
+            or epochs != [0] * 8 + [1] * 4 + [1] * 7 \
+            or int(tree["state"]["opt_state"]["count"]) != 15 \
+            or int(tree["state"]["step"]) != 15 or got != want:
+        raise RuntimeError(f"doctor lossbomb: doctor {acts}, rollback {rb}, "
+                           f"epochs {epochs}, count "
+                           f"{tree['state']['opt_state']['count']}, "
+                           f"launches {got}")
+    del tree
+    out["lossbomb"] = {"doctor": acts, "spike": spike, "rollback": rb[0],
+                       "steps_by_epoch": {str(e): epochs.count(e)
+                                          for e in sorted(set(epochs))},
+                       "replayed_steps": 7, "fused_norm_launches": got}
+    shutil.rmtree(d2, ignore_errors=True)
+
+    # ViT-B/16: the NaN batch through B5–B7.
+    faults.configure("nanbomb@step=1")
+    try:
+        model, step = _vit_guarded(True)
+        images, labels = _device_batch(13, batch=DOCTOR_VIT_B)
+        step(images, labels, 1e-3)     # a landed step: AdamW's moments
+        hold = _SkippedStep(0)
+        hold.real = lambda *a, **k: step
+        held_step = hold.make(model, step.optimizer, None)
+        held_out = held_step(faults.maybe_nanbomb(1, images), labels, 1e-3)
+        vit = dict(hold.row,
+                   loss_finite=bool(torch.isfinite(held_out["loss"])),
+                   batch=DOCTOR_VIT_B, optimizer="adamw")
+    finally:
+        faults.configure("")
+    if vit["changed"] or vit["notfinite"] != 1.0 \
+            or vit["launches"] != {k: LAYERS for k in fa.KERNELS}:
+        raise RuntimeError(f"doctor vit: {vit}")
+    out["vit_b_16"] = vit
+    del model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
 # -- phase 8: ImageFolder data on the card's host ------------------------------
 
 # The corpus: 8 classes of make_synth_imagefolder.py's stationary textures,
@@ -4285,9 +4628,10 @@ def phase_preempt_resume(root: str, card: dict, run_a: str) -> dict:
     launching 9/8/9/8 times a step in both runs."""
     out = os.path.join(root, "r18_preempt")
     args = CKPT_R18_ARGS + ["-p", "1", "--resume", "auto", "--overwrite",
-                            "keep"]
+                            "keep", "--blackbox"]
     cmd = [sys.executable, "-m", "tpudist_torch.launch", "-n", "1",
-           "--inject", PREEMPT_INJECT, "--", sys.executable, "-m",
+           "--inject", PREEMPT_INJECT, "--incident-keep", "2", "--",
+           sys.executable, "-m",
            "tpudist_torch", "--distributed", *args, "--telemetry", "--seed",
            "0", "--outpath", out]
     proc = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE,
@@ -4344,6 +4688,26 @@ def phase_preempt_resume(root: str, card: dict, run_a: str) -> dict:
     emergency = saves[-1]
     end = first[-1]
     del tree
+    # The flight recorder: the slow_peer fault and the preempt dumped,
+    # and the launcher's last sweep left them in one bundle.
+    from tpudist_torch import blackbox as blackbox_lib
+    bundles = blackbox_lib.list_incidents(out)
+    dumped = sorted(d["trigger"] for m in bundles for d in m["dumps"])
+    chain = []
+    if bundles:
+        with open(os.path.join(bundles[0]["dir"], "events.jsonl")) as f:
+            chain = [json.loads(ln)["type"] for ln in f]
+    if len(bundles) != 1 or "preempt" not in dumped \
+            or "events.jsonl" not in bundles[0]["artifacts"] \
+            or "preempt" not in chain \
+            or "incident bundler armed (keep 2" not in err:
+        raise RuntimeError(f"preempt_resume: bundles "
+                           f"{[m.get('id') for m in bundles]}, dumps "
+                           f"{dumped}, chain {chain}: {err[-1500:]}")
+    incident = {"bundle": bundles[0]["id"], "dumps": dumped,
+                "artifacts": bundles[0]["artifacts"],
+                "chain": sorted(set(chain))}
+    shutil.rmtree(os.path.join(out, "incidents"), ignore_errors=True)
     text_r, row_r, events = _launch_trainer(
         args, "the resumed resnet18 run", outdir=out)
     resumed = RESUMED_RE.search(text_r)
@@ -4382,8 +4746,70 @@ def phase_preempt_resume(root: str, card: dict, run_a: str) -> dict:
            "sigterm_to_rank_exit_s": end["t"] - t_sig,
            "sigterm_to_launcher_exit_s": t_exit - t_sig,
            "resumed_line": resumed.group(0),
-           "relaunch_wall_s": row_r["wall_s"]}
+           "relaunch_wall_s": row_r["wall_s"], "incident": incident}
     emit(row)
+    return row
+
+
+def _bitflip_on_card(root: str) -> dict:
+    """``bitflip`` on the card. A resnet18 and its twin from one seed:
+    ``bitflip@step=1`` flips bit 23 of ``bn1.bias[0]`` (tpudist's first f32
+    leaf) in one, which then differs from the twin's in that bit and in
+    no other, and the probe's digest tells the two apart. Then resnet18
+    through the trainer (float16, 2 epochs of 4 steps) with ``--doctor
+    --doctor-probe-freq 2 --inject bitflip@step=1``: the point fires once,
+    every probe at world 1 sees no divergence (one replica cannot see
+    SDC) and stamps what was written good: epoch 0's history copy carries
+    a ``good`` verdict for its bytes."""
+    from tpudist_torch.doctor import probes
+    flipped = create_model("resnet18", dtype=torch.float16, fused_bn=True)
+    flipped.load_state_dict(_seed0_weights("resnet18"))
+    twin = create_model("resnet18", dtype=torch.float16, fused_bn=True)
+    twin.load_state_dict(_seed0_weights("resnet18"))
+    flipped.cuda()
+    twin.cuda()
+    faults.configure("bitflip@step=1")
+    try:
+        hit = (faults.maybe_bitflip(0, flipped),
+               faults.maybe_bitflip(1, flipped))
+    finally:
+        faults.configure("")
+    a, b = flipped.state_dict(), twin.state_dict()
+    differ = sorted(k for k in a if not torch.equal(a[k], b[k]))
+    xor = int(a["bn1.bias"].view(torch.int32)[0].item()
+              ^ b["bn1.bias"].view(torch.int32)[0].item())
+    same_rest = torch.equal(a["bn1.bias"][1:], b["bn1.bias"][1:])
+    digests = [probes.replicated_digest(probes.state_leaves(m))
+               for m in (flipped, twin)]
+    row = {"fired": list(hit), "differ": differ, "xor": xor,
+           "flipped_value": float(a["bn1.bias"][0]),
+           "twin_value": float(b["bn1.bias"][0]),
+           "digests_differ": digests[0] != digests[1]}
+    del flipped, twin, a, b
+    out = os.path.join(root, "r18_bitflip")
+    text, events, launches = _run_cli(
+        CKPT_R18_ARGS[:CKPT_R18_ARGS.index("--synthetic-size")]
+        + ["--synthetic-size", str(4 * TRAIN_B), "--step", "1", "-p", "4",
+           "--doctor", "--doctor-probe-freq", "2", "--inject",
+           "bitflip@step=1", "--telemetry", "--seed", "0", "--outpath",
+           out], "the bitflip resnet18 run")
+    fired = [(e["point"], e.get("step")) for e in events
+             if e["type"] == "fault"]
+    sdc = [(e["step"], e["world"], e["divergent"]) for e in events
+           if e["type"] == "sdc_probe"]
+    verdict = ckpt_lib.read_verdict(os.path.join(
+        out, "checkpoint-ep00001.msgpack"))
+    n, got, want = _norm_launches(events)
+    shutil.rmtree(out, ignore_errors=True)
+    row.update(run_fired=fired, probes=sdc, verdict=verdict,
+               run_steps=n, run_fused_norm_launches=got)
+    if row["fired"] != [None, "bn1.bias"] \
+            or differ != ["bn1.bias"] or xor != 1 << 23 or not same_rest \
+            or not row["digests_differ"] or fired != [("bitflip", 1)] \
+            or [p[0] for p in sdc] != [2, 4, 6] \
+            or any(w != 1 or d for _, w, d in sdc) \
+            or (verdict or {}).get("verdict") != "good" or got != want:
+        raise RuntimeError(f"faults_on_card's bitflip: {row}")
     return row
 
 
@@ -4394,8 +4820,8 @@ def phase_faults_on_card(root: str, card: dict) -> dict:
     second save's live file and history copy are flipped after their
     sidecars; ``--resume auto`` for a third epoch must quarantine both,
     fall back to the first epoch's history file and emit the ``fault``
-    events. Then ``bitflip`` is refused at startup by name, by the
-    trainer and by the launcher. The run dir is torch_checkpoint's."""
+    events. Then ``bitflip`` (``_bitflip_on_card``). The run dir is
+    torch_checkpoint's."""
     out = os.path.join(root, "r18_faults")
     args = CKPT_R18_ARGS + ["--synthetic-size", "512", "--num-classes", "10",
                             "--model-ema-decay", "0.9", "--torch_checkpoints",
@@ -4426,33 +4852,15 @@ def phase_faults_on_card(root: str, card: dict) -> dict:
                            f"{quarantined}, resumed "
                            f"{resumed and resumed.group(0)}, launches "
                            f"{counts}")
-    refused = os.path.join(root, "refused")
-    try:
-        train_cli.main(CKPT_R18_ARGS + ["--inject", "bitflip@step=1",
-                                        "--outpath", refused])
-    except ValueError as e:
-        trainer_msg = str(e)
-    else:
-        raise RuntimeError("faults_on_card: the trainer ran with bitflip")
-    r = subprocess.run([sys.executable, "-m", "tpudist_torch.launch", "-n",
-                        "1", "--inject", "bitflip@step=1", "--",
-                        sys.executable, "-c", "0"], cwd=HERE,
-                       capture_output=True, text=True, timeout=120)
-    name = "bitflip (the doctor is not in the port)"
-    if name not in trainer_msg or os.path.exists(refused) \
-            or r.returncode != 2 or name not in r.stderr:
-        raise RuntimeError(f"faults_on_card: bitflip not refused by name: "
-                           f"{trainer_msg!r}; launcher {r.returncode} "
-                           f"{r.stderr[-500:]!r}")
+    bitflip = _bitflip_on_card(root)
+    launched = {k: got for k, (_, got, _) in counts.items()}
+    launched["bitflip_run"] = bitflip["run_fused_norm_launches"]
     row = {"phase": "faults_on_card", "part": "checkpoint_corrupt",
            "card": card["nvidia_smi"], "fired": fired,
            "quarantined": sorted(quarantined),
            "resumed_line": resumed.group(0),
            "steps": {k: n for k, (n, _, _) in counts.items()},
-           "fused_norm_launches": {k: got for k, (_, got, _)
-                                   in counts.items()},
-           "bitflip_refused": {"trainer": trainer_msg,
-                               "launcher": r.stderr.strip().splitlines()[-1]},
+           "fused_norm_launches": launched, "bitflip": bitflip,
            "run_dir": out}
     emit(row)
     return row
@@ -5659,6 +6067,16 @@ def _launches_by_path(ck: dict, name: str, dtype: str) -> dict:
         probe = disp["serve"]["probe_launches"]
         out["dispatch_auto_serve"] = disp["serve"]["launches"][name] - probe
         out["dispatch_auto_serve_probe"] = probe
+    doc = ck["doctor"]
+    for run in ("nanbomb", "lossbomb"):
+        if name in doc[run]["fused_norm_launches"]:
+            out[f"doctor_{run}"] = doc[run]["fused_norm_launches"][name]
+    if name in fn.KERNELS:
+        out["doctor_nanbomb_skipped_step"] = doc["nanbomb"][
+            "skipped_step"]["launches"][name]
+    if name in doc["vit_b_16"]["launches"]:
+        out["doctor_vit_b_16_skipped_step"] = doc["vit_b_16"]["launches"][
+            name]
     if name in fn.KERNELS:
         for arch, row in ck["zoo_train"]["models"].items():
             out[f"zoo_train_{arch}"] = row["launches_on"].get(name, 0)
@@ -5911,6 +6329,11 @@ def main(argv=None) -> int:
     disp = _timed("dispatch_auto", phase_dispatch_auto, card, kern, bwd,
                   norm)
     accum = _timed("accum_mixup", phase_accum_mixup)
+    root = tempfile.mkdtemp(prefix="tpudist_torch_doctor_")
+    try:
+        doctor = _timed("doctor", phase_doctor, root, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     fp16 = _timed("fp16_train", phase_fp16_train)
     fp16_cli = _timed("fp16_cli", phase_fp16_cli)
     zoo = {"zoo_train": _timed("zoo_train", phase_zoo_train),
@@ -5968,6 +6391,7 @@ def main(argv=None) -> int:
     ck["train_imagefolder"] = images
     ck["dispatch_auto"] = disp
     ck["accum_mixup"] = accum
+    ck["doctor"] = doctor
     emit({"phase_seconds": PHASE_S,
           "total_s": round(time.perf_counter() - t_start, 3)})
 

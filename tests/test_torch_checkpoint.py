@@ -640,7 +640,7 @@ def _edited(src, dst, edit):
 
 
 @pytest.mark.parametrize("what", ["arch", "optimizer", "dynamic_scale",
-                                  "data_cursor"])
+                                  "no_dynamic_scale"])
 def test_cli_refuses_a_mismatched_checkpoint_by_name(two_epoch_run, tmp_path,
                                                      what):
     src = two_epoch_run[0]
@@ -651,8 +651,10 @@ def test_cli_refuses_a_mismatched_checkpoint_by_name(two_epoch_run, tmp_path,
         "dynamic_scale": ([], "carries a dynamic_scale (float16 loss "
                               "scaling, --amp-dtype float16), and this run "
                               "does not scale its loss"),
-        "data_cursor": ([], "a --doctor rollback; its data_cursor counts the "
-                            "excised order"),
+        "no_dynamic_scale": (["--use_amp", "--amp-dtype", "float16"],
+                             "checkpoint has no dynamic_scale (it was "
+                             "written by a run without float16 loss "
+                             "scaling)"),
     }[what]
     path = str(src / ckpt.CKPT_NAME)
     if what == "dynamic_scale":
@@ -661,11 +663,6 @@ def test_cli_refuses_a_mismatched_checkpoint_by_name(two_epoch_run, tmp_path,
         path = _edited(src, tmp_path / "ds", lambda t: t["state"].update(
             dynamic_scale={"fin_steps": np.asarray(3, np.int32),
                            "scale": np.asarray(2.0**15, np.float32)}))
-    if what == "data_cursor":
-        path = _edited(src, tmp_path / "dc", lambda t: t.update(
-            data_cursor={"epoch": 1, "consumed": 16, "samples_skipped": 0,
-                         "samples_retried": 0},
-            doctor={"rollbacks": 1, "poison_windows": {"1": [[0, 8]]}}))
     with pytest.raises(ValueError, match="cannot resume from") as e:
         cli.main(CLI + flags + ["--epochs", "3", "--resume", path,
                                 "--outpath", str(tmp_path / "o")])

@@ -276,9 +276,10 @@ def test_max_restarts_relaunches_every_rank_once(tmp_path, heals_at,
 
 @pytest.mark.parametrize("flags", [
     ["--elastic"], ["--min-ranks", "1"], ["--drain-grace", "5"],
-    ["--inject", "bitflip@step=1"], ["--evict-stragglers", "2"],
+    ["--inject", "bitflp@step=1"], ["--evict-stragglers", "2"],
     ["--scale-up", "2@10"],
-    ["--collective-deadline", "30"], ["--incident-keep", "4"],
+    ["--collective-deadline", "30"],
+    ["--inject", "lossbomb@step=1;watchdog_expired"],
     ["--platform", "cpu"], ["--devices-per-proc", "2"]])
 def test_launcher_refuses_tpudists_other_flags_by_name(flags, capsys):
     with pytest.raises(SystemExit) as e:

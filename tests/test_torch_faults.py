@@ -4,10 +4,10 @@ tpudist's, on the CPU.
 - ``faults``: ``parse_spec`` gives tpudist's items and errors on the
   specs of ``tests/test_faults.py``; the gates fire as tpudist's do;
   ``decode_should_fail`` fails and heals the same keys; ``classify_exit``
-  names the same codes alike; the points whose plane the port lacks
-  (``straggle``, ``watchdog_expire``, ``nanbomb``, ``lossbomb``,
-  ``bitflip``) and unknown names are refused by name, by ``configure``,
-  the trainer and the launcher.
+  names the same codes alike; the doctor's and the watchdog's points
+  (``watchdog_expire``, ``nanbomb``, ``lossbomb``, ``bitflip``) arm and
+  fire on their gates, and an unknown name is refused by name, by
+  ``configure``, the trainer and the launcher.
 - ``_PreemptionGuard`` turns SIGTERM and SIGINT into a flag, and a second
   signal reaches the handler that was there before it.
 - ``ShardedSampler.set_cursor`` gives tpudist's indices at world 1 and 2,
@@ -150,11 +150,13 @@ def test_observer_sees_a_firing():
     assert seen == [("slow_peer", 3)]
 
 
-@pytest.mark.parametrize("point,plane", sorted(faults.UNPORTED.items()))
-def test_points_without_their_plane_are_refused_by_name(point, plane):
-    with pytest.raises(ValueError, match=f"{point} \\({plane} is not in "
-                                         f"the port\\)"):
-        faults.configure(f"rank_exit@step=1;{point}@step=5")
+@pytest.mark.parametrize("point", ["bitflip", "lossbomb", "nanbomb",
+                                   "watchdog_expire"])
+def test_the_doctor_and_watchdog_points_are_armed(point):
+    faults.configure(f"rank_exit@step=1;{point}@step=5")
+    assert faults.armed(point) and point in faults.POINTS
+    assert faults.should_fire(point, step=4) is None
+    assert faults.should_fire(point, step=5) is not None
 
 
 def test_unknown_point_is_refused_naming_the_points():
@@ -163,22 +165,21 @@ def test_unknown_point_is_refused_naming_the_points():
         faults.configure("rank_exti@step=1")
 
 
-def test_trainer_and_launcher_refuse_bitflip(tmp_path, monkeypatch):
-    with pytest.raises(ValueError, match="bitflip \\(the doctor is not in "
-                                         "the port\\)"):
+def test_trainer_and_launcher_refuse_an_unknown_point(tmp_path, monkeypatch):
+    with pytest.raises(ValueError, match="bitflp \\(no such fault point"):
         cli.main(["--device", "cpu", "--synthetic", "--num-classes", "4",
                   "--image-size", "32", "-b", "4", "--inject",
-                  "bitflip@step=1", "--outpath", str(tmp_path / "o")])
-    monkeypatch.setenv(faults.ENV_SPEC, "nanbomb@step=1")
-    with pytest.raises(ValueError, match="nanbomb \\(the doctor"):
+                  "bitflp@step=1", "--outpath", str(tmp_path / "o")])
+    assert not (tmp_path / "o").exists()
+    monkeypatch.setenv(faults.ENV_SPEC, "nanbom@step=1")
+    with pytest.raises(ValueError, match="nanbom \\(no such fault point"):
         faults.configure()
     r = subprocess.run(
         [sys.executable, "-m", "tpudist_torch.launch", "-n", "1",
-         "--inject", "watchdog_expire", "--", sys.executable, "-c", "0"],
+         "--inject", "watchdog_expir", "--", sys.executable, "-c", "0"],
         cwd=REPO, capture_output=True, text=True, timeout=60)
     assert r.returncode == 2
-    assert "watchdog_expire (the stall watchdog is not in the port)" in \
-        r.stderr
+    assert "watchdog_expir (no such fault point" in r.stderr
 
 
 # -- the preemption guard ------------------------------------------------------

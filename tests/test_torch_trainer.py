@@ -234,29 +234,38 @@ def test_flag_surface_is_tpudists():
     assert ours["device"].default == "cuda"
 
 
-# tpudist's own checks of the observability flags: refused in its words,
-# not as flags the port lacks.
+# tpudist's own checks of the observability and fault-plane flags: refused
+# in its words, not as flags the port lacks.
 TPUDIST_CHECKS = ("--metrics-port 9100 requires --telemetry",
-                  "--telemetry-max-mb must be >= 0 (0 = uncapped), got -1.0")
+                  "--telemetry-max-mb must be >= 0 (0 = uncapped), got -1.0",
+                  "--doctor-* tuning requires --doctor",
+                  "--blackbox requires --telemetry",
+                  "--blackbox-ring must be >= 8",
+                  "--doctor with --evaluate",
+                  "--blackbox-* tuning requires --blackbox")
 
 
 @pytest.mark.parametrize("flags,named", [
     (["--microbatches", "2"], "--microbatches"),
     (["--zero", "1"], "--zero"),
-    (["--stall-timeout", "5"], "--stall-timeout"),
+    (["--require-platform", "tpu"], "--require-platform"),
     (["--model-ema-decay", "1.5"], "--model-ema-decay"),
     (["--use_amp", "--amp-dtype", "float16", "--compress-grads", "int8"],
      "--compress-grads does not compose with float16 dynamic loss scaling"),
     (["--checkpoint-backend", "orbax"], "--checkpoint-backend orbax"),
     (["--remat"], "--remat"),
-    (["--doctor"], "--doctor"),
-    (["--replica-check-freq", "2"], "--replica-check-freq"),
+    (["--doctor-max-skips", "3"], TPUDIST_CHECKS[2]),
+    (["--compile-cache", "cc"], "--compile-cache"),
     (["--flash", "on"], "--flash on"),
     (["-a", "vit_moe_s_16"], "-a vit_moe_s_16"),
     (["--mesh-shape", "2"], "--mesh-shape"),
     (["--compress-grads", "int8"], "--compress-grads"),
     (["--metrics-port", "9100"], TPUDIST_CHECKS[0]),
     (["--telemetry", "--telemetry-max-mb", "-1"], TPUDIST_CHECKS[1]),
+    (["--blackbox"], TPUDIST_CHECKS[3]),
+    (["--telemetry", "--blackbox", "--blackbox-ring", "4"], TPUDIST_CHECKS[4]),
+    (["--doctor", "--evaluate"], TPUDIST_CHECKS[5]),
+    (["--blackbox-cooldown-s", "5"], TPUDIST_CHECKS[6]),
 ])
 def test_unsupported_flags_are_refused_by_name(tmp_path, flags, named):
     said = named if named in TPUDIST_CHECKS else "unsupported in tpudist_torch"

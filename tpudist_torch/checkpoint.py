@@ -33,8 +33,16 @@ passes; a quarantine is a ``fault`` event (point
 (the preemption drain) carries ``data_cursor``, the interrupted epoch's
 global sample cursor, which ``restore`` accepts. The
 ``checkpoint_corrupt`` fault point flips bytes of a save after its
-sidecar is written. Not ported: the orbax backend (there is no orbax on
-the card) and the doctor's stamping.
+sidecar is written.
+
+The doctor (``--doctor``) stamps verdicts: after a clean SDC probe
+``stamp_outpath_verdicts`` marks every unstamped payload ``good``, after
+a divergent one ``suspect``, each ``<file>.verdict`` bound to the
+payload's sidecar digest; its rollback walks with ``require_verified``
+(the verified-good candidates first). Its replay state (``rollbacks``,
+``poison_windows``) rides the saves as ``doctor``; ``restore`` leaves it
+to the trainer. Not ported: the orbax backend (there is no orbax on the
+card).
 
 The writer streams: each leaf is copied to the host when it is written
 and hashed on the way to the disk, so a save holds no copy of the
@@ -49,6 +57,7 @@ import json
 import os
 import re
 import shutil
+import time
 from typing import Callable, Iterable, Optional
 
 import numpy as np
@@ -148,6 +157,39 @@ def verify_checkpoint(path: str) -> bool:
         for chunk in iter(lambda: f.read(_READ_CHUNK), b""):
             h.update(chunk)
     return h.hexdigest() == want
+
+
+def stamp_verdict(path: str, verdict: str, step: int) -> Optional[str]:
+    """Stamp a probe verdict (``good`` or ``suspect``) on a payload,
+    bound to its current sidecar digest (the live file is rewritten every
+    epoch; a verdict never outlives the bytes it judged). No sidecar, no
+    stamp. Returns the verdict's path, or None."""
+    digest = _sidecar_digest(path)
+    if digest is None or not os.path.exists(path):
+        return None
+    vp = _verdict_path(path)
+    _write_atomic(vp, json.dumps(
+        {"verdict": verdict, "step": int(step), "payload_sha256": digest,
+         "t": time.time()}).encode())
+    return vp
+
+
+def stamp_outpath_verdicts(outpath: str, verdict: str, step: int
+                           ) -> list[str]:
+    """Stamp every unstamped payload of ``outpath`` (the live file and
+    the history copies) with ``verdict``: a clean probe at step t attests
+    everything written up to t, a divergent one makes the same set
+    suspect. A payload that carries a verdict for its bytes keeps it.
+    Returns the stamped paths."""
+    stamped = []
+    cands = [os.path.join(outpath, CKPT_NAME)]
+    cands.extend(_history_checkpoints(outpath))
+    for p in cands:
+        if not os.path.exists(p) or read_verdict(p) is not None:
+            continue
+        if stamp_verdict(p, verdict, step):
+            stamped.append(p)
+    return stamped
 
 
 def read_verdict(path: str) -> Optional[dict]:
@@ -280,19 +322,43 @@ def load_checkpoint(path: str) -> dict:
 
 def load_checkpoint_with_fallback(
         outpath: str, log: Optional[Callable[[str], None]] = None,
-        keep: Optional[int] = None) -> tuple[dict, str]:
+        keep: Optional[int] = None,
+        require_verified: bool = False) -> tuple[dict, str]:
     """The newest valid checkpoint of a run dir: the live file, then the
     history newest first. A candidate without a sidecar, or stamped
     ``suspect``, is skipped; one that fails its sha256 or does not parse
     is quarantined and the walk goes on. ``keep`` bounds the quarantine
-    pool first (to at least one). Raises ``FileNotFoundError`` when no
-    candidate is left. Returns ``(tree, path)``."""
+    pool first (to at least one). ``require_verified`` (the doctor's
+    rollback) walks the candidates stamped ``good`` first, and the rest
+    only when none of those loads (logged). Raises ``FileNotFoundError``
+    when no candidate is left. Returns ``(tree, path)``."""
     emit = log or (lambda m: None)
     if keep is not None:
         _prune_quarantines(outpath, max(1, keep))
     live = os.path.join(outpath, CKPT_NAME)
     candidates = ([live] if os.path.exists(live) else []) \
         + _history_checkpoints(outpath)
+    if require_verified:
+        verified = [c for c in candidates
+                    if (read_verdict(c) or {}).get("verdict") == VERDICT_GOOD]
+        got = _walk(verified, emit)
+        if got is not None:
+            emit(f"=> rollback target: {got[1]} (probe-verified good)")
+            return got
+        emit("=> no probe-verified-good checkpoint available — falling "
+             "back to the newest merely-intact candidate")
+    got = _walk(candidates, emit)
+    if got is not None:
+        return got
+    raise FileNotFoundError(
+        f"no valid checkpoint in {outpath}: every candidate failed "
+        f"integrity verification (quarantined as *{CORRUPT_SUFFIX}) or was "
+        f"unverifiable/suspect")
+
+
+def _walk(candidates: list, emit) -> Optional[tuple[dict, str]]:
+    """The first of ``candidates`` that verifies and parses, as
+    ``(tree, path)``, quarantining the ones that fail; None if none."""
     for cand in candidates:
         want = _sidecar_digest(cand)
         if not os.path.exists(_sidecar_path(cand)):
@@ -326,10 +392,7 @@ def load_checkpoint_with_fallback(
                 continue
             emit(f"=> checkpoint {cand} unreadable ({e}) — quarantined to "
                  f"{q}, falling back to the next newest")
-    raise FileNotFoundError(
-        f"no valid checkpoint in {outpath}: every candidate failed "
-        f"integrity verification (quarantined as *{CORRUPT_SUFFIX}) or was "
-        f"unverifiable/suspect")
+    return None
 
 
 def find_resumable(outpath: str) -> Optional[str]:
@@ -406,14 +469,16 @@ def state_to_dict(model: torch.nn.Module, optimizer, *, arch: str,
                   ema: Optional[torch.nn.Module] = None,
                   topology: Optional[dict] = None,
                   data_cursor: Optional[dict] = None,
-                  scaler=None, opt_steps: Optional[int] = None) -> dict:
+                  scaler=None, opt_steps: Optional[int] = None,
+                  doctor: Optional[dict] = None) -> dict:
     """tpudist's ``state_to_dict`` of the equivalent ``TrainState``:
     ``epoch + 1`` is where a resume starts. ``data_cursor`` (emergency
     saves only) is the interrupted epoch's ``{"epoch", "consumed",
     "samples_skipped", "samples_retried"}``. ``scaler`` (a float16 run's
     ``DynamicScale``) is written as ``dynamic_scale``; ``opt_steps`` is
     the optimizer updates that landed (``step`` less the steps a float16
-    run skipped; ``step`` when None). Leaves are views of the model's and
+    run or the doctor skipped; ``step`` when None). ``doctor`` is the
+    doctor's replay state (``{"rollbacks", "poison_windows"}``). Leaves are views of the model's and
     optimizer's tensors; ``save_checkpoint`` copies each to the host as
     it writes it."""
     variables = _variables(model)
@@ -433,6 +498,8 @@ def state_to_dict(model: torch.nn.Module, optimizer, *, arch: str,
         out["topology"] = dict(topology)
     if data_cursor is not None:
         out["data_cursor"] = dict(data_cursor)
+    if doctor is not None:
+        out["doctor"] = dict(doctor)
     return out
 
 
@@ -521,9 +588,10 @@ def restore(ckpt: dict, model: torch.nn.Module, optimizer=None,
             scaler=None, train: bool = True) -> int:
     """Load a checkpoint tree onto the port's model, optimizer, EMA module
     and float16 loss scale (``scaler``), with tpudist's rules
-    (``restore_train_state``): a different arch, a different optimizer
-    and the doctor's replay windows are refused by name; a mid-epoch
-    ``data_cursor`` is the caller's to apply (``Trainer``); a different
+    (``restore_train_state``): a different arch and a different optimizer
+    are refused by name; a mid-epoch ``data_cursor`` and the doctor's
+    replay state (``doctor``) are the caller's to apply (``Trainer``,
+    which applies the windows before the cursor); a different
     world is allowed (every leaf is a full host array); an EMA copy is
     dropped when ``ema`` is None and seeded at the restored weights when
     the checkpoint has none; ``comm_state`` is dropped. The loss scale
@@ -540,16 +608,6 @@ def restore(ckpt: dict, model: torch.nn.Module, optimizer=None,
         raise ValueError(f"checkpoint was trained as '{saved_arch}' but this "
                          f"run is '{arch}' — refusing to load mismatched "
                          f"weights")
-    doctor = ckpt.get("doctor")
-    if isinstance(doctor, dict) and any(
-            (doctor.get("poison_windows") or {}).values()):
-        # A cursor counts positions of the order with these windows cut
-        # out; applied to the whole order it would replay the poison.
-        raise ValueError(
-            f"checkpoint carries the doctor's replay windows "
-            f"{doctor['poison_windows']} (a --doctor rollback; its "
-            f"data_cursor counts the excised order), and the doctor plane "
-            f"is not in the port")
     state = ckpt.get("state")
     if not isinstance(state, dict) or state.get("params") is None:
         raise ValueError("checkpoint has no state.params — not a tpudist "

@@ -21,6 +21,12 @@ so each leaf maps by name with at most a transpose:
   swin v2's ``logit_scale`` and the ``batch_stats`` ``mean``/``var``
   keep their names and shapes.
 
+``jax_leaves`` lists a model's leaves in the order ``jax.tree_util``
+flattens tpudist's tree (every dict's keys sorted), so a rule that picks
+"the first f32 leaf" or "the last 2-D leaf" of tpudist's ``params``
+finds the same parameter in the port (the fault points ``bitflip`` and
+``lossbomb``).
+
 ``jax_tree`` goes the other way, for the checkpoint writer: ``weight``
 ``(out, in, kh, kw)`` → HWIO ``kernel``, ``(out, in)`` → ``(in, out)``
 ``kernel``, a 1-D ``weight`` (the ViT's LayerNorm) → ``scale``. Its leaves
@@ -120,6 +126,21 @@ def state_dict_from_jax(arch: str, params: Mapping,
     return bn_net_state_dict_from_jax(params, batch_stats or {})
 
 
+def _flax_leaf(name: str, t: torch.Tensor) -> tuple[tuple, torch.Tensor]:
+    """A port name's flax path and the tensor in flax's layout (a view)."""
+    *mods, leaf = name.split(".")
+    if leaf == "weight":
+        if t.ndim == 4:                           # conv → HWIO
+            t, leaf = t.permute(2, 3, 1, 0), "kernel"
+        elif t.ndim == 2:                         # Dense → (in, out)
+            t, leaf = t.t(), "kernel"
+        elif t.ndim == 1:                         # LayerNorm
+            leaf = "scale"
+        else:
+            raise ValueError(f"unexpected weight rank {t.ndim} at {name}")
+    return (*mods, leaf), t
+
+
 def jax_tree(named: Mapping[str, torch.Tensor] | Sequence) -> dict:
     """Port names → the nested flax tree (the inverse of the converters
     above): ``layer1_0.conv1.weight`` is ``{"layer1_0": {"conv1":
@@ -128,19 +149,22 @@ def jax_tree(named: Mapping[str, torch.Tensor] | Sequence) -> dict:
     state keyed the same way."""
     tree: dict = {}
     for name, t in (named.items() if isinstance(named, Mapping) else named):
-        *mods, leaf = name.split(".")
-        if leaf == "weight":
-            if t.ndim == 4:                       # conv → HWIO
-                t, leaf = t.permute(2, 3, 1, 0), "kernel"
-            elif t.ndim == 2:                     # Dense → (in, out)
-                t, leaf = t.t(), "kernel"
-            elif t.ndim == 1:                     # LayerNorm
-                leaf = "scale"
-            else:
-                raise ValueError(f"unexpected weight rank {t.ndim} at "
-                                 f"{name}")
+        (*mods, leaf), t = _flax_leaf(name, t)
         node = tree
         for m in mods:
             node = node.setdefault(m, {})
         node[leaf] = t
     return tree
+
+
+def jax_leaves(named: Mapping[str, torch.Tensor] | Sequence
+               ) -> list[tuple[str, str, torch.Tensor]]:
+    """``(flax path, port name, flax-layout view)`` of every leaf of
+    ``jax_tree(named)``, in ``jax.tree_util.tree_flatten``'s order (depth
+    first, each dict's keys sorted: the paths' order). The view's element
+    ``[0, ..., 0]`` is the tensor's, and an in-place op on the view acts
+    on the tensor."""
+    leaves = [(*_flax_leaf(name, t), name) for name, t in
+              (named.items() if isinstance(named, Mapping) else named)]
+    return [("/".join(path), name, view)
+            for path, view, name in sorted(leaves, key=lambda e: e[0])]

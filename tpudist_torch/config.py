@@ -162,6 +162,7 @@ class Config:
                 f"--metrics-port {self.metrics_port} requires --telemetry "
                 f"(the endpoint serves gauges derived from the telemetry "
                 f"event stream)")
+        self._check_fault_planes()
         if self.val_resize < self.image_size:
             raise ValueError(
                 f"--val-resize {self.val_resize} must be >= --image-size "
@@ -178,6 +179,73 @@ class Config:
                         f"{root} (an ImageFolder root holds train/<class>/"
                         f"<image> and val/<class>/<image>)")
         return self
+
+    def _check_fault_planes(self) -> None:
+        """tpudist's checks of the doctor and flight-recorder flags, in
+        its words (``tpudist/config.py``)."""
+        if not self.doctor:
+            armed = {f.name: getattr(self, f.name)
+                     for f in dataclasses.fields(self)
+                     if f.name.startswith("doctor_")
+                     and getattr(self, f.name) != f.default}
+            if armed:
+                raise ValueError(
+                    f"--doctor-* tuning requires --doctor (nothing reads "
+                    f"these knobs while the doctor is off); got "
+                    f"{armed} with --doctor off")
+        if self.blackbox and not self.telemetry:
+            raise ValueError(
+                "--blackbox requires --telemetry (the flight recorder is "
+                "a telemetry sink: without the event stream the ring "
+                "stays empty and triggers never fire)")
+        if not self.blackbox:
+            armed = {f.name: getattr(self, f.name)
+                     for f in dataclasses.fields(self)
+                     if f.name.startswith("blackbox_")
+                     and getattr(self, f.name) != f.default}
+            if armed:
+                raise ValueError(
+                    f"--blackbox-* tuning requires --blackbox (nothing "
+                    f"reads these knobs while the recorder is off); got "
+                    f"{armed} with --blackbox off")
+        else:
+            if self.blackbox_ring < 8:
+                raise ValueError(
+                    f"--blackbox-ring must be >= 8 (a ring shorter than "
+                    f"that cannot span a trigger), got {self.blackbox_ring}")
+            if self.blackbox_capture_steps < 1:
+                raise ValueError(
+                    f"--blackbox-capture-steps must be >= 1, got "
+                    f"{self.blackbox_capture_steps}")
+            if self.blackbox_cooldown_s < 0:
+                raise ValueError(
+                    f"--blackbox-cooldown-s must be >= 0, got "
+                    f"{self.blackbox_cooldown_s}")
+        if self.doctor:
+            if self.evaluate:
+                raise ValueError(
+                    "--doctor with --evaluate: an eval-only run takes no "
+                    "optimizer steps — there is nothing to guard; drop "
+                    "one of the flags")
+            if self.checkpoint_backend == "orbax":
+                raise ValueError(
+                    "--doctor requires --checkpoint-backend msgpack: "
+                    "rollback-to-verified-good and probe verdict stamping "
+                    "operate on the msgpack checkpoint surface (sidecars "
+                    "beside checkpoint.msgpack); the orbax backend has no "
+                    "verdict plumbing yet")
+            if self.doctor_probe_freq < 0:
+                raise ValueError(
+                    f"--doctor-probe-freq must be >= 0 (0 = probes off), "
+                    f"got {self.doctor_probe_freq}")
+            if self.doctor_spike_sigma <= 0:
+                raise ValueError(
+                    f"--doctor-spike-sigma must be > 0, got "
+                    f"{self.doctor_spike_sigma}")
+            if self.doctor_max_rollbacks < 0:
+                raise ValueError(
+                    f"--doctor-max-rollbacks must be >= 0, got "
+                    f"{self.doctor_max_rollbacks}")
 
     def asdict(self) -> dict[str, Any]:
         return dataclasses.asdict(self)
@@ -198,21 +266,6 @@ _NOT_YET = {
     "microbatches": ("--microbatches", "pipeline parallelism"),
     "remat": ("--remat", "block checkpointing"),
     "compile_cache": ("--compile-cache", "a persistent compile cache"),
-    "doctor": ("--doctor", "the doctor plane"),
-    "doctor_probe_freq": ("--doctor-probe-freq", "the doctor plane"),
-    "doctor_spike_sigma": ("--doctor-spike-sigma", "the doctor plane"),
-    "doctor_spike_min_steps": ("--doctor-spike-min-steps",
-                               "the doctor plane"),
-    "doctor_max_skips": ("--doctor-max-skips", "the doctor plane"),
-    "doctor_max_rollbacks": ("--doctor-max-rollbacks", "the doctor plane"),
-    "doctor_sdc_windows": ("--doctor-sdc-windows", "the doctor plane"),
-    "blackbox": ("--blackbox", "the flight recorder"),
-    "blackbox_ring": ("--blackbox-ring", "the flight recorder"),
-    "blackbox_capture_steps": ("--blackbox-capture-steps",
-                               "the flight recorder"),
-    "blackbox_cooldown_s": ("--blackbox-cooldown-s", "the flight recorder"),
-    "replica_check_freq": ("--replica-check-freq", "the data-parallel plane"),
-    "stall_timeout": ("--stall-timeout", "the watchdog"),
     "require_platform": ("--require-platform", "a jax platform check "
                          "(the port's is --device)"),
     "mesh_shape": ("--mesh-shape", "the parallelism plane"),
@@ -343,19 +396,19 @@ def build_parser() -> argparse.ArgumentParser:
     add("--metrics-port", default=d.metrics_port, type=int, dest="metrics_port", help="with --telemetry: serve live Prometheus metrics (step p50/p95, phase breakdown, goodput, fault counters, heartbeat age; tpudist's metric names) on this port; 0 = pick a free port (written to <outpath>/metrics.<rank>.port); -1 = off")
     add("--telemetry-max-mb", default=d.telemetry_max_mb, type=float, dest="telemetry_max_mb", help="roll events.<rank>.jsonl to events.<rank>.1.jsonl past this size (MB; bounds long-run telemetry at ~2x the cap; 0 = uncapped)")
     add("--profile", default=d.profile, help="torch.profiler trace of the global step window 'start:end' (or one step 'n'; '' = off): a Chrome trace under <outpath>/profile/attempt_<n>/, CPU and, on the card, CUDA activity")
-    _bool_flag(p, "doctor", d.doctor, not_yet)
-    add("--doctor-probe-freq", default=d.doctor_probe_freq, type=int, dest="doctor_probe_freq", help=not_yet)
-    add("--doctor-spike-sigma", default=d.doctor_spike_sigma, type=float, dest="doctor_spike_sigma", help=not_yet)
-    add("--doctor-spike-min-steps", default=d.doctor_spike_min_steps, type=int, dest="doctor_spike_min_steps", help=not_yet)
-    add("--doctor-max-skips", default=d.doctor_max_skips, type=int, dest="doctor_max_skips", help=not_yet)
-    add("--doctor-max-rollbacks", default=d.doctor_max_rollbacks, type=int, dest="doctor_max_rollbacks", help=not_yet)
-    add("--doctor-sdc-windows", default=d.doctor_sdc_windows, type=int, dest="doctor_sdc_windows", help=not_yet)
-    _bool_flag(p, "blackbox", d.blackbox, not_yet)
-    add("--blackbox-ring", default=d.blackbox_ring, type=int, dest="blackbox_ring", help=not_yet)
-    add("--blackbox-capture-steps", default=d.blackbox_capture_steps, type=int, dest="blackbox_capture_steps", help=not_yet)
-    add("--blackbox-cooldown-s", default=d.blackbox_cooldown_s, type=float, dest="blackbox_cooldown_s", help=not_yet)
-    add("--replica-check-freq", default=d.replica_check_freq, type=int, dest="replica_check_freq", help=not_yet)
-    add("--stall-timeout", default=d.stall_timeout, type=float, dest="stall_timeout", help=not_yet)
+    _bool_flag(p, "doctor", d.doctor, "guarded train step + detect-respond policies: finiteness sentinels on the card with a skip-step (the update undone by a select, no host read), EWMA loss-spike detection on the drained metrics, rollback-to-last-verified-good with data-order replay, SDC self-quarantine (exit 76)")
+    add("--doctor-probe-freq", default=d.doctor_probe_freq, type=int, dest="doctor_probe_freq", help="with --doctor: digest the replicated state and compare across ranks every N steps (silent-data-corruption probe; stamps checkpoint verdicts good/suspect; 0 = off)")
+    add("--doctor-spike-sigma", default=d.doctor_spike_sigma, type=float, dest="doctor_spike_sigma", help="EWMA loss-spike threshold in sigmas above the running mean")
+    add("--doctor-spike-min-steps", default=d.doctor_spike_min_steps, type=int, dest="doctor_spike_min_steps", help="EWMA warmup steps before a spike can fire")
+    add("--doctor-max-skips", default=d.doctor_max_skips, type=int, dest="doctor_max_skips", help="consecutive non-finite (skipped) steps before the doctor escalates to a rollback")
+    add("--doctor-max-rollbacks", default=d.doctor_max_rollbacks, type=int, dest="doctor_max_rollbacks", help="rollbacks tolerated per run before failing loudly")
+    add("--doctor-sdc-windows", default=d.doctor_sdc_windows, type=int, dest="doctor_sdc_windows", help="consecutive minority-divergent SDC probes before a rank self-quarantines (exit 76)")
+    _bool_flag(p, "blackbox", d.blackbox, "flight recorder: ring-buffer the last N telemetry samples per rank and, on an anomaly trigger (doctor, SDC divergence, fault, preempt, SIGUSR2, POST /capture), dump the ring and arm a one-shot bounded torch.profiler trace; requires --telemetry")
+    add("--blackbox-ring", default=d.blackbox_ring, type=int, dest="blackbox_ring", help="flight-recorder ring depth (events kept per rank)")
+    add("--blackbox-capture-steps", default=d.blackbox_capture_steps, type=int, dest="blackbox_capture_steps", help="deep-capture profiler trace length, in steps")
+    add("--blackbox-cooldown-s", default=d.blackbox_cooldown_s, type=float, dest="blackbox_cooldown_s", help="per-trigger-class cooldown: within it a repeat trigger emits an incident event but dumps/captures nothing (storm bound)")
+    add("--replica-check-freq", default=d.replica_check_freq, type=int, dest="replica_check_freq", help="verify the replicated state is identical on every data-parallel rank every N epochs (0 = off)")
+    add("--stall-timeout", default=d.stall_timeout, type=float, dest="stall_timeout", help="abort the process (exit 117) if no training step completes for N seconds (0 = off); the kernels are built before it starts")
     add("--require-platform", default=d.require_platform, dest="require_platform", choices=("any", "tpu", "cpu"), help=not_yet)
     add("--overwrite", default=d.overwrite, choices=["prompt", "delete", "quit", "keep"], help="what to do if outpath exists")
     add("--num-classes", default=d.num_classes, type=int, dest="num_classes")

@@ -7,8 +7,8 @@ assemble while step N trains. A failing sample is retried, then skipped within a
 per-epoch budget, as in tpudist, and the ``decode_fail`` fault point
 (``faults.decode_should_fail``) fails a load inside that retry loop.
 ``set_cursor`` continues an interrupted epoch mid-way (the sampler's
-cursor) with the interrupted attempt's meters. The doctor's skip windows
-are not ported.
+cursor) with the interrupted attempt's meters, and ``set_skip_windows``
+replays an epoch minus the doctor's poisoned windows.
 
 ``DevicePrefetcher`` is the counterpart of ``tpudist.dist.DevicePrefetcher``
 (``--device_prefetch``): it hands out batches already on the device, and
@@ -86,6 +86,14 @@ class DataLoader:
             self.sampler.set_cursor(consumed)
         self._carry_skipped = max(0, int(samples_skipped))
         self._carry_retried = max(0, int(samples_retried))
+
+    def set_skip_windows(self, windows) -> None:
+        """The doctor's rollback replay: cut the poisoned global-position
+        windows out of this epoch's order (the sampler's
+        ``set_skip_windows``; call after ``set_epoch``)."""
+        if self.sampler is not None and hasattr(self.sampler,
+                                                "set_skip_windows"):
+            self.sampler.set_skip_windows(windows)
 
     def _index_batches(self) -> list[np.ndarray]:
         if self.sampler is not None:

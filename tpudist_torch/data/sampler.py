@@ -11,8 +11,12 @@ on the world, and global step ``j`` consumes its positions ``[j*B,
 (j+1)*B)`` (B the global batch). So an emergency checkpoint's count of
 consumed positions lets a resumed run, at the same or another world,
 drop them and stride the rest over its ranks: no sample replayed, none
-dropped. ``set_epoch`` clears the cursor. The doctor's skip windows are
-not ported (the doctor plane is not).
+dropped. ``set_epoch`` clears the cursor.
+
+``set_skip_windows`` is the doctor's rollback replay: it cuts the
+poisoned ``[start, end)`` windows out of the epoch's global order, each
+window indexing the order its predecessors already cut, and the cursor
+then counts positions of what remains. ``set_epoch`` clears them too.
 """
 
 from __future__ import annotations
@@ -32,13 +36,24 @@ class ShardedSampler:
         self.pad = pad
         self.epoch = 0
         self.cursor = 0
+        self.skip_windows: list[tuple[int, int]] = []
         self.num_samples = -(-dataset_len // num_replicas)   # ceil
         self.total_size = self.num_samples * num_replicas
 
     def set_epoch(self, epoch: int) -> None:
-        """Reshuffle for ``epoch``; clears the cursor."""
+        """Reshuffle for ``epoch``; clears the cursor and the skip
+        windows."""
         self.epoch = epoch
         self.cursor = 0
+        self.skip_windows = []
+
+    def set_skip_windows(self, windows) -> None:
+        """Cut the poisoned ``[start, end)`` positions out of this epoch's
+        global order (before the padding and the stride, like the
+        cursor), in order: each window indexes the order as the earlier
+        ones left it. Call after ``set_epoch``."""
+        self.skip_windows = [
+            (max(0, int(a)), int(b)) for a, b in windows if int(b) > int(a)]
 
     def set_cursor(self, consumed: int) -> None:
         """Skip the first ``consumed`` positions of this epoch's global
@@ -55,8 +70,15 @@ class ShardedSampler:
             rng.shuffle(idx)
         return idx
 
+    def _apply_skip_windows(self, idx: np.ndarray) -> np.ndarray:
+        for a, b in self.skip_windows:
+            idx = np.concatenate([idx[:a], idx[b:]])
+        return idx
+
     def indices(self) -> np.ndarray:
-        idx = self.global_order()[self.cursor:]
+        # The windows are positions of the whole order; the cursor counts
+        # positions of what they leave.
+        idx = self._apply_skip_windows(self.global_order())[self.cursor:]
         if self.pad:
             total = -(-len(idx) // self.num_replicas) * self.num_replicas
             if total > len(idx):
@@ -68,6 +90,11 @@ class ShardedSampler:
         return iter(self.indices())
 
     def __len__(self) -> int:
-        if self.cursor and self.pad:
-            return -(-(self.dataset_len - self.cursor) // self.num_replicas)
+        if self.cursor or self.skip_windows:
+            remaining = len(self._apply_skip_windows(
+                np.arange(self.dataset_len)))
+            remaining = max(0, remaining - self.cursor)
+            if self.pad:
+                return -(-remaining // self.num_replicas) if remaining else 0
+            return max(0, -(-(remaining - self.rank) // self.num_replicas))
         return self.num_samples if self.pad else len(self.indices())

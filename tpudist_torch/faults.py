@@ -18,12 +18,22 @@ port has, each called from one place:
     checkpoint_corrupt      checkpoint.save_checkpoint: flip bytes after
                             the sidecar (``step`` gates the stored epoch)
     decode_fail[:p=,fails=] data loader: hash-deterministic sample failure
+    watchdog_expire         the stall watchdog's poll: fire at once
+    nanbomb                 trainer, after the batch is on the card: the
+                            whole batch times NaN
+    lossbomb[:factor=F]     trainer step boundary: the classifier head
+                            (tpudist's last 2-D param leaf) times F
+    bitflip[:bit=B]         trainer step boundary: flip bit B (23) of
+                            element 0 of tpudist's first f32 param leaf
 
-tpudist's other points act on planes the port does not have; a spec that
-arms one is refused by name (``check_spec``), as is a name that is no
-point at all. Probabilistic faults hash the sample key (no RNG state), so
-the same samples fail on every run and every rank, and ``fails=N`` heals
-a key after N failures.
+``lossbomb`` and ``bitflip`` pick their leaf as tpudist does, in the
+order ``jax.tree_util`` flattens tpudist's params (dict keys sorted),
+through the port's name map (``compat.jax_params.jax_leaves``): for
+resnet18 that is ``fc.weight`` and ``bn1.bias``, not torch's module
+order. A name that is no point is refused by name (``check_spec``).
+Probabilistic faults hash the sample key (no RNG state), so the same
+samples fail on every run and every rank, and ``fails=N`` heals a key
+after N failures.
 """
 
 from __future__ import annotations
@@ -46,11 +56,8 @@ ENV_ATTEMPT = "TPUDIST_RESTART_COUNT"
 ENV_RANK = "TPUDIST_PROCESS_ID"
 
 POINTS = ("rank_exit", "slow_peer", "straggle", "init_hang",
-          "checkpoint_corrupt", "decode_fail")
-# tpudist's points whose plane is not in the port: point → plane.
-UNPORTED = {"watchdog_expire": "the stall watchdog",
-            "nanbomb": "the doctor", "lossbomb": "the doctor",
-            "bitflip": "the doctor"}
+          "checkpoint_corrupt", "decode_fail", "watchdog_expire", "nanbomb",
+          "lossbomb", "bitflip")
 
 
 @dataclass
@@ -112,16 +119,12 @@ def parse_spec(spec: str) -> list[Injection]:
 
 
 def check_spec(spec: str) -> list[Injection]:
-    """``parse_spec``, then refuse every item the port cannot fire: a
-    point whose plane is not ported (naming the plane) or no point at
-    all (naming the ones there are)."""
+    """``parse_spec``, then refuse every item that names no fault point
+    (naming the ones there are)."""
     injections = parse_spec(spec)
     bad = []
     for inj in injections:
-        if inj.name in UNPORTED:
-            bad.append(f"{inj.name} ({UNPORTED[inj.name]} is not in the "
-                       f"port)")
-        elif inj.name not in POINTS:
+        if inj.name not in POINTS:
             bad.append(f"{inj.name} (no such fault point; the port's are "
                        f"{', '.join(POINTS)})")
     if bad:
@@ -313,6 +316,84 @@ def decode_should_fail(key: int) -> bool:
     inj.fired += 1
     _notify("decode_fail", key=int(key))
     return True
+
+
+def maybe_nanbomb(step: int, images):
+    """``nanbomb``, after the batch is on the card: the whole batch times
+    NaN (a bad record, an overflowed preprocessing). The guarded step's
+    sentinel must trip and the step must leave the state as it was."""
+    inj = should_fire("nanbomb", step=step)
+    if inj is None:
+        return images
+    print(f"[tpudist.faults] nanbomb firing at step {step}", flush=True)
+    return images * float("nan")
+
+
+def _param_leaves(model):
+    """tpudist's ``params`` leaves of ``model`` in jax's flatten order."""
+    from tpudist_torch.compat.jax_params import jax_leaves
+    return jax_leaves(list(model.named_parameters()))
+
+
+def maybe_lossbomb(step: int, model) -> Optional[str]:
+    """``lossbomb``, at the step boundary: scale the classifier head (the
+    last 2-D leaf of tpudist's params) by ``factor`` (100) in place. The
+    next loss spikes and stays finite: the EWMA detector, not the
+    sentinel, must act. No rank gate: every replica is hit alike. Returns
+    the parameter's name when it fired."""
+    inj = should_fire("lossbomb", step=step)
+    if inj is None:
+        return None
+    factor = inj.param_float("factor", 100.0)
+    hits = [(name, view) for _, name, view in _param_leaves(model)
+            if view.ndim == 2]
+    if not hits:
+        print("[tpudist.faults] lossbomb armed but no 2-D param leaf "
+              "found", flush=True)
+        return None
+    name, view = hits[-1]
+    print(f"[tpudist.faults] lossbomb firing at step {step} "
+          f"(head kernel x{factor:g})", flush=True)
+    import torch
+    with torch.no_grad():
+        view.mul_(factor)
+    return name
+
+
+def maybe_bitflip(step: int, model) -> Optional[str]:
+    """``bitflip``, at the step boundary: flip bit ``bit`` (23, the f32
+    exponent's lowest) of element 0 of the first f32 leaf of tpudist's
+    params, on this rank (silent data corruption: nothing turns
+    non-finite, only the doctor's digest probe sees it). Returns the
+    parameter's name when it fired."""
+    inj = should_fire("bitflip", step=step)
+    if inj is None:
+        return None
+    import torch
+    bit = inj.param_int("bit", 23)
+    hits = [(i, name, view) for i, (_, name, view)
+            in enumerate(_param_leaves(model))
+            if view.numel() > 0 and view.dtype == torch.float32]
+    if not hits:
+        print("[tpudist.faults] bitflip armed but no f32 param leaf found",
+              flush=True)
+        return None
+    idx, name, view = hits[0]
+    mask = 1 << bit
+    mask = mask - (1 << 32) if mask >= 1 << 31 else mask   # as int32
+    at = (0,) * view.ndim
+    with torch.no_grad():
+        words = view.view(torch.int32)       # the same bytes, on the device
+        words[at] = words[at] ^ mask
+    print(f"[tpudist.faults] bitflip firing at step {step} "
+          f"(param leaf {idx}, bit {bit})", flush=True)
+    return name
+
+
+def maybe_watchdog_expire() -> bool:
+    """``watchdog_expire``, in the watchdog's poll: the budget counts as
+    blown, so the stall chain runs in milliseconds."""
+    return should_fire("watchdog_expire") is not None
 
 
 def classify_exit(code: int) -> str:

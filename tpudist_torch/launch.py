@@ -44,10 +44,17 @@ ranks' heartbeat gauges and straggler flags, headlines scraped from each
 rank's own endpoint) at ``/metrics`` and ``/dashboard``, and records it
 as ``fleet_ts.<attempt>.jsonl`` (``obs.tsdb``).
 
+Incident bundles, as tpudist's launcher makes them: once a rank runs
+``--blackbox`` (its ``blackbox/`` dir exists in the run dir), the
+supervision poll gathers the ranks' dumps and the launcher's own
+triggers (a nonzero ``rank_exit``, a ``straggler``) into
+``incidents/<id>/`` (``blackbox.IncidentBundler``), keeping the newest
+``--incident-keep`` (4); a last sweep runs as the launcher exits.
+
 tpudist's other launcher flags (the elastic gang and its
 ``--drain-grace``, straggler eviction, the collective watchdog,
-scale-up, incident bundles, and the JAX platform flags) are accepted by
-name and refused when set::
+scale-up, and the JAX platform flags) are accepted by name and refused
+when set::
 
     python -m tpudist_torch.launch -n 1 -- python -m tpudist_torch \\
         --distributed -a resnet18 --use_amp --fused-bn on -b 256 --synthetic
@@ -69,6 +76,7 @@ import socket
 import subprocess
 import sys
 import time
+from typing import Optional
 
 from tpudist_torch import faults
 from tpudist_torch import telemetry as telemetry_lib
@@ -87,7 +95,6 @@ _NOT_YET = {
     "scale_up": ("--scale-up", "elastic scale-up"),
     "collective_deadline": ("--collective-deadline",
                             "the dead-collective watchdog"),
-    "incident_keep": ("--incident-keep", "incident bundles (blackbox.py)"),
 }
 
 
@@ -161,6 +168,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="flag a rank whose per-step host time (heartbeat "
                         "host_p50) is over this many times the other "
                         "ranks' median (0 = off)")
+    p.add_argument("--incident-keep", type=int, default=4,
+                   dest="incident_keep", metavar="K",
+                   help="keep the newest K incident bundles under "
+                        "<rundir>/incidents/ (the checkpoint keep-K "
+                        "convention); the bundler arms itself once a rank "
+                        "runs --blackbox")
     for dest, (flag, what) in _NOT_YET.items():
         kw = ({"action": "store_const", "const": True}
               if dest == "elastic" else {})
@@ -183,13 +196,49 @@ def _rank_env(coordinator: str, rank: int, nprocs: int,
     return env
 
 
+def _maybe_bundler(args, telemetry, bundler):
+    """The incident bundler, made once a rank's ``blackbox/`` dir exists
+    (a run without ``--blackbox`` leaves no ``incidents/``); the one made
+    before is returned as it is."""
+    if bundler is not None or telemetry is None:
+        return bundler
+    from tpudist_torch.blackbox import IncidentBundler, blackbox_dir
+    if not os.path.isdir(blackbox_dir(telemetry.outpath)):
+        return None
+    bundler = IncidentBundler(telemetry.outpath, telemetry=telemetry,
+                              keep=args.incident_keep)
+    # The launcher's own stream carries the fleet triggers; the lazy
+    # stream has one sink slot (the fleet view may hold it): chain.
+    if hasattr(telemetry, "add_sink"):
+        telemetry.add_sink(bundler.observe)
+    else:
+        prev = telemetry.sink
+
+        def _chained(ev, _prev=prev, _obs=bundler.observe):
+            if _prev is not None:
+                try:
+                    _prev(ev)
+                except Exception:   # noqa: BLE001 — a sink never fails emit
+                    pass
+            _obs(ev)
+
+        telemetry.sink = _chained
+    print(f"[tpudist_torch.launch] incident bundler armed "
+          f"(keep {bundler.keep}, {bundler.dir})",
+          file=sys.stderr, flush=True)
+    return bundler
+
+
 def _supervise_once(args, cmd, attempt: int, telemetry=None,
-                    fleet=None) -> int:
+                    fleet=None, incidents: Optional[dict] = None) -> int:
     """Start every rank, wait for all of them, and return 0, or the exit
     code of the first rank that failed after tearing the others down
     (130 when the launcher itself was interrupted). About once a second
     it reads the ranks' heartbeats once, for the straggler check, the
-    fleet view and its time series."""
+    fleet view and its time series, and polls the incident bundler
+    (``incidents["bundler"]``, made there once a rank runs
+    ``--blackbox``)."""
+    incidents = {} if incidents is None else incidents
     coordinator = args.coordinator or f"127.0.0.1:{find_free_port()}"
     procs: list[subprocess.Popen] = []
     # The ranks run in sessions of their own (so a teardown can signal
@@ -264,6 +313,10 @@ def _supervise_once(args, cmd, attempt: int, telemetry=None,
                             telemetry.outpath, attempt=attempt)
                     if ts_recorder is not None:
                         ts_recorder.sample(fleet, beats)
+                bundler = incidents["bundler"] = _maybe_bundler(
+                    args, telemetry, incidents.get("bundler"))
+                if bundler is not None:
+                    bundler.poll()
             if procs:
                 time.sleep(0.2)
     except KeyboardInterrupt:
@@ -413,6 +466,9 @@ def main(argv=None) -> int:
     if args.max_restarts < 0:
         p.error("--max-restarts must be >= 0 (there is no infinite mode: "
                 "an unrecoverable fault would relaunch forever)")
+    if args.incident_keep < 1:
+        p.error("--incident-keep must be >= 1 (0 would delete every "
+                "bundle the moment it lands)")
     refused = [f"{flag} ({what})" for dest, (flag, what)
                in _NOT_YET.items() if getattr(args, dest) is not None]
     if refused:
@@ -426,10 +482,12 @@ def main(argv=None) -> int:
                     f"{args.inject!r}: {e}")
     telemetry = _launcher_telemetry(args, cmd)
     fleet, server = _fleet_metrics(args, telemetry, p)
+    incidents: dict = {}
     attempt = 0
     try:
         while True:
-            exit_code = _supervise_once(args, cmd, attempt, telemetry, fleet)
+            exit_code = _supervise_once(args, cmd, attempt, telemetry, fleet,
+                                        incidents)
             if exit_code in (0, 130):
                 return exit_code
             why = faults.classify_exit(exit_code)
@@ -448,6 +506,10 @@ def main(argv=None) -> int:
     finally:
         if hasattr(telemetry, "flush"):
             telemetry.flush(force=True)    # the job is over: land the events
+        # The last sweep: dumps the ranks wrote as they went down.
+        bundler = _maybe_bundler(args, telemetry, incidents.get("bundler"))
+        if bundler is not None:
+            bundler.close()
         if server is not None:
             server.close()
 

@@ -10,14 +10,16 @@ without ``--metrics-port`` pays nothing.
 The metric names (``tpudist_*``), labels and help strings are tpudist's,
 so dashboards and alerts built for tpudist read the port unchanged.
 Families fed by events the port does not emit (``program``'s FLOPs, the
-compile introspection, ``doctor``, ``sdc_probe``, ``incident``) render as
-tpudist renders them when those events are absent.
+compile introspection) render as tpudist renders them when those events
+are absent; the doctor's (``doctor``, ``sdc_probe``) and the flight
+recorder's (``incident``) count the port's events.
 
 Endpoints (``GET``): ``/metrics`` (Prometheus text 0.0.4), ``/healthz``
 (one-line JSON liveness) and, on the launcher's fleet endpoint,
-``/dashboard``. ``--metrics-port 0`` binds an ephemeral port, written to
-``<outpath>/metrics.<rank>.port``. tpudist's ``POST /capture`` arms its
-flight recorder, which the port does not have: the port serves no POST.
+``/dashboard``. ``POST /capture`` arms the flight recorder's one-shot
+deep capture (``--blackbox``; answered 202) on an endpoint given a
+capture hook (``set_capture``), and 404 on any other. ``--metrics-port
+0`` binds an ephemeral port, written to ``<outpath>/metrics.<rank>.port``.
 """
 
 from __future__ import annotations
@@ -470,6 +472,30 @@ class _Handler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(body)
 
+    def do_POST(self):  # noqa: N802 (http.server API)
+        # POST /capture arms the recorder's one-shot capture (trigger
+        # class ``manual``, the SIGUSR2 cooldown). POST, not GET: a crawler
+        # or a prefetch must not burn the cooldown.
+        if self.path.split("?")[0] != "/capture":
+            self.send_error(404)
+            return
+        hook = getattr(self.server, "capture_hook", None)
+        if hook is None:
+            self.send_error(404, explain="no blackbox recorder attached "
+                                         "(run with --blackbox)")
+            return
+        try:
+            hook()
+        except Exception as e:
+            self.send_error(500, explain=repr(e))
+            return
+        body = b'{"ok": true, "armed": "manual"}\n'
+        self.send_response(202)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
     def log_message(self, *a):      # scrapes must not spam training stdout
         pass
 
@@ -508,6 +534,11 @@ class MetricsServer:
         return {"ok": True, "rank": s.get("rank"),
                 "last_step": s.get("last_step"),
                 "heartbeat_age_s": s.get("heartbeat_age_s")}
+
+    def set_capture(self, hook) -> None:
+        """Serve ``POST /capture``: ``hook()`` (cheap: it runs on the HTTP
+        thread; the recorder's sets one flag)."""
+        self._httpd.capture_hook = hook
 
     def start(self) -> "MetricsServer":
         self._thread.start()

@@ -46,6 +46,14 @@ SCHEMA: dict[str, tuple[str, ...]] = {
     "fault": ("point",),
     # One per preemption drain: the signal the trainer caught.
     "preempt": ("signal",),
+    # The doctor (doctor/): one per intervention, ``action`` in
+    # {skip_step, spike, sdc_divergence, rollback, evict}, with its
+    # evidence; one ``sdc_probe`` per digest probe.
+    "doctor": ("action",),
+    "sdc_probe": ("step", "world", "divergent"),
+    # The flight recorder (blackbox.py): one per trigger, on the rank and
+    # from the launcher's bundler (which adds ``bundle``).
+    "incident": ("trigger", "suspect_rank", "captured"),
     # Which attention backend --flash resolved to. One per ViT trainer.
     "attention_dispatch": ("kernel", "mode", "source"),
     # Which BN epilogue --fused-bn resolved to. One per trainer.
@@ -69,7 +77,11 @@ _NUMERIC = {"t", "rank", "attempt", "step", "epoch", "seconds", "code",
             "nprocs", "n_devices", "global_batch", "straggler_rank",
             "factor", "wall_s", "productive_s", "goodput", "n_sites",
             "n_fused", "n_buckets", "bucket", "n_valid", "queue_depth",
-            "n_requests", "n_images", "image_size", "steps"}
+            "n_requests", "n_images", "image_size", "steps", "world",
+            "windows", "suspect_rank", "gnorm", "loss", "mean", "std",
+            "sigmas", "divergent", "tie", "divergent_rank", "to_epoch",
+            "rollbacks", "window_epoch", "window_start", "window_end",
+            "consecutive_skips", "captured", "ring_rows"}
 
 
 def validate_event(ev: dict) -> None:

@@ -83,7 +83,21 @@ one card a rank.
   ``lam`` and smoothing (tpudist's ``_loss_fn``), per microbatch under
   accumulation; accuracy reads the main logits.
 
-The doctor guard and gradient compression are not in the port yet.
+- The doctor's guard (``--doctor``, ``guard=True``): tpudist's
+  sentinels, ``ok = isfinite(mean loss) & isfinite(gnorm)``, with
+  ``gnorm`` the global L2 norm of the gradients after DDP's reduction
+  (and, in float16, after the unscale), so every rank decides alike. On
+  ``not ok`` the whole update is undone on the card: the parameters, the
+  optimizer's state, the BN running buffers (torch moves them in the
+  forward, so they are copied before it) and the EMA keep their pre-step
+  values bit for bit, by ``torch.where(ok, new, old)`` per tensor (NaN
+  safe, as ``jnp.where``), AdamW's ``step`` count included (on the card
+  it is capturable, so it lives beside its moments). The host reads
+  nothing: the metrics gain ``notfinite`` and ``gnorm`` (device scalars,
+  drained one step late). In float16 an overflow is the scaler's (``ok |= ~finite``, reported as
+  ``scaler_skip``), as in tpudist.
+
+Gradient compression is not in the port yet.
 """
 
 from __future__ import annotations
@@ -155,8 +169,11 @@ def make_optimizer(model: torch.nn.Module, cfg) -> torch.optim.Optimizer:
                    "weight_decay": cfg.weight_decay},
                   {"params": [p for n, p in named if not decays(n, p)],
                    "weight_decay": 0.0}]
+        # On the card the step count lives there too (capturable), so the
+        # doctor's guard selects it as it does every other tensor.
         return torch.optim.AdamW(groups, lr=cfg.lr, betas=(0.9, 0.999),
-                                 eps=1e-8)
+                                 eps=1e-8,
+                                 capturable=next(model.parameters()).is_cuda)
     raise ValueError(f"unsupported optimizer '{cfg.optimizer}' (sgd|adamw)")
 
 
@@ -245,11 +262,76 @@ def dropout_step_seed(seed: int, step: int, rank: int,
     return (int(state[0]) << 31) ^ int(state[1])
 
 
+def global_grad_norm(grads: list[torch.Tensor]) -> torch.Tensor:
+    """The global L2 norm of ``grads`` (f32, on their device): tpudist's
+    ``global_grad_norm``, the doctor's second sentinel."""
+    if not grads:
+        return torch.zeros(())
+    norms = torch._foreach_norm([g.float() for g in grads])
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+class _Guard:
+    """The doctor's skip-step: copies of the state a step moves, and the
+    select that puts them back when the step's flag is false."""
+
+    def __init__(self, net: torch.nn.Module, optimizer, ema):
+        self.optimizer = optimizer
+        self.params = list(net.parameters())
+        self.buffers = list(net.buffers())
+        self.ema = ([] if ema is None
+                    else [*ema.parameters(), *ema.buffers()])
+        self._copies: dict[str, list] = {}
+
+    def copy(self, key: str, tensors: list) -> list:
+        """Copies of ``tensors`` into buffers kept across steps."""
+        got = self._copies.get(key)
+        if got is None or [t.shape for t in got] != [t.shape for t in
+                                                      tensors]:
+            got = self._copies[key] = [torch.empty_like(t) for t in tensors]
+        if tensors:
+            torch._foreach_copy_(got, tensors)
+        return got
+
+    @staticmethod
+    def select(ok: torch.Tensor, tensors: list, olds: list) -> None:
+        """``tensors`` ← ``where(ok, tensors, olds)``, NaN-safe, one
+        launch a tensor."""
+        with torch.no_grad():
+            for t, o in zip(tensors, olds):
+                torch.where(ok, t, o, out=t)
+
+    def _state(self) -> list:
+        """``(state dict, key)`` of every tensor of the optimizer state."""
+        return [(st, k) for p in self.params
+                for st in (self.optimizer.state.get(p),) if st
+                for k, v in st.items() if torch.is_tensor(v)]
+
+    def before_update(self):
+        """Before ``optimizer.step``: the state it is about to move."""
+        state = self._state()
+        return (self.copy("params", self.params), state,
+                self.copy("opt", [st[k] for st, k in state]))
+
+    def after_update(self, ok: torch.Tensor, saved) -> None:
+        params_old, state, opt_old = saved
+        self.select(ok, self.params, params_old)
+        self.select(ok, [st[k] for st, k in state], opt_old)
+        now = self._state()
+        if len(now) != len(state):
+            # State the step created (the first step's momentum, moments
+            # and count): its old value is the zero optax starts from.
+            known = {(id(st), k) for st, k in state}
+            fresh = [st[k] for st, k in now if (id(st), k) not in known]
+            self.select(ok, fresh, [t.new_zeros(()) for t in fresh])
+
+
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     cfg, ema: torch.nn.Module | None = None,
                     draw_fn: Callable | None = None,
                     first_step: int = 0,
-                    scaler: DynamicScale | None = None) -> Callable:
+                    scaler: DynamicScale | None = None,
+                    guard: bool = False) -> Callable:
     """``step(images, labels, lr) → {"loss", "acc1"}``:
     forward in train mode (BN statistics update the running buffers), f32
     CE loss, backward, the optimizer update, and with ``ema`` the EMA
@@ -267,7 +349,11 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     With ``scaler`` (float16) the step scales each microbatch's loss by
     ``scaler.scale``, unscales and checks the gradients, steps the
     optimizer only if every one is finite, and updates ``scaler`` in
-    place; its metrics add ``finite`` (a host bool)."""
+    place; its metrics add ``finite`` (a host bool).
+
+    With ``guard`` (``--doctor``) the metrics add ``notfinite`` and
+    ``gnorm`` (and ``scaler_skip`` in float16), and a step whose
+    sentinel trips leaves the state as it found it."""
     smoothing = float(getattr(cfg, "label_smoothing", 0.0))
     ddp = isinstance(model, DistributedDataParallel)
     net = model.module if ddp else model
@@ -284,6 +370,7 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
             return mixup.draw_mix(mixup.step_generator(seed, step_index, rank),
                                   n, h, w, *alphas)
     calls = [int(first_step)]
+    g = _Guard(net, optimizer, ema) if guard else None
 
     def step(images: torch.Tensor, labels: torch.Tensor, lr: float) -> dict:
         index = calls[0]
@@ -297,6 +384,9 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         model.train()
         optimizer.zero_grad(set_to_none=True)
         scale = None if scaler is None else scaler.scale
+        if g is not None:
+            # torch moves the running statistics in the forward.
+            buffers_old = g.copy("buffers", g.buffers)
         if accum == 1:
             with dropout_seed(dropout_step_seed(seed, index, rank, 0)):
                 loss, logits = forward_loss(model, images, labels, labels2,
@@ -340,6 +430,11 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     [p.grad for p in net.parameters() if p.grad is not None],
                     scale, accum)
             scaler.update(finite)
+        if g is not None:
+            with torch.no_grad():
+                gnorm = global_grad_norm([p.grad for p in net.parameters()
+                                          if p.grad is not None])
+            saved = g.before_update() if finite else None
         if finite:
             optimizer.step()
         with torch.no_grad():
@@ -347,8 +442,27 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
             if ddp:
                 average_buffers(net)
                 metrics = _mean_over_ranks(metrics)
+            if g is not None and finite:
+                # The reduced loss and gradients: every rank decides alike.
+                ok = torch.isfinite(metrics["loss"]) & torch.isfinite(gnorm)
+                g.after_update(ok, saved)
+                g.select(ok, g.buffers, buffers_old)
+                ema_old = (g.copy("ema", g.ema) if ema is not None
+                           else None)
             if ema is not None:
                 update_ema(ema, net, decay)
+            if g is not None:
+                if finite:
+                    if ema is not None:
+                        g.select(ok, g.ema, ema_old)
+                    metrics["notfinite"] = (~ok).float()
+                else:
+                    # A float16 overflow is the scaler's skip, not the
+                    # doctor's (tpudist: ok |= ~finite).
+                    metrics["notfinite"] = torch.zeros((), device=loss.device)
+                metrics["gnorm"] = gnorm
+                if scaler is not None:
+                    metrics["scaler_skip"] = 0.0 if finite else 1.0
         if scaler is not None:
             metrics["finite"] = finite
         return metrics

@@ -78,7 +78,29 @@ beside ``tpudist.data_wait``, ``tpudist.h2d`` and
 ``--resume x.pth.tar`` imports the reference's file (its weights, epoch
 and best_acc1), ``--pretrained`` starts from torchvision's weights on
 disk, and ``--torch_checkpoints`` also writes ``checkpoint.pth.tar`` and
-``model_best.pth.tar`` (``compat/``). The doctor is not ported.
+``model_best.pth.tar`` (``compat/``).
+
+The fault planes, as tpudist's trainer wires them:
+- ``--doctor`` (``doctor/``): the guarded step (``train.make_train_step(
+  guard=True)``); its flags reach ``Doctor.on_metrics`` through the
+  metric drain one step late (a skipped step stays out of the meters and
+  of the optimizer count). At each step boundary the doctor may raise
+  ``RollbackRequested`` (``fit`` restores the newest probe-verified-good
+  checkpoint, or the seeded initial state, and replays the epoch minus
+  the poisoned window; ``global_step`` keeps counting dispatches while
+  the checkpoint's step rolls back) and, every ``--doctor-probe-freq``
+  steps, probes the replicated state (a rank minority-divergent too
+  often exits 76). The fault points ``nanbomb``, ``lossbomb`` and
+  ``bitflip`` fire at the boundary.
+- ``--stall-timeout`` (``utils/watchdog.py``): kicked before each
+  dispatch, after it, at the probe, at each validation batch and around
+  the replica check and the save; started by ``fit``, after the kernels
+  were built and the dispatch probed, so a cold build never counts.
+- ``--replica-check-freq N``: every N epochs every rank's parameters and
+  BN buffers are held against rank 0's (``utils/debug.py``).
+- ``--blackbox`` (``blackbox.py``): the flight recorder as a telemetry
+  sink, SIGUSR2 and ``POST /capture`` on the metrics endpoint; its deep
+  capture is polled at each step boundary.
 """
 
 from __future__ import annotations
@@ -103,6 +125,7 @@ from tpudist_torch.config import (VIT_ARCHS, Config, refuse_unsupported,
                                   write_settings)
 from tpudist_torch.data import DevicePrefetcher, build_train_val_loaders
 from tpudist_torch.data.loader import to_device
+from tpudist_torch.doctor import Doctor, RollbackRequested, probes
 from tpudist_torch.models import create_model
 from tpudist_torch.models.layers import BatchNorm
 from tpudist_torch.ops import (attention_dispatch, dispatch, flash_attention,
@@ -112,7 +135,10 @@ from tpudist_torch.train import (compute_dtype, data_parallel, lr_for_epoch,
                                  make_scaler, make_train_step)
 from tpudist_torch.utils import (AverageMeter, ProgressMeter, get_logger,
                                  output_process)
+from tpudist_torch.utils.debug import (assert_replicas_consistent,
+                                       replica_leaves)
 from tpudist_torch.utils.profiling import StepProfiler
+from tpudist_torch.utils.watchdog import Watchdog
 
 
 class _MetricDrain:
@@ -120,15 +146,25 @@ class _MetricDrain:
     displayed, averages stay exact. With ``lag`` > 0 each push copies the
     step's metrics into pinned host memory behind the step (an event marks
     the copy), and ``drain_ready`` reads only entries at least ``lag``
-    steps old, whose copies have landed."""
+    steps old, whose copies have landed.
 
-    def __init__(self, meters: dict[str, AverageMeter], lag: int = 0):
+    ``observer(step, values)`` (the doctor's feed) sees every drained
+    entry as host floats, the guard's flags among them; an entry flagged
+    ``notfinite`` stays out of the meters (its update was undone)."""
+
+    def __init__(self, meters: dict[str, AverageMeter], lag: int = 0,
+                 observer=None):
         self.meters = meters
         self.lag = max(0, int(lag))
+        self.observer = observer
         self.pending: list = []
 
-    def push(self, metrics: dict, n: int) -> None:
-        vals = torch.stack([metrics[k].float() for k in self.meters])
+    def push(self, metrics: dict, n: int, step: Optional[int] = None
+             ) -> None:
+        keys = [k for k, v in metrics.items() if torch.is_tensor(v)]
+        host_vals = {k: float(v) for k, v in metrics.items()
+                     if not torch.is_tensor(v)}
+        vals = torch.stack([metrics[k].float() for k in keys])
         event = None
         if self.lag and vals.is_cuda:
             host = torch.empty(vals.shape, dtype=vals.dtype, pin_memory=True)
@@ -136,14 +172,18 @@ class _MetricDrain:
             event = torch.cuda.Event()
             event.record()
             vals = host
-        self.pending.append((vals, event, n))
+        self.pending.append((keys, vals, host_vals, event, n, step))
 
     def _apply(self, entries) -> None:
-        for vals, event, n in entries:
+        for keys, vals, host_vals, event, n, step in entries:
             if event is not None:
                 event.synchronize()
-            for meter, v in zip(self.meters.values(), vals.tolist()):
-                meter.update(v, n)
+            got = dict(zip(keys, vals.tolist()), **host_vals)
+            if got.get("notfinite", 0.0) < 0.5:
+                for k, meter in self.meters.items():
+                    meter.update(got[k], n)
+            if self.observer is not None:
+                self.observer(step, got)
 
     def drain_ready(self) -> None:
         keep = len(self.pending) - self.lag
@@ -224,6 +264,9 @@ class Trainer:
         on_gpu = self.device.type == "cuda"
         self.telemetry = None
         self.metrics_server = None
+        self.blackbox = None
+        # Made by fit() when --stall-timeout > 0.
+        self.watchdog: Optional[Watchdog] = None
         if cfg.telemetry:
             self.telemetry = telemetry_lib.Telemetry(
                 cfg.outpath, rank=self.rank, init_s=init_s,
@@ -232,6 +275,8 @@ class Trainer:
             faults.set_observer(self._on_fault)
             if cfg.metrics_port >= 0:
                 self._start_metrics_server()
+            if cfg.blackbox:
+                self._arm_blackbox(on_gpu)
             self.telemetry.emit(
                 "run_start", platform="gpu" if on_gpu else "cpu",
                 n_devices=self.world, device_kind=(torch.cuda.get_device_name(
@@ -289,15 +334,27 @@ class Trainer:
                      f"{sum(probed.values())} kernels ("
                      + ", ".join(f"{k} {v}" for k, v in probed.items())
                      + ")")
+        self._model_kw = kw
         self.optimizer = make_optimizer(self.model, cfg)
         # --amp-dtype float16: tpudist's DynamicScale, in the state a
         # checkpoint carries; None otherwise.
         self.scaler = make_scaler(cfg)
-        # Optimizer updates that landed (a float16 run skips overflows).
+        # Optimizer updates that landed (a float16 run skips overflows,
+        # the doctor its non-finite steps).
         self.opt_steps = 0
         self.best_acc1 = 0.0
         self.start_epoch = cfg.start_epoch
+        # Dispatches of this process's run (monotonic across a doctor
+        # rollback: profiler windows, probes and fault gates key on it)
+        # and the train state's step (the checkpoint's; it rolls back with
+        # the weights and seeds the step's mixing and dropout draws).
         self.global_step = 0
+        self.state_step = 0
+        self.doctor: Optional[Doctor] = None
+        # epoch → the poisoned [start, end) windows its replay excises.
+        self._poison_windows: dict[int, list[tuple[int, int]]] = {}
+        if cfg.doctor:
+            self._arm_doctor()
         self._train_dispatched = False
         self.preemption: Optional[_PreemptionGuard] = None
         # The epoch's consumed positions of its global order, counted as
@@ -318,23 +375,59 @@ class Trainer:
                          "starting fresh")
         if resume:
             self.load(resume)
-        step_model = self.model
+        self.step_model = self.model
         if self.distributed:
-            step_model = data_parallel(self.model, self.device)
+            self.step_model = data_parallel(self.model, self.device)
             self.log(f"=> data-parallel: world {self.world}, backend "
                      f"{dist_lib.backend()}, DDP (buffers averaged after "
                      f"the step)" + (", SyncBN" if cfg.sync_batchnorm
                                      and self.has_bn else ""))
-        # The step's mixing draws are seeded by the optimizer step, which
-        # a resumed run continues.
-        self.train_step = make_train_step(step_model, self.optimizer, cfg,
-                                          ema=self.ema,
-                                          first_step=self.global_step,
-                                          scaler=self.scaler)
+        self.train_step = self._make_train_step()
+        step_model = self.step_model
         # --model-ema-decay: validation (and so 'best') measures the EMA.
         self.eval_step = (make_eval_step(step_model, cfg) if self.ema is None
                           else make_eval_step(self.ema, cfg,
                                               over_ranks=self.distributed))
+
+    def _make_train_step(self):
+        """The train step; its mixing and dropout draws are seeded by the
+        state's step, which a resume or a rollback sets."""
+        return make_train_step(self.step_model, self.optimizer, self.cfg,
+                               ema=self.ema, first_step=self.state_step,
+                               scaler=self.scaler, guard=self.cfg.doctor)
+
+    def _arm_blackbox(self, on_gpu: bool) -> None:
+        """The flight recorder: a telemetry sink beside the metrics
+        registry, SIGUSR2 and ``POST /capture`` for a manual capture."""
+        from tpudist_torch import blackbox as blackbox_lib
+        cfg = self.cfg
+        self.blackbox = blackbox_lib.BlackboxRecorder(
+            cfg.outpath, rank=self.rank, ring=cfg.blackbox_ring,
+            capture_steps=cfg.blackbox_capture_steps,
+            cooldown_s=cfg.blackbox_cooldown_s, telemetry=self.telemetry,
+            cuda=on_gpu)
+        self.telemetry.add_sink(self.blackbox.observe)
+        blackbox_lib.install_sigusr2(self.blackbox)
+        if self.metrics_server is not None:
+            self.metrics_server.set_capture(
+                lambda: self.blackbox.request_capture("http"))
+        self.log(f"=> blackbox armed: ring {cfg.blackbox_ring}, capture "
+                 f"{cfg.blackbox_capture_steps} steps, cooldown "
+                 f"{cfg.blackbox_cooldown_s:g}s (SIGUSR2 or POST /capture "
+                 f"for manual)")
+
+    def _arm_doctor(self) -> None:
+        """The doctor's policy engine; the guard is in the train step."""
+        cfg = self.cfg
+        self.doctor = Doctor(cfg, cfg.outpath, rank=self.rank,
+                             world=self.world, telemetry=self.telemetry,
+                             log=self.log_all, primary=self.primary)
+        probe_msg = (f"SDC probes every {cfg.doctor_probe_freq} steps"
+                     if cfg.doctor_probe_freq else "SDC probes off")
+        self.log(f"=> doctor armed: in-step sentinels fused (skip-step on "
+                 f"non-finite); EWMA spike detector "
+                 f"(σ={cfg.doctor_spike_sigma:g}); {probe_msg}; rollback "
+                 f"cap {cfg.doctor_max_rollbacks}")
 
     def _start_metrics_server(self) -> None:
         """The rank's live endpoint: a ``MetricsRegistry`` fed as a
@@ -552,6 +645,17 @@ class Trainer:
         if self.logger is not None:
             self.logger.info(msg)
 
+    def log_all(self, msg: str) -> None:
+        """Every rank's log (a rank that evicts itself must say so)."""
+        if self.primary:
+            self.log(msg)
+        else:
+            print(f"[rank {self.rank}] {msg}", flush=True)
+
+    def _kick(self) -> None:
+        if self.watchdog is not None:
+            self.watchdog.kick()
+
     def _on_fault(self, point: str, step, info: dict) -> None:
         """``faults.set_observer``'s sink: each fired injection is a
         ``fault`` event (the loader's threads call it; emit is locked)."""
@@ -584,11 +688,12 @@ class Trainer:
                 cfg = self.cfg
                 state = ckpt_lib.state_to_dict(
                     self.model, self.optimizer, arch=cfg.arch, epoch=epoch,
-                    best_acc1=self.best_acc1, step=self.global_step,
+                    best_acc1=self.best_acc1, step=self.state_step,
                     ema=self.ema, topology=ckpt_lib.topology_tag(
                         self.world, cfg.per_device_batch_size,
                         cfg.batch_size),
-                    scaler=self.scaler, opt_steps=self.opt_steps)
+                    scaler=self.scaler, opt_steps=self.opt_steps,
+                    doctor=self._doctor_payload())
                 ckpt_lib.save_checkpoint(state, is_best, cfg.outpath,
                                          keep=cfg.keep_checkpoints)
                 if cfg.torch_checkpoints:
@@ -643,17 +748,56 @@ class Trainer:
                 state = ckpt_lib.state_to_dict(
                     self.model, self.optimizer, arch=cfg.arch,
                     epoch=epoch - 1, best_acc1=self.best_acc1,
-                    step=self.global_step, ema=self.ema,
+                    step=self.state_step, ema=self.ema,
                     topology=ckpt_lib.topology_tag(
                         self.world, cfg.per_device_batch_size,
                         cfg.batch_size),
                     data_cursor=self._data_cursor(epoch, train_loader),
-                    scaler=self.scaler, opt_steps=self.opt_steps)
+                    scaler=self.scaler, opt_steps=self.opt_steps,
+                    doctor=self._doctor_payload())
                 ckpt_lib.save_checkpoint(state, False, cfg.outpath, keep=0)
         finally:
             if self.telemetry is not None:
                 self.telemetry.note_checkpoint(time.time() - t0,
                                                kind="emergency", epoch=epoch)
+
+    def _doctor_payload(self) -> Optional[dict]:
+        """The doctor's replay state for a save: the poison windows (an
+        emergency cursor counts positions of the excised order) and the
+        rollback count (the budget survives a restart)."""
+        if self.doctor is None \
+                or not (self._poison_windows or self.doctor.rollbacks):
+            return None
+        return {"rollbacks": int(self.doctor.rollbacks),
+                "poison_windows": {str(ep): [[int(a), int(b)] for a, b in ws]
+                                   for ep, ws in self._poison_windows.items()
+                                   if ws}}
+
+    def _restore_doctor(self, doc) -> None:
+        """Re-arm the windows and the rollback count a save carried
+        (before the cursor applies: it counts the excised order)."""
+        if not doc:
+            return
+        if self.doctor is None:
+            if doc.get("poison_windows"):
+                self.log(f"=> checkpoint carries the doctor's replay "
+                         f"windows {dict(doc['poison_windows'])}; --doctor "
+                         f"is off, so they are not applied")
+            return
+        try:
+            self._poison_windows = {
+                int(ep): [(int(a), int(b)) for a, b in ws]
+                for ep, ws in dict(doc.get("poison_windows") or {}).items()}
+            self.doctor.rollbacks = int(doc.get("rollbacks", 0))
+        except (TypeError, ValueError):
+            self.log("=> doctor: malformed replay state in checkpoint "
+                     "— ignoring (windows lost, budget reset)")
+            return
+        if self._poison_windows:
+            self.log(f"=> doctor: checkpoint carries poison windows "
+                     f"{self._poison_windows} (rollbacks so far: "
+                     f"{self.doctor.rollbacks}) — replay continues with "
+                     f"them excised")
 
     def load(self, path: str) -> None:
         """Resume from ``path`` on this rank: the start epoch, best_acc1,
@@ -687,7 +831,7 @@ class Trainer:
             # An explicit file: the user named these bytes.
             ckpt = ckpt_lib.load_checkpoint(path)
         try:
-            self.global_step = ckpt_lib.restore(
+            self.global_step = self.state_step = ckpt_lib.restore(
                 ckpt, self.model, self.optimizer, self.ema, arch=cfg.arch,
                 world=self.world, log=self.log, scaler=self.scaler,
                 train=not cfg.evaluate)
@@ -709,6 +853,7 @@ class Trainer:
             self.log(f"=> checkpoint carries a mid-epoch sample cursor: "
                      f"epoch {cur.get('epoch')} continues at global sample "
                      f"{cur.get('consumed')} (no replay, no drop)")
+        self._restore_doctor(ckpt.get("doctor"))
 
     def train_epoch(self, loader, epoch: int, lr: float):
         cfg = self.cfg
@@ -720,8 +865,11 @@ class Trainer:
                                  [batch_time, data_time, losses, top1],
                                  prefix=f"Epoch[{epoch}]:\t")
         async_drain = bool(cfg.async_drain)
+        doctor = self.doctor
         drain = _MetricDrain({"loss": losses, "acc1": top1},
-                             lag=1 if async_drain else 0)
+                             lag=1 if async_drain else 0,
+                             observer=(self._on_step_metrics
+                                       if doctor is not None else None))
         pf = DevicePrefetcher(loader, self.device) if cfg.device_prefetch \
             else None
         tel = self.telemetry
@@ -736,12 +884,26 @@ class Trainer:
                 data_time.update(now - end)
                 data_s = now - t_prev
                 self.profiler.step(self.global_step)
+                if self.blackbox is not None:
+                    self.blackbox.poll(self.global_step)
+                self._kick()
                 # The boundary: every earlier step is dispatched, this one
                 # is not. A pending signal drains here.
                 self._check_preemption()
+                if doctor is not None:
+                    # A pending rollback raises here; the probe digests
+                    # the state every dispatched step has written.
+                    doctor.check_response()
+                    if doctor.should_probe(self.global_step):
+                        self._kick()
+                        self._probe(doctor)
                 faults.maybe_rank_exit(self.global_step)
                 faults.maybe_slow_peer(self.global_step)
                 faults.maybe_straggle(self.global_step)
+                if faults.armed("bitflip"):
+                    faults.maybe_bitflip(self.global_step, self.model)
+                if faults.armed("lossbomb"):
+                    faults.maybe_lossbomb(self.global_step, self.model)
                 first_dispatch = not self._train_dispatched
                 self._train_dispatched = True
                 counted = (self._first_step_kernels() if first_dispatch
@@ -755,11 +917,21 @@ class Trainer:
                         with record_function("tpudist.h2d"):
                             images, labels = to_device(images, labels,
                                                        self.device)
+                    if faults.armed("nanbomb"):
+                        images = faults.maybe_nanbomb(self.global_step,
+                                                      images)
                     t_c = time.time()
                     metrics = self.train_step(images, labels, lr)
                     t_done = time.time()
                 h2d_s, compute_s = t_c - t_h, t_done - t_c
-                self._epoch_consumed += int(images.shape[0]) * self.world
+                consumed = int(images.shape[0]) * self.world
+                if doctor is not None:
+                    # The global positions this step consumed: what a
+                    # rollback excises.
+                    doctor.note_step(self.global_step, epoch,
+                                     self._epoch_consumed,
+                                     self._epoch_consumed + consumed)
+                self._epoch_consumed += consumed
                 if metrics.pop("finite", True):
                     self.opt_steps += 1
                 else:
@@ -771,7 +943,8 @@ class Trainer:
                     # The next batch's copy, staged behind this step.
                     with record_function("tpudist.h2d"):
                         prefetch_s = pf.poke()
-                drain.push(metrics, n=int(images.shape[0]))
+                drain.push(metrics, n=int(images.shape[0]),
+                           step=self.global_step)
                 drain_ovl_s = None
                 if async_drain:
                     t_do = time.time()
@@ -779,6 +952,8 @@ class Trainer:
                     drain_ovl_s = time.time() - t_do
                 step_num = self.global_step
                 self.global_step += 1
+                self.state_step += 1
+                self._kick()
                 batch_time.update(time.time() - end)
                 end = time.time()
                 drain_s = 0.0
@@ -799,6 +974,10 @@ class Trainer:
             drain.drain()           # every dispatched step's metrics
             raise
         drain.drain()
+        if doctor is not None:
+            # A spike in the epoch's last steps acts before its validation
+            # and its checkpoint.
+            doctor.check_response()
         self.profiler.epoch_end()
         self.log(f"||==> Train: Epoch[{epoch}]\tLoss {losses.avg:.4e}\t"
                  f"Acc@1 {top1.avg:6.2f}")
@@ -823,6 +1002,7 @@ class Trainer:
         drain = _MetricDrain({"loss": losses, "acc1": top1})
         end = time.time()
         for i, (images, labels) in enumerate(loader):
+            self._kick()    # validation batches are progress too
             self._check_preemption()
             images, labels = to_device(images, labels, self.device)
             drain.push(self.eval_step(images, labels), n=int(images.shape[0]))
@@ -835,6 +1015,105 @@ class Trainer:
         self.log(f"||==> Val: Epoch[{epoch}]\tLoss {losses.avg:.4e}\t"
                  f"Acc@1 {top1.avg:6.2f}")
         return top1.avg
+
+    def _on_step_metrics(self, step: int, vals: dict) -> None:
+        """The drain's observer under ``--doctor``: a step the guard undid
+        landed no optimizer update; the doctor reads the flags."""
+        if vals.get("notfinite", 0.0) >= 0.5:
+            self.opt_steps -= 1
+        self.doctor.on_metrics(step, vals)
+
+    def _probe(self, doctor: Doctor) -> None:
+        """The SDC probe at a step boundary: this rank's digest against the
+        others'; a rank minority-divergent in ``--doctor-sdc-windows``
+        consecutive probes ends with ``faults.SDC_EXIT_CODE``."""
+        leaves = probes.state_leaves(self.model, self.optimizer, self.ema)
+        if doctor.probe(self.global_step, leaves) == "evict":
+            self.log_all(
+                f"=> doctor: this rank's replicated state is "
+                f"minority-divergent in {doctor.sdc_windows} consecutive "
+                f"probes — silent data corruption on this host; "
+                f"self-quarantining (exit {faults.SDC_EXIT_CODE}, no "
+                f"checkpoint written)")
+            raise SystemExit(faults.SDC_EXIT_CODE)
+
+    def _fresh_initial_state(self) -> None:
+        """The run's seeded initial state, in place: the weights drawn as
+        ``__init__`` drew them (and ``--pretrained``'s), a fresh optimizer
+        state, the EMA at those weights, a fresh float16 loss scale."""
+        cfg = self.cfg
+        seed = cfg.seed if cfg.seed is not None else 0
+        fresh = create_model(cfg.arch, **self._model_kw)
+        fresh.reset_parameters(torch.Generator().manual_seed(seed))
+        if cfg.pretrained:
+            pretrained_lib.load_pretrained(
+                fresh, cfg.arch, pretrained_lib.resolve_pretrained_path(
+                    cfg.arch, cfg.pretrained_path))
+        self.model.load_state_dict(fresh.state_dict())
+        self.optimizer.state.clear()
+        if self.ema is not None:
+            self.ema.load_state_dict(self.model.state_dict())
+        if self.scaler is not None:
+            self.scaler.load_state_dict(make_scaler(cfg).state_dict())
+
+    def _doctor_rollback(self, rb: RollbackRequested) -> int:
+        """Answer a spike or a persistent non-finite verdict: restore the
+        newest probe-verified-good checkpoint (the newest intact one when
+        no verdict exists, the seeded initial state when no checkpoint
+        does), record the poisoned windows for the replay, and return the
+        epoch to re-enter. ``global_step`` keeps counting dispatches; the
+        state's step rolls back with the weights."""
+        cfg = self.cfg
+        doctor = self.doctor
+        if doctor.rollbacks >= cfg.doctor_max_rollbacks:
+            raise RuntimeError(
+                f"doctor: {rb.reason} at step {rb.step}, but the rollback "
+                f"budget (--doctor-max-rollbacks {cfg.doctor_max_rollbacks}"
+                f") is exhausted — the run is deterministically unhealthy "
+                f"(diverging recipe, bad lr, or poisoned corpus); refusing "
+                f"to replay it forever")
+        windows = doctor.windows_for(rb)
+        self.log_all(f"=> doctor: {rb.reason} at step {rb.step} — rolling "
+                     f"back to the newest verified-good checkpoint")
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t0 = time.time()
+        to_epoch = 0
+        path = "<fresh init>"
+        try:
+            ckpt, path = ckpt_lib.load_checkpoint_with_fallback(
+                cfg.outpath, log=self.log, keep=cfg.keep_checkpoints,
+                require_verified=True)
+        except FileNotFoundError:
+            self.log_all("=> doctor: no checkpoint exists yet — rolling "
+                         "back to the seeded initial state")
+            self._fresh_initial_state()
+            self.state_step = self.opt_steps = 0
+        else:
+            self.state_step = ckpt_lib.restore(
+                ckpt, self.model, self.optimizer, self.ema, arch=cfg.arch,
+                world=self.world, log=self.log, scaler=self.scaler)
+            self.opt_steps = ckpt_lib.optimizer_count(ckpt)
+            to_epoch = int(ckpt.get("epoch", 0))
+            self.best_acc1 = float(ckpt.get("best_acc1", self.best_acc1))
+        # The draws of the replayed steps are the first run's.
+        self.train_step = self._make_train_step()
+        if self.telemetry is not None:
+            self.telemetry.note_restore(time.time() - t0, path=str(path),
+                                        epoch=to_epoch, rollback=1)
+        for wepoch, a, b in windows:
+            self._poison_windows.setdefault(wepoch, []).append((a, b))
+        doctor.on_rollback(rb, to_epoch, windows)
+        self._pending_cursor = None
+        self.log_all(
+            f"=> doctor: rolled back to '{path}' (re-entering epoch "
+            f"{to_epoch})"
+            + ("; " + "; ".join(
+                f"epoch {we} will replay minus global samples [{a}, {b})"
+                for we, a, b in windows) if windows
+               else "; no poisoned window recorded (step out of the "
+                    "position ring)"))
+        return to_epoch
 
     def _peak_memory_gb(self) -> float | None:
         if self.device.type != "cuda":
@@ -855,11 +1134,29 @@ class Trainer:
         try:
             if cfg.evaluate:
                 return self.validate(val_loader, epoch=-1)
+            if cfg.stall_timeout > 0:
+                # Started here, after __init__ built every kernel with nvcc
+                # and ran the dispatch probes: a cold build never counts
+                # against the budget. The timeout budgets one unit of
+                # progress (a step, a validation batch, a replica check, a
+                # save), and the first step gets all of it (kicked before
+                # its dispatch, as tpudist kicks before its compile).
+                self.watchdog = Watchdog(cfg.stall_timeout).start()
             self.preemption = _PreemptionGuard().install()
             total_time = 0.0
-            for epoch in range(self.start_epoch, cfg.epochs):
+            epoch = self.start_epoch
+            while epoch < cfg.epochs:
                 t0 = time.time()
                 train_loader.set_epoch(epoch)
+                if self._poison_windows.get(epoch):
+                    # A rollback's replay: the epoch's order minus the
+                    # poisoned windows (after set_epoch, which clears them;
+                    # before the cursor, which counts the excised order).
+                    train_loader.set_skip_windows(self._poison_windows[epoch])
+                    self.log(f"=> doctor: epoch {epoch} replays with "
+                             f"poisoned window(s) "
+                             f"{self._poison_windows[epoch]} excised "
+                             f"({len(train_loader)} steps remain)")
                 cur, self._pending_cursor = self._pending_cursor, None
                 if cur is not None and int(cur.get("epoch", -1)) == epoch:
                     # After set_epoch, which clears the cursor: the rest of
@@ -877,18 +1174,35 @@ class Trainer:
                              f"{self.world})")
                 lr = lr_for_epoch(cfg, epoch)
                 self.log(f"self.optimizer={{'lr': {lr}}}")
-                self.train_epoch(train_loader, epoch, lr)
+                try:
+                    self.train_epoch(train_loader, epoch, lr)
+                except RollbackRequested as rb:
+                    epoch = self._doctor_rollback(rb)
+                    continue
                 t_v = time.time()
                 acc1 = self.validate(val_loader, epoch)
                 if self.telemetry is not None:
                     self.telemetry.note_eval(time.time() - t_v, epoch=epoch,
                                              acc1=float(acc1))
+                if (cfg.replica_check_freq
+                        and (epoch + 1) % cfg.replica_check_freq == 0):
+                    self._kick()
+                    n = assert_replicas_consistent(replica_leaves(self.model))
+                    if n:
+                        self.log(f"replica consistency check passed "
+                                 f"({n} leaves, epoch {epoch})")
+                    else:
+                        self.log("replica consistency check skipped: no "
+                                 "replicated leaves (single device or fully "
+                                 "sharded state)")
                 is_best = acc1 > self.best_acc1
                 if is_best:
                     self.best_acc1 = float(acc1)
                     self.log(f"best_acc1={self.best_acc1:.3f}, "
                              f"epoch={epoch}")
+                self._kick()
                 self.save(epoch, is_best)
+                self._kick()
                 epoch_time = time.time() - t0
                 total_time += epoch_time
                 peak = self._peak_memory_gb()
@@ -908,6 +1222,9 @@ class Trainer:
                     self.telemetry.emit(
                         "epoch", epoch=epoch, seconds=round(epoch_time, 3),
                         **extra)
+                epoch += 1
+            if self.doctor is not None:
+                self.log(f"=> doctor summary: {self.doctor.summary()}")
             return self.best_acc1
         except PreemptionRequested as sig:
             # The dispatched steps are in the weights; the cursor counts
@@ -924,6 +1241,12 @@ class Trainer:
                 self.preemption.uninstall()
                 self.preemption = None
             self.profiler.close()
+            if self.blackbox is not None:
+                # A still-open capture stops before the telemetry closes.
+                self.blackbox.close()
+            if self.watchdog is not None:
+                self.watchdog.stop()
+                self.watchdog = None
             if self.telemetry is not None:
                 # What the card ran: the wrappers count only launches.
                 self.telemetry.close(

@@ -20,6 +20,13 @@ the capture holds the device work of its own steps and of no other. The
 trainer labels the capture with ``record_function`` ranges: ``train``
 around each step, ``tpudist.data_wait``, ``tpudist.h2d`` and
 ``tpudist.metric_drain``.
+
+``Capture`` is one such trace, started and stopped by step: the
+``StepProfiler``'s windows and the flight recorder's one-shot deep
+capture (``blackbox.py``) both take it. torch has one profiler a
+process: a capture does not start while another is recording (the
+``--profile`` window keeps the profiler; the recorder then keeps its
+dump and skips the trace, as tpudist's does).
 """
 
 from __future__ import annotations
@@ -42,6 +49,59 @@ def parse_window(spec: str) -> Optional[tuple[int, int]]:
     return start, end
 
 
+def profiler_recording() -> bool:
+    """True while a torch profiler records in this process."""
+    import torch
+    return bool(torch._C._autograd._profiler_enabled())
+
+
+class Capture:
+    """One ``torch.profiler`` trace into ``logdir``: ``start(first)``
+    (False when another profiler records), ``note(step)`` for each step
+    it holds, ``stop()`` writes ``steps<first>-<last>.pt.trace.json`` and
+    returns its path. On the card its edges wait for the card."""
+
+    def __init__(self, logdir: str, cuda: bool):
+        self.logdir = logdir
+        self.cuda = cuda
+        self.active = False
+        self._prof = None
+        self.first = self.last = 0
+
+    def start(self, first: int) -> bool:
+        import torch
+        import torch.profiler as tp
+        if profiler_recording():
+            return False
+        activities = [tp.ProfilerActivity.CPU]
+        if self.cuda:
+            activities.append(tp.ProfilerActivity.CUDA)
+            torch.cuda.synchronize()     # earlier steps' work stays out
+        os.makedirs(self.logdir, exist_ok=True)
+        self._prof = tp.profile(activities=activities)
+        self._prof.__enter__()
+        self.active = True
+        self.first = self.last = first
+        return True
+
+    def note(self, step: int) -> None:
+        self.last = step
+
+    def stop(self) -> Optional[str]:
+        if not self.active:
+            return None
+        import torch
+        if self.cuda:
+            torch.cuda.synchronize()     # the capture's own work is all in
+        self._prof.__exit__(None, None, None)
+        self.active = False
+        path = os.path.join(self.logdir,
+                            f"steps{self.first}-{self.last}.pt.trace.json")
+        self._prof.export_chrome_trace(path)
+        self._prof = None
+        return path
+
+
 class StepProfiler:
     """Trace global steps in [start, end). Call ``step(global_step)`` once
     per training step, before it is dispatched; ``epoch_end()`` after an
@@ -54,9 +114,7 @@ class StepProfiler:
         self.logdir = os.path.join(logdir, "profile",
                                    f"attempt_{env_attempt()}")
         self.cuda = getattr(device, "type", device) == "cuda"
-        self.active = False
-        self._prof = None
-        self._first = self._last = 0
+        self._capture = Capture(self.logdir, self.cuda)
         if self.window is not None and self.cuda:
             import torch.profiler as tp
             if tp.ProfilerActivity.CUDA not in tp.supported_activities():
@@ -65,29 +123,20 @@ class StepProfiler:
                     "record CUDA activity (supported: "
                     f"{sorted(a.name for a in tp.supported_activities())})")
 
+    @property
+    def active(self) -> bool:
+        return self._capture.active
+
     def step(self, global_step: int) -> None:
         if self.window is None:
             return
         start, end = self.window
         if not self.active and start <= global_step < end:
-            self._start(global_step)
+            self._capture.start(global_step)
         elif self.active and global_step >= end:
             self.close()
         if self.active:
-            self._last = global_step
-
-    def _start(self, first: int) -> None:
-        import torch
-        import torch.profiler as tp
-        activities = [tp.ProfilerActivity.CPU]
-        if self.cuda:
-            activities.append(tp.ProfilerActivity.CUDA)
-            torch.cuda.synchronize()     # earlier steps' work stays out
-        os.makedirs(self.logdir, exist_ok=True)
-        self._prof = tp.profile(activities=activities)
-        self._prof.__enter__()
-        self.active = True
-        self._first = first
+            self._capture.note(global_step)
 
     def epoch_end(self) -> None:
         """Stop an open trace at the epoch boundary, so validation and the
@@ -95,13 +144,4 @@ class StepProfiler:
         self.close()
 
     def close(self) -> None:
-        if not self.active:
-            return
-        import torch
-        if self.cuda:
-            torch.cuda.synchronize()     # the window's own work is all in
-        self._prof.__exit__(None, None, None)
-        self.active = False
-        self._prof.export_chrome_trace(os.path.join(
-            self.logdir, f"steps{self._first}-{self._last}.pt.trace.json"))
-        self._prof = None
+        self._capture.stop()
